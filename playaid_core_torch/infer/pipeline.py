@@ -1,0 +1,280 @@
+"""Batched two-fighter action-recognition pipeline, CNN family.
+
+Counterpart of ``playaid_core_tpu/infer/pipeline.py``.  Every crop goes
+through the ResNet-18 once; middle-out windows are then gathered over the
+embedding sequence and classified by the temporal head:
+
+1. ``preprocess_frames``: frames + boxes -> crops (CUDA kernel
+   ``csrc/crop_resize.cu`` on the card);
+2. ``embed_crops`` / ``embed_crops_u8`` / ``embed_crops_yuv``: crops ->
+   1000-d embeddings (ResNet-18; its last identity block is the CUDA
+   kernel ``csrc/residual_block.cu`` on the card);
+3. ``make_embedding_buffer`` + ``scatter_embeddings``: embeddings
+   accumulate, interleaved by fighter, in one ``[F_pad * 2, D]`` buffer;
+4. ``classify_buffer`` / ``classify_sequence``: windows -> temporal head
+   -> log-probs -> argmax or Viterbi labels and confidences.
+
+Weights live in the pipeline's modules: load them with
+:meth:`BatchedActionPipeline.load_state_dicts` (see ``convert.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from playaid_core_torch.device import resolve_device
+from playaid_core_torch.models.resnet import ResNet18
+from playaid_core_torch.ops.crop_kernel import square_crop_resize
+from playaid_core_torch.ops.preprocess import middle_out_frame_indices
+
+
+class CNNEmbed(ResNet18):
+    """ResNet-18 trunk of the CNN family: NHWC crops ``[N, S, S, 3]`` in
+    [0, 1] -> ``[N, 1000]`` per-frame features."""
+
+    def forward(self, crops):
+        return super().forward(crops.permute(0, 3, 1, 2))
+
+
+class CNNTemporalHead(nn.Module):
+    """Dense head over a window of embeddings ``[B, T, D]`` -> log-probs
+    ``[B, A]`` (float32).  The window flattens t-major, ``[B, T * D]``."""
+
+    def __init__(self, num_actions, sequence_length, resnet_features=1000):
+        super().__init__()
+        self.temporal_dense = nn.Linear(sequence_length * resnet_features, 512)
+        self.mlp_hidden = nn.Linear(512, 128)
+        self.classifier = nn.Linear(128, num_actions)
+
+    def forward(self, window_feats):
+        y = window_feats.reshape(window_feats.shape[0], -1)
+        y = torch.relu(self.temporal_dense(y))
+        y = torch.relu(self.mlp_hidden(y))
+        return torch.log_softmax(self.classifier(y).float(), dim=1)
+
+
+class BatchedActionPipeline:
+    """Fused preprocess -> embed-once -> window-gather -> classify.
+
+    ``device=None`` means the CUDA device, and raises without one; pass
+    ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+    """
+
+    # Embedding buffers round up to powers of two below this many frames
+    # and to multiples of it above, as in the JAX package.
+    BUFFER_BUCKET_FRAMES = 4096
+
+    def __init__(self, family="cnn", num_actions=63, sequence_length=7, frame_delta=3,
+                 crop_size=128, device=None):
+        if family != "cnn":
+            raise NotImplementedError(
+                f"family={family!r} is not ported yet; see ROADMAP.md, queue 1 item 7"
+            )
+        self.family = family
+        self.num_actions = num_actions
+        self.sequence_length = sequence_length
+        self.frame_delta = frame_delta
+        self.crop_size = crop_size
+        self.device = resolve_device(device)
+        self.embed = CNNEmbed().to(self.device).eval()
+        self.head = CNNTemporalHead(num_actions, sequence_length).to(self.device).eval()
+
+    @property
+    def embed_dim(self):
+        return 1000
+
+    def load_state_dicts(self, state):
+        """Load ``{"embed": ..., "head": ...}`` state dicts (strictly)."""
+        self.embed.load_state_dict(state["embed"])
+        self.head.load_state_dict(state["head"])
+        return self
+
+    # ---- embedding ----
+
+    @torch.inference_mode()
+    def embed_crops(self, crops):
+        """crops ``[N, S, S, 3]`` float in [0, 1] -> ``[N, 1000]``."""
+        return self.embed(crops)
+
+    @torch.inference_mode()
+    def embed_crops_u8(self, crops_u8):
+        """BGR uint8 crops ``[N, S, S, 3]`` -> RGB / 255 -> embeddings."""
+        return self.embed(crops_u8.flip(-1).float() / 255.0)
+
+    @torch.inference_mode()
+    def embed_crops_yuv(self, crops_yuv):
+        """Packed planar YUV420 uint8 crops ``[N, S*S*3//2]`` (Y, then U,
+        then V) -> BT.601 limited-range RGB / 255 -> embeddings.  Chroma is
+        upsampled 2x by nearest neighbour."""
+        s = self.crop_size
+        n = crops_yuv.shape[0]
+        yb, cb = s * s, (s // 2) * (s // 2)
+        y = crops_yuv[:, :yb].reshape(n, s, s).float()
+        u = crops_yuv[:, yb:yb + cb].reshape(n, s // 2, s // 2).float()
+        v = crops_yuv[:, yb + cb:].reshape(n, s // 2, s // 2).float()
+        u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        yc = 1.164383 * (y - 16.0)
+        r = yc + 1.596027 * (v - 128.0)
+        g = yc - 0.391762 * (u - 128.0) - 0.812968 * (v - 128.0)
+        b = yc + 2.017232 * (u - 128.0)
+        rgb = torch.stack([r, g, b], dim=-1)
+        return self.embed(torch.clamp(rgb, 0.0, 255.0) / 255.0)
+
+    @torch.inference_mode()
+    def preprocess_frames(self, frames_u8, boxes, padding=30):
+        """BGR frames ``[B, H, W, 3]`` uint8 + boxes ``[B, 4]`` or
+        ``[B, K, 4]`` -> RGB crops ``boxes.shape[:-1] + (S, S, 3)`` float32.
+        The CUDA kernel on the card, its plain version on the CPU."""
+        return square_crop_resize(frames_u8, boxes, out_size=self.crop_size,
+                                  padding=padding, bgr_to_rgb=True)
+
+    # ---- embedding buffer ----
+
+    def make_embedding_buffer(self, num_frames):
+        """Zeroed interleaved ``[F_pad * 2, D]`` float32 buffer; F_pad is
+        the next power of two up to BUFFER_BUCKET_FRAMES and a multiple
+        of it above."""
+        cap = self.BUFFER_BUCKET_FRAMES
+        if num_frames <= cap:
+            f_pad = 1
+            while f_pad < num_frames:
+                f_pad *= 2
+        else:
+            f_pad = cap * ((num_frames + cap - 1) // cap)
+        return torch.zeros((f_pad * 2, self.embed_dim), dtype=torch.float32,
+                           device=self.device)
+
+    @staticmethod
+    def scatter_embeddings(buf, emb_chunk, row_offset):
+        """Write one chunk's ``[rows, D]`` embeddings at ``row_offset``.
+
+        Writes into ``buf`` in place and returns it (the JAX version
+        donated the buffer to get the same effect).  A chunk that does
+        not fit raises, where the JAX version clamped the offset.
+        """
+        rows = emb_chunk.shape[0]
+        if row_offset < 0 or row_offset + rows > buf.shape[0]:
+            raise IndexError(f"rows [{row_offset}, {row_offset + rows}) outside a "
+                             f"buffer of {buf.shape[0]}")
+        buf[row_offset:row_offset + rows] = emb_chunk
+        return buf
+
+    # ---- classification ----
+
+    @staticmethod
+    def _smooth_log_probs(log_probs, true_len, radius):
+        """Mean log-probs over frames ``[i - radius, i + radius]``, clamped
+        to the true sequence."""
+        f = log_probs.shape[0]
+        i = torch.arange(f, device=log_probs.device)
+        lp = torch.where((i < true_len)[:, None], log_probs, 0.0)
+        csum = torch.cat([lp.new_zeros((1, lp.shape[1])), torch.cumsum(lp, dim=0)])
+        lo = torch.clamp(i - radius, min=0)
+        hi = torch.clamp(i + radius, max=max(true_len - 1, 0))
+        summed = csum[hi + 1] - csum[lo]
+        count = torch.clamp(hi + 1 - lo, min=1).to(lp.dtype)
+        return summed / count[:, None]
+
+    @staticmethod
+    def _viterbi_decode(log_probs, true_len, switch_cost):
+        """MAP label path ``[F]`` under a uniform switching penalty of
+        ``switch_cost`` nats (a Potts prior).
+
+        Staying wins ties with switching and argmax takes the first
+        index.  Rows at or after ``true_len`` are frozen: they take the
+        last valid row's label.  ``switch_cost=inf`` gives the global
+        argmax of the summed evidence.  The forward pass loops over the
+        valid rows only; the backtrack runs on the host.
+        """
+        f, a = log_probs.shape
+        valid = torch.arange(f, device=log_probs.device) < true_len
+        lp = torch.where(valid[:, None], log_probs, 0.0)
+        n = min(max(int(true_len), 1), f)
+        idx = torch.arange(a, device=lp.device)
+        carry = lp[0]
+        ptrs = []
+        for t in range(1, n):
+            switch_from = torch.argmax(carry)
+            switch_score = carry[switch_from] - switch_cost
+            take_stay = carry >= switch_score
+            best = torch.where(take_stay, carry, switch_score)
+            ptrs.append(torch.where(take_stay, idx, switch_from))
+            carry = lp[t] + best
+        cur = int(torch.argmax(carry))
+        labels = [cur] * f
+        back = torch.stack(ptrs).cpu().tolist() if ptrs else []
+        for t in range(n - 1, 0, -1):
+            labels[t] = cur
+            cur = back[t - 1][cur]
+        labels[0] = cur
+        return torch.tensor(labels, dtype=torch.long, device=log_probs.device)
+
+    def _window_log_probs(self, seq, true_len, min_frame):
+        """Middle-out windows over ``seq`` ``[F, ..., D]`` -> head log-probs
+        ``[F, ..., A]``.  Windows are clamped to ``true_len`` so padding
+        rows never feed real frames."""
+        f = seq.shape[0]
+        idx = middle_out_frame_indices(
+            torch.arange(f, device=seq.device), self.sequence_length, self.frame_delta,
+            max(int(true_len), 1), min_frame=min_frame,
+        )  # [F, T]
+        windows = seq[idx]  # [F, T, ..., D]
+        windows = windows.movedim(1, -2)  # [F, ..., T, D]
+        lead = windows.shape[:-2]
+        windows = windows.reshape(-1, self.sequence_length, windows.shape[-1])
+        return self.head(windows).reshape(lead + (-1,))
+
+    def _decode(self, log_probs, true_len, smooth_radius, decode, switch_cost):
+        """One fighter's log-probs ``[F, A]`` -> (labels [F], confidence [F])."""
+        if smooth_radius:
+            log_probs = self._smooth_log_probs(log_probs, true_len, smooth_radius)
+        if decode == "viterbi":
+            labels = self._viterbi_decode(log_probs, true_len, switch_cost)
+            conf = torch.exp(torch.gather(log_probs, 1, labels[:, None]))[:, 0] * 100.0
+        elif decode == "argmax":
+            labels = torch.argmax(log_probs, dim=-1)
+            conf = torch.exp(torch.max(log_probs, dim=-1).values) * 100.0
+        else:
+            raise ValueError(f"decode must be 'argmax' or 'viterbi', got {decode!r}")
+        return labels, conf
+
+    def _two_fighter_tail(self, per_fighter, true_len, min_frame, smooth_radius=0,
+                          decode="argmax", switch_cost=4.0):
+        """Interleaved ``[F, 2, D]`` embeddings -> (labels ``[F, 2]``,
+        confidence ``[F, 2]``)."""
+        log_probs = self._window_log_probs(per_fighter, true_len, min_frame)  # [F, 2, A]
+        out = [self._decode(log_probs[:, k], true_len, smooth_radius, decode, switch_cost)
+               for k in range(2)]
+        return torch.stack([o[0] for o in out], 1), torch.stack([o[1] for o in out], 1)
+
+    @torch.inference_mode()
+    def classify_buffer(self, buf, true_len, min_frame=0, smooth_radius=0,
+                        decode="argmax", switch_cost=4.0):
+        """Embedding buffer ``[F_pad * 2, D]`` -> (labels ``[true_len, 2]``,
+        confidence ``[true_len, 2]``, in percent)."""
+        per_fighter = buf.reshape(buf.shape[0] // 2, 2, -1).float()
+        labels, conf = self._two_fighter_tail(per_fighter, true_len, min_frame,
+                                              smooth_radius, decode, switch_cost)
+        return labels[:true_len], conf[:true_len]
+
+    @torch.inference_mode()
+    def classify_sequence(self, embeddings, min_frame=0, smooth_radius=0,
+                          decode="argmax", switch_cost=4.0, return_raw=False):
+        """One fighter's embeddings ``[F, D]`` -> (labels ``[F]``,
+        confidence ``[F]``) from middle-out windows.
+
+        ``smooth_radius`` > 0 pools log-probs over ``[i - r, i + r]``
+        first; ``decode="viterbi"`` decodes the MAP path under a
+        ``switch_cost``-nat switching penalty.  ``return_raw=True`` also
+        returns the per-window argmax labels from the same head pass.
+        (The JAX version padded to a bucket to share compiled programs;
+        eager PyTorch needs no padding.)
+        """
+        f = embeddings.shape[0]
+        log_probs = self._window_log_probs(embeddings.float(), f, min_frame)
+        labels, conf = self._decode(log_probs, f, smooth_radius, decode, switch_cost)
+        if return_raw:
+            return labels, conf, torch.argmax(log_probs, dim=-1)
+        return labels, conf

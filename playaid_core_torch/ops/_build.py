@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so`` at the root of
+the checkout, then loaded with ctypes.  A library is built at its first
+use and again whenever its source is newer than it.  ``build`` starts one
+``nvcc`` per source, all at once, and waits for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+KERNELS = ("crop_resize", "residual_block")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "toolkit is needed to build the port's kernels")
+
+
+def _library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _library_path(name)
+    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+
+
+def build(names=KERNELS) -> dict[str, str]:
+    """Compile the named kernels in parallel; return each one's compiler
+    output (registers, shared memory and spills from ``-Xptxas -v``), or
+    an empty string for a library that was already up to date."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (tmp, t0, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, _library_path(name))
+        logs[name] = f"built in {time.perf_counter() - t0:.1f} s\n{out}"
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        if _stale(name):
+            build((name,))
+        _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+    return _loaded[name]
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

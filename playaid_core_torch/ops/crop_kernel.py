@@ -1,0 +1,67 @@
+"""Batched square crop/resize: the CUDA kernel ``csrc/crop_resize.cu`` and
+its wrapper.
+
+Counterpart of ``playaid_core_tpu/ops/pallas_kernels.py``.  For a CUDA
+tensor :func:`square_crop_resize` launches the kernel (or raises); for a
+CPU tensor it runs the plain version,
+:func:`playaid_core_torch.ops.preprocess.batched_square_crop_resize`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from playaid_core_torch.ops import _build
+from playaid_core_torch.ops.preprocess import batched_square_crop_resize
+
+
+def _library():
+    lib = _build.load("crop_resize")
+    fn = lib.crop_resize
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def square_crop_resize(frames_u8, boxes, out_size=128, padding=0,
+                       bgr_to_rgb=False, normalize=True):
+    """Letterboxed square crops ``boxes.shape[:-1] + (S, S, 3)`` float32.
+
+    frames_u8 ``[N, H, W, 3]`` uint8 (BGR when ``bgr_to_rgb``); boxes
+    float ``[N, 4]`` (one crop per frame) or ``[N, K, 4]`` (K crops per
+    frame, each frame read once for all K), normalised yolo (cx, cy, w, h).
+    """
+    if frames_u8.dim() != 4 or frames_u8.shape[-1] != 3:
+        raise ValueError(f"frames must be [N, H, W, 3], got {tuple(frames_u8.shape)}")
+    if boxes.dim() not in (2, 3) or boxes.shape[0] != frames_u8.shape[0] or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be [N, 4] or [N, K, 4] for N={frames_u8.shape[0]} "
+                         f"frames, got {tuple(boxes.shape)}")
+    if frames_u8.device.type == "cpu":
+        return batched_square_crop_resize(frames_u8, boxes, out_size, padding,
+                                          bgr_to_rgb, normalize)
+    if frames_u8.device.type != "cuda" or boxes.device != frames_u8.device:
+        raise ValueError("frames and boxes must lie on the same CUDA device")
+    if frames_u8.dtype != torch.uint8:
+        raise TypeError(f"the kernel takes uint8 frames, got {frames_u8.dtype}")
+
+    n, h, w = frames_u8.shape[:3]
+    per_frame = 1 if boxes.dim() == 2 else boxes.shape[1]
+    frames_u8 = frames_u8.contiguous()
+    boxes_f = boxes.float().contiguous()
+    out = torch.empty(boxes.shape[:-1] + (out_size, out_size, 3),
+                      dtype=torch.float32, device=frames_u8.device)
+    status = _library()(
+        frames_u8.data_ptr(), boxes_f.data_ptr(), out.data_ptr(), n, per_frame,
+        h, w, out_size, float(padding), int(bgr_to_rgb), int(normalize),
+        torch.cuda.current_stream(frames_u8.device).cuda_stream,
+    )
+    _build.check(status, "crop_resize launch")
+    square_crop_resize.launches += 1
+    return out
+
+
+square_crop_resize.launches = 0

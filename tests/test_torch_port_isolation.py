@@ -1,0 +1,73 @@
+"""The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
+and chip_smoke.py refuses to run without a CUDA device.
+
+The import check runs in a subprocess, because tests/conftest.py imports
+jax into the test process.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "playaid_core_tpu")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {BANNED!r}:
+    sys.modules[name] = None
+import playaid_core_torch
+names = [m.name for m in pkgutil.walk_packages(playaid_core_torch.__path__,
+                                               "playaid_core_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(" ".join(sorted(names)))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def test_port_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    imported = set(proc.stdout.split())
+    for name in ("convert", "device", "infer.pipeline", "models.resnet", "ops._build",
+                 "ops.conv_block", "ops.crop_kernel", "ops.preprocess"):
+        assert f"playaid_core_torch.{name}" in imported
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_names_a_banned_module():
+    """Lazy imports inside functions count too: every import statement of
+    the package and of chip_smoke.py is checked."""
+    files = sorted((ROOT / "playaid_core_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        assert not _imported_roots(path) & set(BANNED), path
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a CUDA device (as here) the smoke exits non-zero and prints
+    no result line."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, even on a machine that has one
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
