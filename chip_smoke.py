@@ -15,13 +15,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. crop kernel (K1) against its plain version at the main-path shapes and
    on boxes that hang off every frame edge;
 3. residual-block kernel (K2) against its plain version on the real
-   layer4[1] weights and input, float32 and bfloat16;
-4. the slice: per chunk upload -> preprocess_frames (K1) -> embed_crops
-   (ResNet-18, layer4[1] through K2) -> scatter_embeddings, then
-   classify_buffer (argmax and Viterbi) and the stride repeat; launch
+   layer4[1] weights and input, float32 (3xTF32) and bfloat16;
+4. the slice, with PyTorch's default TF32 flags (the entry points set
+   their own float32 numerics): per chunk upload -> preprocess_frames (K1)
+   -> embed_crops (ResNet-18, layer4[1] through K2) -> scatter_embeddings,
+   then classify_buffer (argmax and Viterbi) and the stride repeat; launch
    counts; the first 96 frames again on the CPU with the plain versions;
-5. timings of each kernel, its plain version and one library call that
-   computes the same function, with the least time the card could take.
+5. timings of each kernel: call time (CUDA events over back-to-back calls)
+   and device time (torch.profiler, the kernels' own time over the same
+   kind of window), its plain version and one library call that computes
+   the same function, with the least time the card could take.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,12 +49,14 @@ SWITCH_COST = 16.0
 
 # H100 SXM data-sheet peaks at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_FLOPS = 67e12   # CUDA cores: K2's yardstick before the tensor cores
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 K1_TOL = 1e-5             # max abs, outputs in [0, 1]
-K2_F32_REL_TOL = 1e-4     # of max|ref|: summation order differs, TF32 off
+K2_F32_REL_TOL = 1e-4     # of max|ref|: 3xTF32 products, summation order differs
 K2_BF16_ULPS = 2          # bf16 ulps at max(|ref|, max|ref| / 64)
-EMBED_REL_TOL = 1e-3      # card vs CPU embeddings, of max|cpu|
+EMBED_REL_TOL = 1e-5      # card vs CPU embeddings, of max|cpu|
 LABEL_AGREEMENT_MIN = 0.99
 
 
@@ -103,6 +108,28 @@ def time_cuda(torch, fn, iters, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(torch, fn, iters, kernel_name, warmup=3):
+    """Device milliseconds per call of fn(it) and kernel launches per call:
+    the self device time of the kernels whose name holds kernel_name, over
+    iters back-to-back calls under torch.profiler, divided by iters.
+    (None, 0) when the profiler sees no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for it in range(warmup):
+        fn(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for it in range(iters):
+            fn(it)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU and kernel_name in e.key]
+    if not rows:
+        return None, 0
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / iters,
+            sum(e.count for e in rows) / iters)
 
 
 def crop_touched_bytes(boxes, h, w, size, padding):
@@ -171,11 +198,16 @@ def main():
     import torch.nn.functional as F
 
     from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
-    from playaid_core_torch.device import disable_tf32
+    from playaid_core_torch.device import full_float32
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
     from playaid_core_torch.models.resnet import fold_batch_norm
     from playaid_core_torch.ops import _build
-    from playaid_core_torch.ops.conv_block import residual_block, residual_block_ref
+    from playaid_core_torch.ops.conv_block import (
+        pack_block,
+        residual_block,
+        residual_block_packed,
+        residual_block_ref,
+    )
     from playaid_core_torch.ops.crop_kernel import square_crop_resize
     from playaid_core_torch.ops.preprocess import batched_square_crop_resize
 
@@ -191,13 +223,12 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- phase 1: build ----
-    disable_tf32()
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "built in" in line or "registers" in line or "spill" in line:
+            if any(k in line for k in ("built in", "entry function", "registers", "spill")):
                 log(f"  {name}: {line.strip()}")
 
     # ---- inputs: weights and the sampled frames of the disc clip ----
@@ -226,11 +257,25 @@ def main():
     check(tuple(k1_out.shape) == (per_chunk, 2, CROP, CROP, 3) and k1_err <= K1_TOL,
           f"phase 2: K1 crop_resize {tuple(k1_out.shape)} + 8 edge boxes, max abs err "
           f"{k1_err:.3e} (tol {K1_TOL})")
+    # Off the main path: 30-px crops (rows of 90 floats, no 16-byte stores),
+    # windows wider and taller than a 90x160 frame, a degenerate box.  The
+    # plain version runs on the CPU here: on the card its division by a
+    # crop size that is not a power of two rounds differently (probably
+    # through the reciprocal) from the true division that the kernel, the
+    # CPU and JAX do.
+    odd_frames = frames0[:3, :90, :160].contiguous()
+    odd_boxes = torch.tensor([[0.5, 0.5, 1.5, 1.2], [0.02, 0.98, 0.8, 0.8], [0.5, 0.5, 0, 0]],
+                             device=dev)
+    odd_out = square_crop_resize(odd_frames, odd_boxes, 30, 6, False, True).cpu()
+    odd_ref = batched_square_crop_resize(odd_frames.cpu(), odd_boxes.cpu(), 30, 6, False, True)
+    odd_err = float((odd_out - odd_ref).abs().max())
+    check(odd_err <= K1_TOL, f"phase 2: K1 crop_resize 30-px crops of oversized windows vs the "
+          f"CPU plain version, max abs err {odd_err:.3e} (tol {K1_TOL})")
 
     # ---- phase 3: K2 on the real layer4[1] weights and input ----
     net = pipe.embed
     block = net.layer4[1]
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():
         x = k1_out.reshape(-1, CROP, CROP, 3).permute(0, 3, 1, 2)
         x = net.maxpool(torch.relu(net.bn1(net.conv1(x))))
         x = net.layer4[0](net.layer3(net.layer2(net.layer1(x))))
@@ -255,6 +300,20 @@ def main():
     check(ulps <= K2_BF16_ULPS,
           f"phase 3: K2 residual_block bf16 max {ulps:.2f} ulps (tol {K2_BF16_ULPS}), "
           f"max abs err {np.abs(bf_out - bf_ref).max():.3e}")
+    # Off the main path: a batch whose last row tile is mostly masked, at
+    # the smallest channel count the kernel takes.
+    with torch.inference_mode():
+        small = (x_nhwc[:5, ..., :64].contiguous(), w1[:, :, :64, :64].contiguous(), s1[:64],
+                 b1[:64], w2[:, :, :64, :64].contiguous(), s2[:64], b2[:64])
+        small_err = float((residual_block(*small) - residual_block_ref(*small)).abs().max())
+        small_scale = float(residual_block_ref(*small).abs().max())
+        small_bf = (small[0].bfloat16(), small[1].bfloat16(), *small[2:4], small[4].bfloat16(),
+                    *small[5:])
+        small_ulps = bf16_ulps(residual_block(*small_bf).float().cpu().numpy(),
+                               residual_block_ref(*small_bf).float().cpu().numpy())
+    check(small_err <= K2_F32_REL_TOL * small_scale and small_ulps <= K2_BF16_ULPS,
+          f"phase 3: K2 residual_block B=5 C=64: f32 max abs err {small_err:.3e} (tol "
+          f"{K2_F32_REL_TOL} x {small_scale:.3f}), bf16 max {small_ulps:.2f} ulps")
 
     # ---- phase 4: the slice ----
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
@@ -302,7 +361,7 @@ def main():
 
     run_slice()  # warm-up: cuDNN plans, allocator
     square_crop_resize.launches = 0
-    residual_block.launches = 0
+    residual_block_packed.launches = 0
     stage_ms = dict.fromkeys(stages, 0.0)
     t0 = time.perf_counter()
     buf, labels = run_slice(stage_ms)
@@ -315,8 +374,9 @@ def main():
     emb_yuv = pipe.embed_crops_yuv(yuv)
     torch.cuda.synchronize()
     launches = {"crop_resize": square_crop_resize.launches,
-                "residual_block": residual_block.launches}
-    log(f"phase 4: main-path launches {launches}")
+                "residual_block": residual_block_packed.launches}
+    log(f"phase 4: main-path launches {launches}; global TF32 flags left at cudnn "
+        f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32}")
     check(all(n > 0 for n in launches.values()), "phase 4: both kernels ran on the main path")
     fps = NUM_FRAMES / slice_s
     log(f"phase 4: slice {NUM_FRAMES} frames in {slice_s * 1e3:.1f} ms = {fps:.1f} frames/s "
@@ -391,9 +451,13 @@ def main():
                             align_corners=False).permute(0, 2, 3, 1)
     lib_err = float((lib_out.reshape(k1_ref.shape) - k1_ref).abs().max())
     log(f"phase 5: grid_sample yardstick vs K1 plain: max abs err {lib_err:.3e}")
+    def k1_call(it):
+        return square_crop_resize(frame_sets[it % n_sets], box_sets[it % n_sets], CROP,
+                                  PADDING, True, True)
+
     with torch.inference_mode():
-        k1_ms = time_cuda(torch, lambda it: square_crop_resize(
-            frame_sets[it % n_sets], box_sets[it % n_sets], CROP, PADDING, True, True), 80)
+        k1_ms = time_cuda(torch, k1_call, 80)
+        k1_dev_ms, k1_per_call = device_ms(torch, k1_call, 80, "crop_resize_kernel")
         k1_plain_ms = time_cuda(torch, lambda it: batched_square_crop_resize(
             frame_sets[it % n_sets], box_sets[it % n_sets], CROP, PADDING, True, True), 16)
         k1_lib_ms = time_cuda(torch, lambda it: F.grid_sample(
@@ -417,22 +481,48 @@ def main():
                          False, 0.0, bn[1].eps)
         return torch.relu(y + x_nchw)
 
+    # The main path's call: the block's cached pack, then the launch.
     with torch.inference_mode():
-        lib2_err = float((cudnn_chain(0).permute(0, 2, 3, 1) - k2_ref).abs().max())
-        log(f"phase 5: cuDNN chain yardstick vs K2 plain: max abs err {lib2_err:.3e}")
-        k2_ms = time_cuda(torch, lambda it: residual_block(*k2_args), 40)
-        k2_bf16_ms = time_cuda(torch, lambda it: residual_block(*bf_args), 40)
+        pack_f32 = block.block_pack(torch.float32)
+        pack_bf16 = pack_block(*bf_args[1:], dtype=torch.bfloat16)
+        x_bf16 = bf_args[0]
+
+        def k2_f32(_):
+            return residual_block_packed(x_nhwc, pack_f32)
+
+        def k2_bf16(_):
+            return residual_block_packed(x_bf16, pack_bf16)
+
+        with full_float32():  # the yardstick in float32 too
+            lib2_err = float((cudnn_chain(0).permute(0, 2, 3, 1) - k2_ref).abs().max())
+            k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
+        log(f"phase 5: cuDNN chain yardstick (TF32 off) vs K2 plain: max abs err {lib2_err:.3e}")
+        k2_ms = time_cuda(torch, k2_f32, 40)
+        k2_dev_ms, k2_per_call = device_ms(torch, k2_f32, 40, "conv3x3_wgmma_kernel")
+        k2_bf16_ms = time_cuda(torch, k2_bf16, 40)
+        k2_bf16_dev_ms, _ = device_ms(torch, k2_bf16, 40, "conv3x3_wgmma_kernel")
         k2_plain_ms = time_cuda(torch, lambda it: residual_block_ref(*k2_args), 40)
-        k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
     m, c = x_nhwc.shape[0] * 16, x_nhwc.shape[3]
     k2_flops = 2 * 2 * m * c * 9 * c
+    # Each input read once, the output written once: x, out, both weights, s/b.
     k2_bytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
-    k2_bound_ms = max(k2_flops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
-    log(f"phase 5: K1 {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, grid_sample "
-        f"{k1_lib_ms:.4f} ms, bound {k1_bound_ms:.4f} ms ({k1_bytes / 1e6:.2f} MB)")
-    log(f"phase 5: K2 f32 {k2_ms:.4f} ms ({k2_flops / k2_ms / 1e9:.2f} TFLOP/s), bf16 "
-        f"{k2_bf16_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, cuDNN chain {k2_lib_ms:.4f} ms, "
-        f"bound {k2_bound_ms:.4f} ms ({k2_flops / 1e9:.2f} GFLOP f32)")
+    k2_bf16_bytes = 2 * m * c * 2 + 2 * 9 * c * c * 2 + 4 * c * 4
+    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
+    k2_bf16_bound_ms = max(k2_flops / PEAK_BF16_FLOPS, k2_bf16_bytes / PEAK_BYTES_PER_S) * 1e3
+    k2_core_bound_ms = max(k2_flops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    log(f"phase 5: K1 call {k1_ms:.4f} ms, device {fmt(k1_dev_ms)} ({k1_per_call:g} kernel "
+        f"a call), plain {k1_plain_ms:.4f} ms, grid_sample {k1_lib_ms:.4f} ms, bound "
+        f"{k1_bound_ms:.4f} ms ({k1_bytes / 1e6:.2f} MB)")
+    log(f"phase 5: K2 f32 (3xTF32) call {k2_ms:.4f} ms, device {fmt(k2_dev_ms)} "
+        f"({k2_per_call:g} kernels a call; {k2_flops / k2_ms / 1e9:.2f} TFLOP/s of f32 work by "
+        f"call time), bound {k2_bound_ms:.4f} ms (3 x {k2_flops / 1e9:.2f} GFLOP TF32; CUDA-core "
+        f"f32 bound {k2_core_bound_ms:.4f} ms); bf16 call {k2_bf16_ms:.4f} ms, device "
+        f"{fmt(k2_bf16_dev_ms)}, bound {k2_bf16_bound_ms:.4f} ms; plain {k2_plain_ms:.4f} ms, "
+        f"cuDNN chain {k2_lib_ms:.4f} ms")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_slice(torch, run_slice, slice_s)
 
@@ -441,14 +531,16 @@ def main():
          "source": "playaid_core_torch/csrc/crop_resize.cu",
          "replaces": "playaid_core_tpu/ops/pallas_kernels.py:97",
          "launches": launches["crop_resize"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-         "bound_by": "bytes", "library_ms": k1_lib_ms},
+         "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound_ms, "bound_by": "bytes", "library_ms": k1_lib_ms},
         {"name": "residual_block", "route": "cuda",
          "source": "playaid_core_torch/csrc/residual_block.cu",
          "replaces": "playaid_core_tpu/ops/pallas_conv_block.py:73",
          "launches": launches["residual_block"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-         "bound_by": "operations", "library_ms": k2_lib_ms},
+         "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound_ms, "bound_by": "operations", "library_ms": k2_lib_ms,
+         "cuda_core_bound_ms": k2_core_bound_ms, "bf16_ms": k2_bf16_ms,
+         "bf16_device_ms": k2_bf16_dev_ms, "bf16_bound_ms": k2_bf16_bound_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,13 +24,29 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def disable_tf32() -> None:
-    """Run float32 matmuls and convolutions in full float32.
+@contextlib.contextmanager
+def full_float32():
+    """Run float32 matmuls and convolutions in full float32 inside the
+    block, and give the caller's TF32 flags back afterwards.
 
-    cuDNN convolutions default to TF32 (about three decimal digits); the
-    port is held against the JAX reference in float32, so callers that
-    compare numbers (tests, chip_smoke.py) call this first.  The library
-    itself never changes these global flags.
+    cuDNN convolutions default to TF32 (about three decimal digits), and
+    the port is held against the JAX reference in float32, so the entry
+    points that run convolutions (``CNNEmbed``, the temporal head, the
+    plain residual block) enter this context themselves.
     """
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def disable_tf32() -> None:
+    """Turn TF32 off globally, for callers that run their own float32
+    convolutions or matmuls.  The port's entry points do not need it: they
+    run in full float32 through :func:`full_float32` and never change the
+    global flags for good."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from playaid_core_torch.device import resolve_device
+from playaid_core_torch.device import full_float32, resolve_device
 from playaid_core_torch.models.resnet import ResNet18
 from playaid_core_torch.ops.crop_kernel import square_crop_resize
 from playaid_core_torch.ops.preprocess import middle_out_frame_indices
@@ -31,15 +31,18 @@ from playaid_core_torch.ops.preprocess import middle_out_frame_indices
 
 class CNNEmbed(ResNet18):
     """ResNet-18 trunk of the CNN family: NHWC crops ``[N, S, S, 3]`` in
-    [0, 1] -> ``[N, 1000]`` per-frame features."""
+    [0, 1] -> ``[N, 1000]`` per-frame features, in full float32 whatever
+    the caller's TF32 flags."""
 
     def forward(self, crops):
-        return super().forward(crops.permute(0, 3, 1, 2))
+        with full_float32():
+            return super().forward(crops.permute(0, 3, 1, 2))
 
 
 class CNNTemporalHead(nn.Module):
     """Dense head over a window of embeddings ``[B, T, D]`` -> log-probs
-    ``[B, A]`` (float32).  The window flattens t-major, ``[B, T * D]``."""
+    ``[B, A]`` (float32), in full float32 whatever the caller's TF32
+    flags.  The window flattens t-major, ``[B, T * D]``."""
 
     def __init__(self, num_actions, sequence_length, resnet_features=1000):
         super().__init__()
@@ -49,9 +52,10 @@ class CNNTemporalHead(nn.Module):
 
     def forward(self, window_feats):
         y = window_feats.reshape(window_feats.shape[0], -1)
-        y = torch.relu(self.temporal_dense(y))
-        y = torch.relu(self.mlp_hidden(y))
-        return torch.log_softmax(self.classifier(y).float(), dim=1)
+        with full_float32():
+            y = torch.relu(self.temporal_dense(y))
+            y = torch.relu(self.mlp_hidden(y))
+            return torch.log_softmax(self.classifier(y).float(), dim=1)
 
 
 class BatchedActionPipeline:

@@ -10,7 +10,9 @@ dense head to 1000 features.  Activations are NCHW inside the network.
 At inference on a CUDA tensor, ``layer4[1]`` (the identity block of the
 last stage, 4x4x512 at 128-px input) runs as the fused CUDA kernel of
 ``ops/conv_block.py`` with batch norm folded from its running statistics.
-In training mode, or on the CPU, every block runs unfused.
+The block packs its weights and folded batch norm for the kernel once and
+keeps the pack until a tensor it was built from changes.  In training
+mode, or on the CPU, every block runs unfused.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from playaid_core_torch.ops.conv_block import residual_block
+from playaid_core_torch.ops.conv_block import pack_block, residual_block_packed
 
 BN_EPS = 1e-5
 
@@ -49,6 +51,7 @@ class BasicBlock(nn.Module):
         if fused and self.downsample is not None:
             raise ValueError("the fused kernel computes identity blocks only")
         self.fused = fused
+        self._pack = None  # (key, BlockPack) of the last fused call
 
     def forward(self, x):
         if self.fused and x.is_cuda and not self.training:
@@ -58,14 +61,37 @@ class BasicBlock(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(residual + y)
 
+    def _pack_sources(self):
+        return (self.conv1.weight, self.bn1.weight, self.bn1.bias, self.bn1.running_mean,
+                self.bn1.running_var, self.conv2.weight, self.bn2.weight, self.bn2.bias,
+                self.bn2.running_mean, self.bn2.running_var)
+
+    def block_pack(self, dtype):
+        """The kernel's pack of this block for activations of ``dtype``.
+
+        Built at the first call and kept while every tensor it reads is the
+        same tensor at the same version: ``load_state_dict``, an in-place
+        edit, a move to another device and the running statistics of a
+        training step all change a version or a pointer and force a
+        rebuild, and so does ``train()``.
+        """
+        key = (dtype,) + tuple((t.data_ptr(), t.device, t._version)
+                               for t in self._pack_sources())
+        if self._pack is None or self._pack[0] != key:
+            with torch.no_grad():
+                s1, b1 = fold_batch_norm(self.bn1)
+                s2, b2 = fold_batch_norm(self.bn2)
+            pack = pack_block(self.conv1.weight.permute(2, 3, 1, 0), s1, b1,
+                              self.conv2.weight.permute(2, 3, 1, 0), s2, b2, dtype)
+            self._pack = (key, pack)
+        return self._pack[1]
+
+    def train(self, mode=True):
+        self._pack = None
+        return super().train(mode)
+
     def _fused_forward(self, x):
-        s1, b1 = fold_batch_norm(self.bn1)
-        s2, b2 = fold_batch_norm(self.bn2)
-        out = residual_block(
-            x.permute(0, 2, 3, 1),
-            self.conv1.weight.permute(2, 3, 1, 0), s1, b1,
-            self.conv2.weight.permute(2, 3, 1, 0), s2, b2,
-        )
+        out = residual_block_packed(x.permute(0, 2, 3, 1), self.block_pack(x.dtype))
         return out.permute(0, 3, 1, 2)
 
 

@@ -50,7 +50,11 @@ def square_crop_resize(frames_u8, boxes, out_size=128, padding=0,
 
     n, h, w = frames_u8.shape[:3]
     per_frame = 1 if boxes.dim() == 2 else boxes.shape[1]
+    # No-ops for the main path's contiguous frames and float32 boxes.  The
+    # kernel copies 16-byte chunks from 16-byte-aligned addresses.
     frames_u8 = frames_u8.contiguous()
+    if frames_u8.data_ptr() % 16:
+        frames_u8 = frames_u8.clone()
     boxes_f = boxes.float().contiguous()
     out = torch.empty(boxes.shape[:-1] + (out_size, out_size, 3),
                       dtype=torch.float32, device=frames_u8.device)

@@ -19,7 +19,11 @@ from playaid_core_tpu.ops.preprocess import (
     batched_square_crop_resize as jax_crop,
     middle_out_frame_indices as jax_middle_out,
 )
-from playaid_core_torch.ops.conv_block import residual_block, residual_block_ref
+from playaid_core_torch.ops.conv_block import (
+    residual_block,
+    residual_block_packed,
+    residual_block_ref,
+)
 from playaid_core_torch.ops.crop_kernel import square_crop_resize
 from playaid_core_torch.ops.preprocess import batched_square_crop_resize, middle_out_frame_indices
 
@@ -151,10 +155,10 @@ def test_wrappers_use_plain_version_on_cpu():
                                batched_square_crop_resize(frames, boxes, size, pad, flip),
                                atol=0, rtol=0)
     args = [torch.from_numpy(a) for a in _block_inputs("float32")]
-    blocks_before = residual_block.launches
+    blocks_before = residual_block_packed.launches
     torch.testing.assert_close(residual_block(*args), residual_block_ref(*args), atol=0, rtol=0)
     assert square_crop_resize.launches == crops_before
-    assert residual_block.launches == blocks_before
+    assert residual_block_packed.launches == blocks_before
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
