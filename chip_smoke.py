@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's device slice on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port on one CUDA card and check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-The slice is the device half of the headline configuration (CNN family,
-63 classes, the committed weights playaid_core_tpu/assets/bench_cnn63.npz
-read as a data file, T=7, delta 3, stride 2, chunk 48) on a synthetic
-1080p clip: noise background with two discs on the fighter trajectories.
-Video decode is not part of the slice; sampled frames come from pinned
-host memory.
+The configuration is bench.py's headline (CNN family, 63 classes, the
+committed weights playaid_core_tpu/assets/bench_cnn63.npz read as a data
+file, T=7, delta 3, stride 2, chunk 48, 128-px crops, padding 30) on a
+synthetic 1080p clip: noise background with two discs on the fighter
+trajectories.
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a);
@@ -16,15 +15,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    on boxes that hang off every frame edge;
 3. residual-block kernel (K2) against its plain version on the real
    layer4[1] weights and input, float32 (3xTF32) and bfloat16;
-4. the slice, with PyTorch's default TF32 flags (the entry points set
-   their own float32 numerics): per chunk upload -> preprocess_frames (K1)
-   -> embed_crops (ResNet-18, layer4[1] through K2) -> scatter_embeddings,
-   then classify_buffer (argmax and Viterbi) and the stride repeat; launch
-   counts; the first 96 frames again on the CPU with the plain versions;
+4. the device slice from pinned frames, with PyTorch's default TF32 flags
+   (the entry points set their own float32 numerics): per chunk upload ->
+   preprocess_frames (K1) -> embed_crops (ResNet-18, layer4[1] through K2)
+   -> scatter_embeddings, then classify_buffer (argmax and Viterbi) and
+   the stride repeat; launch counts; the first 96 frames again on the CPU;
 5. timings of each kernel: call time (CUDA events over back-to-back calls)
-   and device time (torch.profiler, the kernels' own time over the same
-   kind of window), its plain version and one library call that computes
-   the same function, with the least time the card could take.
+   and device time (torch.profiler), its plain version and one library
+   call that computes the same function (f32 and bf16), with the least
+   time the card could take;
+6. the VOD path, VodAnalyzer.analyze (decode -> pinned ring and copy
+   stream -> embed_crops_yuv -> buffer -> labels), native backend, yuv420,
+   stride 2, chunk 48, argmax then Viterbi (timed): K2 launches, weights on
+   the card, host-to-device bytes per chunk under torch.profiler, the
+   device's busy share, decode-only frames/s, and the first 96 frames on
+   the CPU;
+7. the ResFormer (ResNet-50 + 3 transformer layers) and RNN (ResNet-18 +
+   3-layer LSTM) families at full width with seeded random weights through
+   the same analyzer, against the CPU on the first 96 frames.
+
+The card's machine has no FFmpeg libraries or headers
+(tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
+built there: phases 6 and 7 put a stand-in behind the port's
+native_decoder.acquire/release/probe, in this script only.  Its
+decode_crops returns the disc clip's packed YUV420 crops, made on the host
+with numpy; everything after decode is the port's own.  The CPU tests hold
+the port's decoder against the JAX package's, bit for bit.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -34,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -46,6 +63,7 @@ NUM_FRAMES, CHUNK, STRIDE = 480, 48, 2
 CROP, PADDING, BOX_PX, DISC_RADIUS = 128, 30, 260, 90
 CPU_FRAMES = 96
 SWITCH_COST = 16.0
+FAMILY_SEED = 0
 
 # H100 SXM data-sheet peaks at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
@@ -54,6 +72,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 K1_TOL = 1e-5             # max abs, outputs in [0, 1]
+LOG_PROB_TOL = 1e-4       # card vs CPU head log-probs, max abs
 K2_F32_REL_TOL = 1e-4     # of max|ref|: 3xTF32 products, summation order differs
 K2_BF16_ULPS = 2          # bf16 ulps at max(|ref|, max|ref| / 64)
 EMBED_REL_TOL = 1e-5      # card vs CPU embeddings, of max|cpu|
@@ -86,6 +105,104 @@ def render_frames(indices, num_frames, out):
         for cx, cy, colour in ((x, HEIGHT // 2, (0, 200, 255)),
                                (WIDTH - x, HEIGHT // 2 + 60, (255, 80, 0))):
             frame[cy - r:cy + r + 1, cx - r:cx + r + 1][disc] = colour
+
+
+def yuv420_crop(frame, box, size, padding):
+    """One letterboxed square crop of a BGR frame as packed planar YUV420
+    (Y, then U, then V; BT.601 limited range), sampled at the nearest
+    pixel, with the native extractor's window: side = 2 * (max(w, h) // 2
+    + padding) around the integer centre.  Outside the frame is black."""
+    h, w = frame.shape[:2]
+    half = int(max(int(box[2] * w), int(box[3] * h)) / 2)
+    side = 2 * (half + padding)
+    pos = ((np.arange(size) + 0.5) * side / size).astype(np.int64)
+    ys = int(box[1] * h) - half - padding + pos
+    xs = int(box[0] * w) - half - padding + pos
+    bgr = frame[np.clip(ys, 0, h - 1)][:, np.clip(xs, 0, w - 1)].astype(np.float32)
+    inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
+    bgr[~inside] = 0.0
+    b, g, r = bgr[..., 0], bgr[..., 1], bgr[..., 2]
+    y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
+    u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
+    v = 128 + 0.439 * r - 0.368 * g - 0.071 * b
+
+    def pool(c):
+        return c.reshape(size // 2, 2, size // 2, 2).mean(axis=(1, 3))
+
+    planes = [y.ravel(), pool(u).ravel(), pool(v).ravel()]
+    return np.clip(np.rint(np.concatenate(planes)), 0, 255).astype(np.uint8)
+
+
+class DiscClipDecoder:
+    """Stand-in for the port's NativeVideoDecoder on the disc clip.
+
+    decode_crops(start, boxes, ..., stride, fmt="yuv420", dense=True)
+    returns (frames decoded, [ceil(n / stride), K, S*S*3//2] uint8) like
+    the native one.  Crops are made from the rendered frames on the first
+    request for a (frame, box) and kept, so a run after the first reads
+    them from memory.  Safe to call from several threads.
+    """
+
+    def __init__(self, num_frames):
+        self.num_frames = num_frames
+        self.info = {"width": WIDTH, "height": HEIGHT, "fps": 60.0,
+                     "num_frames": num_frames, "max_lowres": 0, "fast": 0}
+        self._crops = {}
+        self._frame = np.empty((1, HEIGHT, WIDTH, 3), np.uint8)
+        self._rendered = None
+        self._lock = threading.Lock()
+
+    def _crop(self, i, box, size, padding):
+        key = (i, box.tobytes(), size, padding)
+        crop = self._crops.get(key)
+        if crop is None:
+            with self._lock:
+                if self._rendered != i:
+                    render_frames([i], self.num_frames, self._frame)
+                    self._rendered = i
+                crop = yuv420_crop(self._frame[0], box, size, padding)
+            self._crops[key] = crop
+        return crop
+
+    def decode_crops(self, start, boxes, out_size=128, padding=30, stride=1, out=None,
+                     fmt="bgr", dense=False):
+        if fmt != "yuv420" or not dense or out is not None:
+            raise ValueError("the stand-in gives dense yuv420 crops only")
+        n = max(0, min(boxes.shape[0], self.num_frames - start))
+        crops = np.zeros(((boxes.shape[0] + stride - 1) // stride, boxes.shape[1],
+                          out_size * out_size * 3 // 2), np.uint8)
+        for j in range(0, n, stride):
+            for k in range(boxes.shape[1]):
+                crops[j // stride, k] = self._crop(start + j, boxes[j, k], out_size, padding)
+        return n, crops
+
+
+def install_stand_in(native_decoder, stand_in):
+    """Put the stand-in behind the port's decoder pool, in this process."""
+    native_decoder.acquire = lambda path, lowres=0, fast=False: stand_in
+    native_decoder.release = lambda dec: None
+    native_decoder.probe = lambda path, fast="auto": stand_in.info
+
+
+def trace_device_events(path):
+    """Device-side events (kernels, copies, sets) of an exported chrome
+    trace: (name, category, start us, duration us, bytes or None)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e.get("name", ""), e["cat"], float(e["ts"]), float(e["dur"]),
+             e.get("args", {}).get("bytes"))
+            for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "dur" in e]
+
+
+def busy_us(events):
+    """Length of the union of the events' intervals (streams overlap)."""
+    total, end = 0.0, -1.0
+    for _, _, ts, dur, _ in sorted(events, key=lambda e: e[2]):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
 
 
 def nvidia_smi_line():
@@ -185,6 +302,177 @@ def profile_slice(torch, run_slice, slice_s):
         f"without), device busy {busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
         log(f"profile: {ms:9.3f} ms {count:6d} x  {key[:100]}")
+
+
+def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
+    """Phase 6: VodAnalyzer.analyze on the headline configuration.  Returns
+    each wrapper's launches during the timed run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from playaid_core_torch.convert import load_npz_tree
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
+
+    clip = "disc_clip.mp4"  # the stand-in serves it; no file is read
+    kw = dict(decode_backend="native", transfer_format="yuv420", stride=STRIDE, chunk=CHUNK,
+              switch_cost=SWITCH_COST)
+    log("phase 6: decoder: stand-in (the card's machine has no libavcodec)")
+    t0 = time.perf_counter()
+    stand_in.decode_crops(0, boxes_all, CROP, PADDING, stride=STRIDE, fmt="yuv420", dense=True)
+    log(f"phase 6: stand-in crops of {NUM_FRAMES} frames made in "
+        f"{time.perf_counter() - t0:.1f} s (set-up, not timed)")
+
+    pipe = BatchedActionPipeline(device=dev)
+    argmax = VodAnalyzer(pipe, variables=load_npz_tree(ASSET), decode="argmax", **kw)
+    tensors = (list(pipe.embed.parameters()) + list(pipe.embed.buffers())
+               + list(pipe.head.parameters()) + list(pipe.head.buffers()))
+    check(all(t.is_cuda for t in tensors) and not any(
+        isinstance(v, np.ndarray) for v in vars(argmax).values()),
+        f"phase 6: all {len(tensors)} weight tensors of the pipeline on {dev}, no host copy kept")
+    viterbi = VodAnalyzer(pipe, decode="viterbi", **kw)
+    first = argmax.analyze(clip, boxes_all)
+    for w in wrappers:
+        w.launches = 0
+    timed = viterbi.analyze(clip, boxes_all)
+    launches = [w.launches for w in wrappers]
+    log(f"phase 6: launches during the timed analyze: crop_resize {launches[0]} (crops are "
+        f"made on the host on this path), residual_block {launches[1]}")
+    check(launches[1] > 0, "phase 6: K2 (residual_block) ran during VodAnalyzer.analyze")
+    for name, res in (("argmax", first), ("viterbi", timed)):
+        check(res["labels"].shape == (NUM_FRAMES, 2) and res["frames"] == NUM_FRAMES
+              and 0 <= res["labels"].min() and res["labels"].max() < 63
+              and np.isfinite(res["confidences"]).all() and res["backend"] == "native",
+              f"phase 6: {name} labels {res['labels'].shape} in [0, 63), {res['frames']} frames, "
+              f"backend {res['backend']}")
+
+    # Decode alone, as bench.py's measure_decode_only_fps does.
+    t0 = time.perf_counter()
+    total = 0
+    for c0 in range(0, NUM_FRAMES, CHUNK):
+        stop = min(c0 + CHUNK, NUM_FRAMES)
+        cb = np.zeros((CHUNK, 2, 4), np.float32)
+        cb[:stop - c0] = boxes_all[c0:stop]
+        n, _ = stand_in.decode_crops(c0, cb, CROP, PADDING, stride=STRIDE, fmt="yuv420",
+                                     dense=True)
+        total += min(n, stop - c0)
+    decode_fps = total / (time.perf_counter() - t0)
+
+    # One more run under the profiler: bytes sent to the card, busy share.
+    trace = os.path.join(ROOT, "build", "smoke", "vod_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        argmax.analyze(clip, boxes_all)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(trace)
+    events = trace_device_events(trace)
+    h2d = [b for name, cat, _, _, b in events if cat == "gpu_memcpy" and "HtoD" in name]
+    num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
+    chunk_bytes = (CHUNK // STRIDE) * 2 * CROP * CROP * 3 // 2
+    big = [b for b in h2d if b is not None and b >= 65536]
+    small = sum(b for b in h2d if b is not None and b < 65536)
+    check(None not in h2d and big == [chunk_bytes] * num_chunks and small < 65536,
+          f"phase 6: host-to-device copies under torch.profiler: {len(big)} of >= 64 KiB "
+          f"totalling {sum(big)} B = {sum(big) / num_chunks:.0f} B a chunk (the chunk's crops: "
+          f"{chunk_bytes} B), {len(h2d) - len(big)} smaller ones totalling {small} B")
+    busy = busy_us(events)
+    by_name = {}
+    for name, _, _, dur, _ in events:
+        by_name[name] = by_name.get(name, 0.0) + dur
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"phase 6 profile: {us / 1e3:9.3f} ms  {name[:100]}")
+
+    # Where the Viterbi run's wall goes: a run with the card synchronised
+    # where classify_buffer starts and ends (in this script only), and one
+    # with a single decode worker (the chunk loop inline on this thread).
+    marks = {}
+    classify = pipe.classify_buffer
+
+    def timed_classify(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["classify_start"] = time.perf_counter()
+        out = classify(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks["classify_end"] = time.perf_counter()
+        return out
+
+    pipe.classify_buffer = timed_classify
+    t0 = time.perf_counter()
+    viterbi.analyze(clip, boxes_all)
+    t1 = time.perf_counter()
+    del pipe.classify_buffer
+    log(f"phase 6: Viterbi run split at classify_buffer (card synchronised there): decode, "
+        f"staging and embed of all chunks {(marks['classify_start'] - t0) * 1e3:.1f} ms, "
+        f"classify_buffer {(marks['classify_end'] - marks['classify_start']) * 1e3:.1f} ms, "
+        f"the rest {(t1 - marks['classify_end']) * 1e3:.1f} ms")
+    inline = VodAnalyzer(pipe, decode="viterbi", decode_workers=1, **kw).analyze(clip, boxes_all)
+    log(f"phase 6: the same Viterbi run with one decode worker (inline chunk loop): "
+        f"{inline['seconds'] * 1e3:.1f} ms = {inline['fps']:.1f} frames/s")
+
+    e2e_fps = timed["fps"]
+    log(f"phase 6: VodAnalyzer.analyze {NUM_FRAMES} frames (Viterbi run) in "
+        f"{timed['seconds'] * 1e3:.1f} ms = {e2e_fps:.1f} frames/s end to end with decode; "
+        f"decode only {decode_fps:.1f} frames/s (stand-in: crops read from memory, not a "
+        f"decode); ratio {e2e_fps / decode_fps:.4f}; device busy {busy / 1e3:.1f} ms of "
+        f"{wall_us / 1e3:.1f} ms wall under the profiler = {busy / wall_us:.3f}; decoder stand-in")
+
+    # The first CPU_FRAMES frames on the card and on the CPU.
+    cpu_pipe = BatchedActionPipeline(device="cpu").load_variables(load_npz_tree(ASSET))
+    for decode in ("argmax", "viterbi"):
+        on_card = VodAnalyzer(pipe, decode=decode, **kw).analyze(clip, boxes_all[:CPU_FRAMES])
+        on_cpu = VodAnalyzer(cpu_pipe, decode=decode, **kw).analyze(clip, boxes_all[:CPU_FRAMES])
+        same = on_card["labels"] == on_cpu["labels"]
+        line = (f"phase 6: card vs CPU {decode} labels over {CPU_FRAMES} frames agree on "
+                f"{int(same.sum())}/{same.size} = {same.mean():.4f}")
+        if decode == "argmax":
+            check(same.mean() >= LABEL_AGREEMENT_MIN, line + f" (min {LABEL_AGREEMENT_MIN})")
+        else:
+            log(line)
+    return launches
+
+
+def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
+    """Phase 7: the ResFormer and RNN families at full width, seeded random
+    weights, through VodAnalyzer.analyze; card against CPU on the first
+    CPU_FRAMES frames."""
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
+
+    clip = "disc_clip.mp4"
+    kw = dict(decode_backend="native", transfer_format="yuv420", stride=STRIDE, chunk=CHUNK)
+    n_rows = CPU_FRAMES // STRIDE
+    _, yuv = stand_in.decode_crops(0, boxes_all[:CPU_FRAMES], CROP, PADDING, stride=STRIDE,
+                                   fmt="yuv420", dense=True)
+    flat = torch.from_numpy(yuv.reshape(n_rows * 2, -1))
+    for family in ("resformer", "rnn"):
+        pipe = BatchedActionPipeline(family=family, device=dev).init(FAMILY_SEED)
+        cpu_pipe = BatchedActionPipeline(family=family, device="cpu").init(FAMILY_SEED)
+        analyzer = VodAnalyzer(pipe, **kw)
+        analyzer.analyze(clip, boxes_all)
+        k2_wrapper.launches = 0
+        res = analyzer.analyze(clip, boxes_all)
+        k2 = k2_wrapper.launches
+        check(res["labels"].shape == (NUM_FRAMES, 2) and 0 <= res["labels"].min()
+              and res["labels"].max() < 63 and np.isfinite(res["confidences"]).all(),
+              f"phase 7: {family}: {NUM_FRAMES} frames in {res['seconds'] * 1e3:.1f} ms = "
+              f"{res['fps']:.1f} frames/s end to end; labels {res['labels'].shape} in [0, 63); "
+              f"K2 launches {k2}")
+        if family == "rnn":
+            check(k2 > 0, "phase 7: rnn: K2 (residual_block) ran during VodAnalyzer.analyze")
+        emb_card = pipe.embed_crops_yuv(flat.to(dev)).cpu()
+        emb_cpu = cpu_pipe.embed_crops_yuv(flat)
+        rel = float((emb_card - emb_cpu).abs().max() / emb_cpu.abs().max())
+        check(tuple(emb_cpu.shape) == (n_rows * 2, pipe.embed_dim) and rel <= EMBED_REL_TOL,
+              f"phase 7: {family}: card vs CPU embeddings {tuple(emb_cpu.shape)} max abs err / "
+              f"max|cpu| = {rel:.3e} (tol {EMBED_REL_TOL})")
+        seq = emb_cpu.reshape(n_rows, 2, -1)
+        with torch.inference_mode():
+            lp_card = pipe._window_log_probs(seq.to(dev), n_rows, 0).cpu()
+            lp_cpu = cpu_pipe._window_log_probs(seq, n_rows, 0)
+        lp_err = float((lp_card - lp_cpu).abs().max())
+        check(lp_err <= LOG_PROB_TOL,
+              f"phase 7: {family}: card vs CPU head log-probs {tuple(lp_cpu.shape)} from the "
+              f"same embeddings, max abs err {lp_err:.3e} (tol {LOG_PROB_TOL})")
 
 
 def main():
@@ -502,6 +790,27 @@ def main():
         k2_bf16_ms = time_cuda(torch, k2_bf16, 40)
         k2_bf16_dev_ms, _ = device_ms(torch, k2_bf16, 40, "conv3x3_wgmma_kernel")
         k2_plain_ms = time_cuda(torch, lambda it: residual_block_ref(*k2_args), 40)
+
+        # The bf16 yardsticks: the same cuDNN chain on bf16 activations and
+        # weights (batch norm keeps its float32 statistics, as under
+        # autocast), and the plain version on the bf16 arguments.
+        x_bf_nchw = x_nchw.bfloat16()
+        w_bf = (block.conv1.weight.bfloat16(), block.conv2.weight.bfloat16())
+
+        def cudnn_chain_bf16(_):
+            y = F.conv2d(x_bf_nchw, w_bf[0], padding=1)
+            y = torch.relu(F.batch_norm(y, bn[0].running_mean, bn[0].running_var,
+                                        bn[0].weight, bn[0].bias, False, 0.0, bn[0].eps))
+            y = F.conv2d(y, w_bf[1], padding=1)
+            y = F.batch_norm(y, bn[1].running_mean, bn[1].running_var, bn[1].weight,
+                             bn[1].bias, False, 0.0, bn[1].eps)
+            return torch.relu(y + x_bf_nchw)
+
+        lib_bf_ulps = bf16_ulps(cudnn_chain_bf16(0).permute(0, 2, 3, 1).float().cpu().numpy(),
+                                bf_ref)
+        log(f"phase 5: cuDNN bf16 chain yardstick vs K2 bf16 plain: max {lib_bf_ulps:.2f} ulps")
+        k2_bf16_lib_ms = time_cuda(torch, cudnn_chain_bf16, 40)
+        k2_bf16_plain_ms = time_cuda(torch, lambda it: residual_block_ref(*bf_args), 40)
     m, c = x_nhwc.shape[0] * 16, x_nhwc.shape[3]
     k2_flops = 2 * 2 * m * c * 9 * c
     # Each input read once, the output written once: x, out, both weights, s/b.
@@ -522,9 +831,20 @@ def main():
         f"call time), bound {k2_bound_ms:.4f} ms (3 x {k2_flops / 1e9:.2f} GFLOP TF32; CUDA-core "
         f"f32 bound {k2_core_bound_ms:.4f} ms); bf16 call {k2_bf16_ms:.4f} ms, device "
         f"{fmt(k2_bf16_dev_ms)}, bound {k2_bf16_bound_ms:.4f} ms; plain {k2_plain_ms:.4f} ms, "
-        f"cuDNN chain {k2_lib_ms:.4f} ms")
+        f"cuDNN chain {k2_lib_ms:.4f} ms; bf16 plain {k2_bf16_plain_ms:.4f} ms, bf16 cuDNN "
+        f"chain {k2_bf16_lib_ms:.4f} ms")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_slice(torch, run_slice, slice_s)
+
+    # ---- phases 6 and 7: VodAnalyzer.analyze, the CNN headline and the families ----
+    from playaid_core_torch.video import native_decoder
+
+    # The choice of decoder, fixed from the probe of the card's machine.
+    stand_in = DiscClipDecoder(NUM_FRAMES)
+    install_stand_in(native_decoder, stand_in)
+    vod_launches = run_vod_phase(torch, dev, check, boxes_all, stand_in,
+                                 [square_crop_resize, residual_block_packed])
+    run_family_phase(torch, dev, check, boxes_all, stand_in, residual_block_packed)
 
     kernels = [
         {"name": "crop_resize", "route": "cuda",
@@ -540,8 +860,11 @@ def main():
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound_ms, "bound_by": "operations", "library_ms": k2_lib_ms,
          "cuda_core_bound_ms": k2_core_bound_ms, "bf16_ms": k2_bf16_ms,
-         "bf16_device_ms": k2_bf16_dev_ms, "bf16_bound_ms": k2_bf16_bound_ms},
+         "bf16_device_ms": k2_bf16_dev_ms, "bf16_bound_ms": k2_bf16_bound_ms,
+         "bf16_plain_ms": k2_bf16_plain_ms, "bf16_library_ms": k2_bf16_lib_ms},
     ]
+    for kernel, n in zip(kernels, vod_launches):
+        kernel["vod_launches"] = n
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

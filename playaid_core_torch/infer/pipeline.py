@@ -1,32 +1,44 @@
-"""Batched two-fighter action-recognition pipeline, CNN family.
+"""Batched two-fighter action-recognition pipeline: the CNN, ResFormer and
+RNN families.
 
 Counterpart of ``playaid_core_tpu/infer/pipeline.py``.  Every crop goes
-through the ResNet-18 once; middle-out windows are then gathered over the
-embedding sequence and classified by the temporal head:
+through the family's frame encoder once; middle-out windows are then
+gathered over the embedding sequence and classified by the temporal head:
 
 1. ``preprocess_frames``: frames + boxes -> crops (CUDA kernel
    ``csrc/crop_resize.cu`` on the card);
 2. ``embed_crops`` / ``embed_crops_u8`` / ``embed_crops_yuv``: crops ->
-   1000-d embeddings (ResNet-18; its last identity block is the CUDA
-   kernel ``csrc/residual_block.cu`` on the card);
+   per-frame embeddings: ResNet-18 -> 1000 (CNN), ResNet-50 -> 2048 -> 247
+   (ResFormer), ResNet-18 -> 512 -> 300 (RNN).  ResNet-18's last identity
+   block is the CUDA kernel ``csrc/residual_block.cu`` on the card;
 3. ``make_embedding_buffer`` + ``scatter_embeddings``: embeddings
    accumulate, interleaved by fighter, in one ``[F_pad * 2, D]`` buffer;
 4. ``classify_buffer`` / ``classify_sequence``: windows -> temporal head
-   -> log-probs -> argmax or Viterbi labels and confidences.
+   (dense head; transformer; LSTM) -> log-probs -> argmax or Viterbi
+   labels and confidences.  The transformer and LSTM heads give a
+   prediction per step; the window's centre step labels its frame.
 
 Weights live in the pipeline's modules: load them with
-:meth:`BatchedActionPipeline.load_state_dicts` (see ``convert.py``).
+:meth:`BatchedActionPipeline.load_variables` (a JAX-layout numpy tree or
+the port's state dicts, see ``convert.py``), or draw seeded random ones
+with :meth:`BatchedActionPipeline.init`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
+from playaid_core_torch.convert import to_state_dicts
 from playaid_core_torch.device import full_float32, resolve_device
-from playaid_core_torch.models.resnet import ResNet18
+from playaid_core_torch.models.resnet import ResNet18, ResNet50
+from playaid_core_torch.models.resnet_transformer import TransformerEncoderLayer, time_encoding
+from playaid_core_torch.models.rnn_action_detector import StackedLSTM
 from playaid_core_torch.ops.crop_kernel import square_crop_resize
 from playaid_core_torch.ops.preprocess import middle_out_frame_indices
+
+FAMILIES = ("cnn", "resformer", "rnn")
 
 
 class CNNEmbed(ResNet18):
@@ -58,6 +70,76 @@ class CNNTemporalHead(nn.Module):
             return torch.log_softmax(self.classifier(y).float(), dim=1)
 
 
+class ResFormerEmbed(nn.Module):
+    """ResNet-50 trunk (pooled 2048-d features) + ``resnet_ffn``
+    projection to 247: ``[N, S, S, 3]`` -> ``[N, 247]``."""
+
+    def __init__(self, hidden_dim=247):
+        super().__init__()
+        self.resnet = ResNet50(num_classes=0)
+        self.resnet_ffn = nn.Linear(2048, hidden_dim)
+
+    def forward(self, crops):
+        with full_float32():
+            return self.resnet_ffn(self.resnet(crops.permute(0, 3, 1, 2)))
+
+
+class ResFormerTemporalHead(nn.Module):
+    """Time-encoding concat (9-d) + post-LN transformer (d_model 256, 8
+    heads) + per-step classifier: ``[B, T, 247]`` -> log-probs ``[B, T, A]``."""
+
+    def __init__(self, num_actions, sequence_length=7, hidden_dim=247, num_heads=8,
+                 num_layers=3, num_freq=4):
+        super().__init__()
+        # float64 in numpy, then float32, in the JAX package's order.
+        freq = time_encoding(np.linspace(0, 1, sequence_length).reshape(-1, 1),
+                             num_freq).astype(np.float32)
+        self.register_buffer("time_features", torch.from_numpy(freq), persistent=False)
+        d_model = hidden_dim + freq.shape[1]
+        self.layers = nn.ModuleList(TransformerEncoderLayer(d_model, num_heads)
+                                    for _ in range(num_layers))
+        self.classifier = nn.Linear(d_model, num_actions)
+
+    def forward(self, window_feats):
+        b = window_feats.shape[0]
+        freq = self.time_features.to(window_feats.dtype).expand(b, -1, -1)
+        with full_float32():
+            y = torch.cat([window_feats, freq], dim=2)
+            for layer in self.layers:
+                y = layer(y)
+            return torch.log_softmax(self.classifier(y).float(), dim=2)
+
+
+class RNNEmbed(nn.Module):
+    """ResNet-18 trunk (pooled 512-d features) + ``encoder_proj`` to 300:
+    ``[N, S, S, 3]`` -> ``[N, 300]``."""
+
+    def __init__(self, encoder_features=300):
+        super().__init__()
+        self.resnet = ResNet18(num_classes=0)
+        self.encoder_proj = nn.Linear(512, encoder_features)
+
+    def forward(self, crops):
+        with full_float32():
+            return self.encoder_proj(self.resnet(crops.permute(0, 3, 1, 2)))
+
+
+class RNNTemporalHead(nn.Module):
+    """3-layer LSTM (hidden 512) + MLP decoder (128, then A) over a window:
+    ``[B, T, 300]`` -> per-step log-probs ``[B, T, A]``."""
+
+    def __init__(self, num_actions, input_size=300, hidden_size=512, num_layers=3):
+        super().__init__()
+        self.lstm = StackedLSTM(input_size, hidden_size, num_layers)
+        self.decoder_hidden = nn.Linear(hidden_size, 128)
+        self.decoder_out = nn.Linear(128, num_actions)
+
+    def forward(self, window_feats):
+        with full_float32():
+            y = torch.relu(self.decoder_hidden(self.lstm(window_feats)))
+            return torch.log_softmax(self.decoder_out(y).float(), dim=2)
+
+
 class BatchedActionPipeline:
     """Fused preprocess -> embed-once -> window-gather -> classify.
 
@@ -71,34 +153,105 @@ class BatchedActionPipeline:
 
     def __init__(self, family="cnn", num_actions=63, sequence_length=7, frame_delta=3,
                  crop_size=128, device=None):
-        if family != "cnn":
-            raise NotImplementedError(
-                f"family={family!r} is not ported yet; see ROADMAP.md, queue 1 item 7"
-            )
+        if family not in FAMILIES:
+            raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
         self.family = family
         self.num_actions = num_actions
         self.sequence_length = sequence_length
         self.frame_delta = frame_delta
         self.crop_size = crop_size
         self.device = resolve_device(device)
-        self.embed = CNNEmbed().to(self.device).eval()
-        self.head = CNNTemporalHead(num_actions, sequence_length).to(self.device).eval()
+        if family == "cnn":
+            embed = CNNEmbed()
+            head = CNNTemporalHead(num_actions, sequence_length)
+        elif family == "resformer":
+            embed = ResFormerEmbed()
+            head = ResFormerTemporalHead(num_actions, sequence_length)
+        else:
+            embed = RNNEmbed()
+            head = RNNTemporalHead(num_actions)
+        self.embed = embed.to(self.device).eval()
+        self.head = head.to(self.device).eval()
+        # False until weights are loaded or drawn: the modules' own
+        # initialisation is not seeded.
+        self.initialized = False
 
     @property
     def embed_dim(self):
-        return 1000
+        return {"cnn": 1000, "resformer": 247, "rnn": 300}[self.family]
 
     def load_state_dicts(self, state):
         """Load ``{"embed": ..., "head": ...}`` state dicts (strictly)."""
         self.embed.load_state_dict(state["embed"])
         self.head.load_state_dict(state["head"])
+        self.initialized = True
         return self
+
+    def load_variables(self, variables):
+        """Load weights given as the JAX package's ``{embed, head}`` numpy
+        tree (as ``convert.load_npz_tree`` reads one) or as the port's
+        state dicts, into the modules on this pipeline's device.  Nothing
+        of ``variables`` is kept."""
+        return self.load_state_dicts(to_state_dicts(self.family, variables))
+
+    @torch.no_grad()
+    def init(self, seed=0):
+        """Seeded random weights, drawn on the CPU from one
+        ``torch.Generator`` in parameter order, so every device gets the
+        same ones: weights ~ N(0, 1/fan_in), biases 0, norm scales 1,
+        running mean 0 and variance 1."""
+        gen = torch.Generator().manual_seed(seed)
+        for module in (self.embed, self.head):
+            for name, p in module.named_parameters():
+                if "bias" in name.rsplit(".", 1)[-1]:  # bias, in_proj_bias, bias_ih_l0, ...
+                    value = torch.zeros(p.shape)
+                elif p.dim() == 1:  # batch-norm and layer-norm scales
+                    value = torch.ones(p.shape)
+                else:
+                    fan_in = p[0].numel()
+                    value = torch.randn(p.shape, generator=gen) / fan_in ** 0.5
+                p.copy_(value)
+            for name, buf in module.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.zero_()
+                elif name.endswith("running_var"):
+                    buf.fill_(1.0)
+        self.initialized = True
+        return self
+
+    def from_monolithic(self, variables):
+        """Split a trained monolithic model's numpy tree (``{"params": ...,
+        "batch_stats": ...}`` of the JAX package's models) into this
+        family's ``{embed, head}`` trees, as the JAX package does."""
+        params = variables["params"]
+        stats = variables.get("batch_stats") or {}
+        if self.family == "cnn":
+            inner_p = params["model"]
+            inner_s = stats.get("model", {})
+            embed = {"params": {"cnn2d": inner_p["ResNet_0"]},
+                     "batch_stats": {"cnn2d": inner_s.get("ResNet_0", {})}}
+            head = {"params": {k: inner_p[k]
+                               for k in ("temporal_dense", "mlp_hidden", "classifier")}}
+        elif self.family == "rnn":
+            embed = {"params": {"ResNet_0": params["ResNet_0"],
+                                "encoder_proj": params["encoder_proj"]},
+                     "batch_stats": {"ResNet_0": stats.get("ResNet_0", {})}}
+            head = {"params": {k: params[k] for k in ("lstm", "decoder_hidden", "decoder_out")}}
+        else:
+            inner_p = params["model"]
+            inner_s = stats.get("model", {})
+            embed = {"params": {"ResNet_0": inner_p["ResNet_0"],
+                                "resnet_ffn": inner_p["resnet_ffn"]},
+                     "batch_stats": {"ResNet_0": inner_s.get("ResNet_0", {})}}
+            head_keys = [k for k in inner_p if k.startswith("layer_")] + ["classifier"]
+            head = {"params": {k: inner_p[k] for k in head_keys}}
+        return {"embed": embed, "head": head}
 
     # ---- embedding ----
 
     @torch.inference_mode()
     def embed_crops(self, crops):
-        """crops ``[N, S, S, 3]`` float in [0, 1] -> ``[N, 1000]``."""
+        """crops ``[N, S, S, 3]`` float in [0, 1] -> ``[N, embed_dim]``."""
         return self.embed(crops)
 
     @torch.inference_mode()
@@ -215,6 +368,14 @@ class BatchedActionPipeline:
         labels[0] = cur
         return torch.tensor(labels, dtype=torch.long, device=log_probs.device)
 
+    def _head_apply(self, windows):
+        """Windows ``[B, T, D]`` -> log-probs ``[B, A]``; the per-step heads
+        give their centre step's prediction, as the JAX package does."""
+        out = self.head(windows)
+        if self.family != "cnn":
+            out = out[:, self.sequence_length // 2, :]
+        return out
+
     def _window_log_probs(self, seq, true_len, min_frame):
         """Middle-out windows over ``seq`` ``[F, ..., D]`` -> head log-probs
         ``[F, ..., A]``.  Windows are clamped to ``true_len`` so padding
@@ -228,7 +389,7 @@ class BatchedActionPipeline:
         windows = windows.movedim(1, -2)  # [F, ..., T, D]
         lead = windows.shape[:-2]
         windows = windows.reshape(-1, self.sequence_length, windows.shape[-1])
-        return self.head(windows).reshape(lead + (-1,))
+        return self._head_apply(windows).reshape(lead + (-1,))
 
     def _decode(self, log_probs, true_len, smooth_radius, decode, switch_cost):
         """One fighter's log-probs ``[F, A]`` -> (labels [F], confidence [F])."""

@@ -1,0 +1,613 @@
+"""End-to-end VOD analysis: decode -> staging -> embed -> buffer -> labels.
+
+Counterpart of ``playaid_core_tpu/infer/vod_pipeline.py``.  Its layers:
+
+* **host decode**: the native libavcodec crop extractor
+  (``video/native_decoder.py``) turns a chunk of frames into packed
+  YUV420 (or BGR) uint8 crops of model size in one C call that releases
+  the interpreter lock.  With one decode worker the chunk loop runs inline
+  on the calling thread; with several, :class:`NativeChunkDecoder`
+  workers hand chunks to a sink.  The cv2 route (``decode_backend="cv2"``)
+  decodes with ``cv2.VideoCapture`` in :class:`BoundedSegmentDecoder`
+  workers and crops on the host with :func:`extract_crops`;
+* **staging**: one dispatcher thread per analysis copies each chunk into
+  a small ring of pinned host buffers and issues the host-to-device copy
+  on its own CUDA stream; the compute stream waits for the copy, and a
+  slot is refilled only after its last copy has finished;
+* **embed**: ``embed_crops_yuv`` / ``embed_crops_u8`` of the pipeline
+  (cuDNN, and the residual-block kernel in ResNet-18);
+* **buffer**: ``scatter_embeddings`` into one embedding buffer;
+* **head and decode**: ``classify_buffer`` (argmax or Viterbi), then each
+  sampled frame's label is repeated over the ``stride`` frames it stands
+  for.
+
+Weights are loaded into the pipeline's modules on its device once, when
+the analyzer is made.  Not ported yet: ``host_resize=False`` (windows
+resized on the device), ``mesh=``, ``boxes_from_log`` and the command
+line (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import queue
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+from playaid_core_torch.video import native_decoder
+
+
+def extract_crops(frame, boxes, out_size, padding):
+    """Host-side square letterboxed crops (YoloCrop.square_crop semantics)
+    for each box of one BGR frame -> ``[K, out_size, out_size, 3]`` uint8,
+    resized with ``cv2.INTER_AREA``."""
+    import cv2
+
+    h, w = frame.shape[:2]
+    k = boxes.shape[0]
+    out = np.zeros((k, out_size, out_size, 3), np.uint8)
+    for j in range(k):
+        cx, cy, bw, bh = boxes[j]
+        cxp, cyp = int(cx * w), int(cy * h)
+        half = int(max(int(bw * w), int(bh * h)) / 2)
+        side = 2 * (half + padding)
+        if side <= 0:
+            continue
+        y0, x0 = cyp - half - padding, cxp - half - padding
+        canvas = np.zeros((side, side, 3), np.uint8)
+        vy0, vy1 = max(0, y0), min(h, y0 + side)
+        vx0, vx1 = max(0, x0), min(w, x0 + side)
+        if vy1 > vy0 and vx1 > vx0:
+            canvas[vy0 - y0:vy1 - y0, vx0 - x0:vx1 - x0] = frame[vy0:vy1, vx0:vx1]
+        out[j] = cv2.resize(canvas, (out_size, out_size), interpolation=cv2.INTER_AREA)
+    return out
+
+
+class BoundedSegmentDecoder:
+    """Decode a video with N cv2 workers over chunks of frames, run a
+    per-frame host transform in the worker, and yield ``(start,
+    collate(start, items))`` in chunk order, with at most ``AHEAD`` chunks
+    decoded past the consumer."""
+
+    AHEAD = 6
+
+    def __init__(self, path, num_frames, chunk, transform, collate, workers=None):
+        import cv2  # noqa: F401 - fail here, not in a worker, when cv2 is missing
+
+        self.path = path
+        self.num_frames = num_frames
+        self.chunk = chunk
+        self.transform = transform
+        self.collate = collate
+        self.num_chunks = (num_frames + chunk - 1) // chunk
+        workers = workers or max(1, min((os.cpu_count() or 1), 6))
+        self.workers_n = min(workers, self.num_chunks)
+        self._results = {}
+        self._error = None
+        self._closed = False
+        self._cond = threading.Condition()
+        self._next_emit = 0
+        self._task_q = queue.Queue()
+        for t in range(self.num_chunks):
+            self._task_q.put(t)
+        self._threads = [threading.Thread(target=self._worker, daemon=True)
+                         for _ in range(self.workers_n)]
+        for t in self._threads:
+            t.start()
+
+    def close(self):
+        """Stop the workers: drop the pending chunks and wake every waiter.
+        Safe to call from the consumer's error path."""
+        with self._cond:
+            self._closed = True
+            try:
+                while True:
+                    self._task_q.get_nowait()
+            except queue.Empty:
+                pass
+            self._cond.notify_all()
+
+    def _worker(self):
+        try:
+            self._worker_loop()
+        except BaseException as e:  # handed to the consumer, which raises it
+            with self._cond:
+                self._error = e
+                self._cond.notify_all()
+
+    def _worker_loop(self):
+        import cv2
+
+        cap = cv2.VideoCapture(self.path)
+        pos = -10**9
+        try:
+            while True:
+                try:
+                    chunk_idx = self._task_q.get_nowait()
+                except queue.Empty:
+                    return
+                with self._cond:
+                    while chunk_idx > self._next_emit + self.AHEAD and not self._closed:
+                        self._cond.wait()
+                    if self._closed:
+                        return
+                start = chunk_idx * self.chunk
+                stop = min(start + self.chunk, self.num_frames)
+                if start != pos:
+                    cap.set(cv2.CAP_PROP_POS_FRAMES, start)
+                out = []
+                for i in range(start, stop):
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    out.append(self.transform(i, frame))
+                pos = stop
+                with self._cond:
+                    self._results[chunk_idx] = (start, self.collate(start, out))
+                    self._cond.notify_all()
+        finally:
+            cap.release()
+
+    def __iter__(self):
+        for idx in range(self.num_chunks):
+            with self._cond:
+                while idx not in self._results:
+                    if self._error is not None:
+                        raise self._error
+                    if self._closed:
+                        return
+                    self._cond.wait()
+                item = self._results.pop(idx)
+                self._next_emit = idx + 1
+                self._cond.notify_all()
+            yield item
+
+
+class NativeChunkDecoder:
+    """Chunk-level decoder over the native crop extractor, with N workers.
+
+    Each worker takes the next chunk, decodes it into dense crops
+    (``[chunk // stride, K, ...]``, sampled frame j in row j // stride) and
+    calls ``sink(start, n, crops)``.  :meth:`wait` blocks until
+    every chunk has gone through the sink and re-raises a worker's (or the
+    sink's) exception.
+    """
+
+    def __init__(self, path, num_frames, chunk, boxes, crop_size, padding, sink,
+                 workers=None, lowres=0, stride=1, fmt="bgr", fast=False):
+        self.path = path
+        self.num_frames = num_frames
+        self.chunk = chunk
+        self.boxes = boxes
+        self.crop_size = crop_size
+        self.padding = padding
+        self.sink = sink
+        self.lowres = lowres
+        self.stride = stride
+        self.fmt = fmt
+        self.fast = fast
+        self.num_chunks = (num_frames + chunk - 1) // chunk
+        workers = workers or max(1, min((os.cpu_count() or 1), 6))
+        self._error = None
+        self._closed = False
+        self._cond = threading.Condition()
+        self._done = 0
+        self._task_q = queue.Queue()
+        for t in range(self.num_chunks):
+            self._task_q.put(t)
+        self._threads = [threading.Thread(target=self._worker, daemon=True)
+                         for _ in range(min(workers, self.num_chunks))]
+        for t in self._threads:
+            t.start()
+
+    close = BoundedSegmentDecoder.close
+    _worker = BoundedSegmentDecoder._worker
+
+    def wait(self):
+        """Block until every chunk has been through the sink, or a worker
+        failed or the decoder was closed; re-raise a worker's exception."""
+        with self._cond:
+            while self._done < self.num_chunks and self._error is None and not self._closed:
+                self._cond.wait()
+            if self._error is not None:
+                raise self._error
+
+    def _worker_loop(self):
+        # A pooled handle: the analyzer's probe (or an earlier run) has
+        # usually opened this file already.
+        dec = native_decoder.acquire(self.path, lowres=self.lowres, fast=self.fast)
+        k = self.boxes.shape[1]
+        try:
+            while not self._closed:
+                try:
+                    chunk_idx = self._task_q.get_nowait()
+                except queue.Empty:
+                    return
+                start = chunk_idx * self.chunk
+                stop = min(start + self.chunk, self.num_frames)
+                # Every chunk has the full shape; the tail is zero boxes.
+                chunk_boxes = np.zeros((self.chunk, k, 4), np.float32)
+                chunk_boxes[:stop - start] = self.boxes[start:stop]
+                n, crops = dec.decode_crops(start, chunk_boxes, self.crop_size, self.padding,
+                                            stride=self.stride, fmt=self.fmt, dense=True)
+                self.sink(start, min(n, stop - start), crops)
+                with self._cond:
+                    self._done += 1
+                    if self._done >= self.num_chunks:
+                        self._cond.notify_all()
+        finally:
+            native_decoder.release(dec)
+
+
+def auto_lowres(boxes, video_w, video_h, crop_size, padding, max_lowres=2):
+    """The largest fractional-decode factor at which the smallest real
+    box's crop side (``2 * (max(bw, bh) // 2 + padding)``, as the native
+    extractor computes it) still decodes to at least ``crop_size`` pixels,
+    capped at ``max_lowres``.  Zero-size boxes are ignored."""
+    b = np.asarray(boxes, np.float32).reshape(-1, 4)
+    bw = (b[:, 2] * video_w).astype(np.int64)
+    bh = (b[:, 3] * video_h).astype(np.int64)
+    half = np.maximum(bw, bh) // 2
+    side = 2 * (half + int(padding))
+    real = side[half > 0]
+    if real.size == 0:
+        return 0
+    min_side = int(real.min())
+    lowres = 0
+    while lowres < max_lowres and (min_side >> (lowres + 1)) >= crop_size:
+        lowres += 1
+    return lowres
+
+
+def resolve_padding(boxes, padding):
+    """``(boxes, int padding)`` for the chunked decode paths.
+
+    An integer padding (pixels) passes through.  A float in (0, 1) is a
+    fraction of each box's square side, realised exactly by inflating each
+    box's w and h by ``1 + 2 * padding`` with padding 0.  Anything else
+    raises.
+    """
+    if hasattr(padding, "item"):  # numpy scalars from a config parse
+        padding = padding.item()
+    if isinstance(padding, float) and 0.0 < padding < 1.0:
+        out = np.array(boxes, np.float32, copy=True)
+        out[..., 2:4] *= 1.0 + 2.0 * padding
+        return out, 0
+    if float(padding) != int(padding):
+        raise ValueError(f"padding must be an int pixel pad or a fraction in (0,1); "
+                         f"got {padding!r}")
+    return boxes, int(padding)
+
+
+class PinnedStager:
+    """Host-to-device copies of chunks through a ring of pinned host
+    buffers and a copy stream.
+
+    :meth:`to_device` copies a chunk into the next slot (after waiting for
+    that slot's previous copy to finish), starts the slot's copy on the
+    copy stream, makes the caller's current stream wait for it, and marks
+    the device tensor as used by that stream so the caching allocator does
+    not hand its memory out again before the stream is done with it.  On
+    the CPU it returns the array as a tensor.  One analysis at a time
+    uses a stager.
+    """
+
+    SLOTS = 3
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._host = [None] * self.SLOTS
+        self._copied = [None] * self.SLOTS
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._next = 0
+
+    def to_device(self, array):
+        if self._stream is None:
+            return torch.from_numpy(array)
+        if array.dtype != np.uint8:
+            raise TypeError(f"chunks are uint8 crops, got {array.dtype}")
+        k = self._next
+        self._next = (k + 1) % self.SLOTS
+        if self._copied[k] is not None:
+            self._copied[k].synchronize()
+        host = self._host[k]
+        if host is None or tuple(host.shape) != array.shape:
+            host = torch.empty(array.shape, dtype=torch.uint8, pin_memory=True)
+            self._host[k] = host
+        host.numpy()[...] = array
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            out = host.to(self.device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._stream)
+        self._copied[k] = copied
+        compute.wait_stream(self._stream)
+        out.record_stream(compute)
+        return out
+
+
+class _ChunkDispatcher:
+    """The one thread of an analysis that touches the device: for each
+    chunk handed to :meth:`sink` it stages the crops, embeds them and
+    scatters the embeddings into the buffer.  An error stops the decode at
+    the next chunk and is raised again by :meth:`finish`."""
+
+    QUEUE_CHUNKS = 8
+    JOIN_TIMEOUT_S = 600.0
+
+    def __init__(self, pipeline, embed, buf, stride, stager):
+        self.pipeline = pipeline
+        self.embed = embed
+        self.buf = buf
+        self.stride = stride
+        self.stager = stager
+        self.decoded = 0
+        self.extent = 0  # highest sampled row written + 1, not a count
+        self.error = None
+        self._queue = queue.Queue(maxsize=self.QUEUE_CHUNKS)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def sink(self, start, n, crops):
+        """Hand over one decoded chunk (from any decode thread); blocks
+        while the queue is full, and returns once the run is stopping."""
+        if self.error is not None:
+            raise self.error
+        while not self._stop.is_set():
+            try:
+                self._queue.put((start, n, crops), timeout=0.25)
+                return
+            except queue.Full:
+                continue
+
+    def _run(self):
+        dev = self.pipeline.device
+        device_ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        # inference_mode is per thread: this thread enters it itself.
+        with device_ctx, torch.inference_mode():
+            while True:
+                item = self._queue.get()
+                if item is None:
+                    return
+                start, n, crops = item
+                if self.error is not None or n == 0:
+                    continue  # keep draining so producers never block
+                try:
+                    flat = crops.reshape((crops.shape[0] * crops.shape[1],) + crops.shape[2:])
+                    emb = self.embed(self.stager.to_device(flat))
+                    self.pipeline.scatter_embeddings(self.buf, emb, (start // self.stride) * 2)
+                    self.decoded += n
+                    self.extent = max(self.extent, (start + n + self.stride - 1) // self.stride)
+                except BaseException as e:  # raised again on the analyzing thread
+                    self.error = e
+
+    def finish(self):
+        """Stop producers blocked in :meth:`sink`, let the dispatcher run
+        the chunks it holds, wait for it, and raise its error if any."""
+        self._stop.set()
+        self._queue.put(None)
+        self._thread.join(timeout=self.JOIN_TIMEOUT_S)
+        if self._thread.is_alive():
+            raise RuntimeError(f"the dispatcher did not finish within {self.JOIN_TIMEOUT_S} s")
+        if self.error is not None:
+            raise self.error
+
+
+class VodAnalyzer:
+    """Analyze a VOD: per-frame action labels for both fighters.
+
+    ``pipeline`` defaults to the CNN family on the CUDA device (and raises
+    without one).  ``variables`` are weights as the JAX package's numpy
+    tree or the port's state dicts; they are loaded into the pipeline's
+    modules on its device here, once, and not kept.  With
+    ``variables=None`` a pipeline that holds no weights yet gets seeded
+    random ones (seed 0), with a warning.
+
+    ``decode_backend``: "native" (the libavcodec crop extractor; a failed
+    build raises), "cv2" (``cv2.VideoCapture`` and host-side crops), or
+    "auto", which means "native".  ``transfer_format``: "yuv420" ships
+    packed 4:2:0 crops (half the bytes; converted to RGB on the device),
+    "bgr" ships BGR24, "auto" picks yuv420 on the native backend.
+    ``stride``: classify every stride-th frame and repeat its label over
+    the frames in between; ``chunk`` must divide by it.  ``lowres`` (0, 1,
+    2 or "auto", see :func:`auto_lowres`) and ``fast_decode`` (True, False
+    or "auto") set the native decode mode.  ``decode``, ``smooth_radius``
+    and ``switch_cost`` set the label decode of ``classify_buffer``.
+    """
+
+    def __init__(self, pipeline: BatchedActionPipeline | None = None, variables=None,
+                 padding=30, chunk=48, decode_workers=None, host_resize=True, mesh=None,
+                 decode_backend="auto", lowres=0, stride=1, transfer_format="auto",
+                 fast_decode="auto", decode="argmax", smooth_radius=0, switch_cost=4.0):
+        if not host_resize:
+            raise NotImplementedError(
+                "host_resize=False (windows resized on the device) is not ported yet; "
+                "see ROADMAP.md, queue 1 item 6")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (chunks split over several devices) is not ported yet; "
+                "see ROADMAP.md, queue 1 item 6")
+        if decode_backend not in ("auto", "native", "cv2"):
+            raise ValueError(f"decode_backend must be auto, native or cv2, got "
+                             f"{decode_backend!r}")
+        if transfer_format not in ("auto", "yuv420", "bgr"):
+            raise ValueError(f"transfer_format must be auto, yuv420 or bgr, got "
+                             f"{transfer_format!r}")
+        if stride > 1 and chunk % stride != 0:
+            raise ValueError(f"chunk ({chunk}) must be divisible by stride ({stride})")
+        self.pipeline = pipeline or BatchedActionPipeline(family="cnn")
+        if variables is not None:
+            self.pipeline.load_variables(variables)
+        elif not self.pipeline.initialized:
+            print("WARNING: no trained weights provided; using random initialization "
+                  "(labels will be meaningless). Pass variables= or a --checkpoint.",
+                  file=sys.stderr)
+            self.pipeline.init(0)
+        self.padding = padding
+        self.chunk = chunk
+        self.decode_workers = decode_workers
+        self.decode_backend = decode_backend
+        self.lowres = lowres
+        self.fast_decode = fast_decode
+        self.stride = stride
+        self.transfer_format = transfer_format
+        self.label_decode = decode
+        self.smooth_radius = smooth_radius
+        self.switch_cost = switch_cost
+        self._stager = PinnedStager(self.pipeline.device)
+
+    def analyze(self, video_path, boxes, num_frames=None):
+        """boxes: ``[F, 2, 4]`` normalised yolo boxes per frame.
+
+        Returns a dict: ``labels`` and ``confidences`` ``[F, 2]`` (numpy),
+        ``frames`` decoded, ``seconds`` and ``fps`` by wall clock from the
+        start of decode to the labels on the host, and the effective
+        ``lowres``, ``fast`` and ``backend``.
+        """
+        boxes, padding = resolve_padding(boxes, self.padding)
+        f_total = boxes.shape[0] if num_frames is None else num_frames
+        chunk, stride = self.chunk, self.stride
+        crop_size = self.pipeline.crop_size
+        use_native = self.decode_backend in ("auto", "native")
+        fmt = self.transfer_format
+        if fmt == "auto":
+            fmt = "yuv420" if use_native else "bgr"
+        if fmt == "yuv420" and not use_native:
+            raise ValueError("transfer_format='yuv420' requires the native decoder")
+
+        lowres = self.lowres if isinstance(self.lowres, int) else 0
+        eff_fast = 1 if self.fast_decode is True else 0
+        if use_native and (self.lowres == "auto" or lowres > 0 or self.fast_decode == "auto"):
+            # Cached probe; its handle parks in the pool for the decoder.
+            info = native_decoder.probe(video_path, fast=self.fast_decode)
+            eff_fast = info["fast"]
+            if self.lowres == "auto":
+                lowres = auto_lowres(boxes[:f_total], info["width"], info["height"],
+                                     crop_size, padding, max_lowres=info["max_lowres"])
+            elif self.lowres:
+                lowres = min(self.lowres, info["max_lowres"])
+
+        embed = (self.pipeline.embed_crops_yuv if fmt == "yuv420"
+                 else self.pipeline.embed_crops_u8)
+        num_chunks = (f_total + chunk - 1) // chunk
+        t0 = time.time()
+        buf = self.pipeline.make_embedding_buffer(num_chunks * (chunk // stride))
+        dispatcher = _ChunkDispatcher(self.pipeline, embed, buf, stride, self._stager)
+        try:
+            if use_native:
+                self._decode_native(dispatcher, video_path, boxes, f_total, padding, lowres, fmt)
+            else:
+                self._decode_cv2(dispatcher, video_path, boxes, f_total, padding)
+        finally:
+            # Producers blocked in sink() return once the dispatcher stops;
+            # it runs what it holds, then ends at the sentinel.
+            dispatcher.finish()
+
+        labels, conf = self.pipeline.classify_buffer(
+            buf, dispatcher.extent, decode=self.label_decode,
+            smooth_radius=self.smooth_radius, switch_cost=self.switch_cost)
+        labels, conf = labels.cpu().numpy(), conf.cpu().numpy()
+        if stride > 1:
+            labels = np.repeat(labels, stride, axis=0)[:f_total]
+            conf = np.repeat(conf, stride, axis=0)[:f_total]
+        elapsed = time.time() - t0
+        return {
+            "labels": labels,
+            "confidences": conf,
+            "frames": dispatcher.decoded,
+            "seconds": elapsed,
+            "fps": dispatcher.decoded / elapsed if elapsed > 0 else 0.0,
+            "lowres": lowres if use_native else 0,
+            "fast": eff_fast if use_native else 0,
+            "backend": "native" if use_native else "cv2",
+        }
+
+    def _decode_native(self, dispatcher, video_path, boxes, f_total, padding, lowres, fmt):
+        chunk, crop_size = self.chunk, self.pipeline.crop_size
+        workers = self.decode_workers or max(1, min((os.cpu_count() or 1), 6))
+        if workers == 1:
+            # One worker: the chunk loop runs on this thread, and only the
+            # dispatcher is a thread.
+            dec = native_decoder.acquire(video_path, lowres=lowres, fast=self.fast_decode)
+            try:
+                for c0 in range(0, f_total, chunk):
+                    stop = min(c0 + chunk, f_total)
+                    cb = np.zeros((chunk, boxes.shape[1], 4), np.float32)
+                    cb[:stop - c0] = boxes[c0:stop]
+                    n, crops = dec.decode_crops(c0, cb, crop_size, padding, stride=self.stride,
+                                                fmt=fmt, dense=True)
+                    dispatcher.sink(c0, min(n, stop - c0), crops)
+            finally:
+                native_decoder.release(dec)
+            return
+        decoder = NativeChunkDecoder(
+            video_path, f_total, chunk, boxes, crop_size, padding, dispatcher.sink,
+            workers=workers, lowres=lowres, stride=self.stride, fmt=fmt, fast=self.fast_decode)
+        try:
+            decoder.wait()
+        finally:
+            decoder.close()
+
+    def _decode_cv2(self, dispatcher, video_path, boxes, f_total, padding):
+        chunk, stride, crop_size = self.chunk, self.stride, self.pipeline.crop_size
+
+        def transform(i, frame):
+            if i % stride != 0:
+                return None
+            return extract_crops(frame, boxes[i], crop_size, padding)
+
+        def collate(start, items):
+            # Dense, as the native decoder's dense=True: sampled frame j in
+            # row j // stride.
+            crops = np.zeros((chunk // stride, 2, crop_size, crop_size, 3), np.uint8)
+            for j, c in enumerate(items):
+                if c is not None:
+                    crops[j // stride] = c
+            return len(items), crops, None
+
+        decoder = BoundedSegmentDecoder(video_path, f_total, chunk, transform, collate,
+                                        workers=self.decode_workers)
+        try:
+            for start, (n, crops, _) in decoder:
+                dispatcher.sink(start, n, crops)
+        finally:
+            decoder.close()
+
+
+def analyze_many(jobs, pipeline=None, variables=None, workers=None, **analyzer_kwargs):
+    """Analyze several VODs concurrently through one pipeline.
+
+    ``jobs``: ``(video_path, boxes)`` pairs, or ``(video_path, boxes,
+    kwargs)`` triples whose dict overrides ``analyzer_kwargs`` for that
+    job.  The weights are loaded once; each job gets its own
+    :class:`VodAnalyzer` (decoder, dispatcher, staging ring, buffer).
+    Returns the results in job order; a failed job's slot holds its
+    exception.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    pipe = pipeline or BatchedActionPipeline(family="cnn")
+    VodAnalyzer(pipe, variables=variables, **analyzer_kwargs)  # loads the weights once
+
+    def run_one(job):
+        video_path, boxes, *rest = job
+        kwargs = {**analyzer_kwargs, **(rest[0] if rest else {})}
+        return VodAnalyzer(pipe, **kwargs).analyze(video_path, boxes)
+
+    workers = workers or min(len(jobs), max(os.cpu_count() or 1, 1))
+    results = []
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(run_one, job) for job in jobs]
+        for fut in futures:
+            try:
+                results.append(fut.result())
+            except Exception as e:  # noqa: BLE001 - each job's failure is its result
+                results.append(e)
+    return results

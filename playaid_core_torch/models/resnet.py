@@ -1,18 +1,20 @@
-"""ResNet-18 in PyTorch, under torchvision's parameter names.
+"""ResNet-18 and ResNet-50 in PyTorch, under torchvision's parameter names.
 
-Counterpart of ``playaid_core_tpu/models/resnet.py`` (the BasicBlock
-network; the Bottleneck and ResNet-50 come with the ResFormer family).
-It keeps the Flax model's conventions: a 7x7/2 stem with padding 3, 3x3
-convs with padding 1, a 1x1 stride-2 projection with no padding, a 3/2/1
-max-pool padded with -inf, a mean pool, batch norm with eps 1e-5, and a
-dense head to 1000 features.  Activations are NCHW inside the network.
+Counterpart of ``playaid_core_tpu/models/resnet.py``.  It keeps the Flax
+model's conventions: a 7x7/2 stem with padding 3, 3x3 convs with padding
+1, a 1x1 projection with no padding wherever a block changes shape, a
+3/2/1 max-pool padded with -inf, a mean pool, batch norm with eps 1e-5,
+and a dense head (``num_classes=0`` returns the pooled features: 512 for
+ResNet-18, 2048 for ResNet-50).  The Bottleneck block puts its stride on
+the 3x3 conv.  Activations are NCHW inside the network.
 
-At inference on a CUDA tensor, ``layer4[1]`` (the identity block of the
-last stage, 4x4x512 at 128-px input) runs as the fused CUDA kernel of
-``ops/conv_block.py`` with batch norm folded from its running statistics.
-The block packs its weights and folded batch norm for the kernel once and
-keeps the pack until a tensor it was built from changes.  In training
-mode, or on the CPU, every block runs unfused.
+At inference on a CUDA tensor, ResNet-18's ``layer4[1]`` (the identity
+block of the last stage, 4x4x512 at 128-px input) runs as the fused CUDA
+kernel of ``ops/conv_block.py`` with batch norm folded from its running
+statistics, whatever ``num_classes`` is.  The block packs its weights and
+folded batch norm for the kernel once and keeps the pack until a tensor
+it was built from changes.  In training mode, or on the CPU, every block
+runs unfused.  ResNet-50 has no BasicBlock and runs on cuDNN throughout.
 """
 
 from __future__ import annotations
@@ -95,25 +97,76 @@ class BasicBlock(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
-class ResNet18(nn.Module):
-    """ResNet-18 v1: NCHW float input -> ``[N, num_classes]`` float32."""
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (carrying the stride) -> 1x1 with 4x expansion, and a
+    residual; a 1x1 projection when the shape changes."""
 
-    def __init__(self, num_classes=1000):
+    expansion = 4
+
+    def __init__(self, in_planes, planes, stride=1):
+        super().__init__()
+        out_planes = planes * self.expansion
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(out_planes, eps=BN_EPS)
+        self.downsample = None
+        if stride != 1 or in_planes != out_planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, out_planes, 1, stride, bias=False),
+                nn.BatchNorm2d(out_planes, eps=BN_EPS),
+            )
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(residual + y)
+
+
+class ResNet(nn.Module):
+    """ResNet v1: NCHW float input -> ``[N, num_classes]`` float32, or the
+    pooled features when ``num_classes=0``.  In a BasicBlock network the
+    last block of the last stage is the fused kernel's identity block."""
+
+    def __init__(self, block, stage_sizes, num_classes=1000):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
         self.maxpool = nn.MaxPool2d(3, 2, padding=1)
-        widths = (64, 128, 256, 512)
+        expansion = getattr(block, "expansion", 1)
         in_planes = 64
-        for i, planes in enumerate(widths):
-            stride = 1 if i == 0 else 2
-            blocks = [BasicBlock(in_planes, planes, stride),
-                      BasicBlock(planes, planes, 1, fused=(i == 3))]
+        for i, num_blocks in enumerate(stage_sizes):
+            planes = 64 * 2 ** i
+            blocks = []
+            for j in range(num_blocks):
+                stride = 2 if i > 0 and j == 0 else 1
+                if block is BasicBlock:
+                    fused = i == len(stage_sizes) - 1 and j == num_blocks - 1
+                    blocks.append(BasicBlock(in_planes, planes, stride, fused=fused))
+                else:
+                    blocks.append(block(in_planes, planes, stride))
+                in_planes = planes * expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-            in_planes = planes
-        self.fc = nn.Linear(512, num_classes)
+        self.fc = nn.Linear(in_planes, num_classes) if num_classes else None
 
     def forward(self, x):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.fc(x.mean(dim=(2, 3))).float()
+        x = x.mean(dim=(2, 3))
+        if self.fc is not None:
+            x = self.fc(x)
+        return x.float()
+
+
+class ResNet18(ResNet):
+    def __init__(self, num_classes=1000):
+        super().__init__(BasicBlock, (2, 2, 2, 2), num_classes)
+
+
+class ResNet50(ResNet):
+    def __init__(self, num_classes=1000):
+        super().__init__(Bottleneck, (3, 4, 6, 3), num_classes)

@@ -13,6 +13,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,6 +26,7 @@ NVCC_FLAGS = [
 KERNELS = ("crop_resize", "residual_block")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_launch_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -87,3 +89,10 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero ``cudaError_t``."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: wrappers launch from
+    the VOD pipeline's dispatcher threads, several at once."""
+    with _launch_lock:
+        wrapper.launches += 1

@@ -160,7 +160,7 @@ def residual_block_packed(x, pack):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "residual_block launch")
-    residual_block_packed.launches += 1
+    _build.count_launch(residual_block_packed)
     return out
 
 

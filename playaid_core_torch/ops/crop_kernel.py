@@ -64,7 +64,7 @@ def square_crop_resize(frames_u8, boxes, out_size=128, padding=0,
         torch.cuda.current_stream(frames_u8.device).cuda_stream,
     )
     _build.check(status, "crop_resize launch")
-    square_crop_resize.launches += 1
+    _build.count_launch(square_crop_resize)
     return out
 
 

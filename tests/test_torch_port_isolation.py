@@ -39,8 +39,10 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     imported = set(proc.stdout.split())
-    for name in ("convert", "device", "infer.pipeline", "models.resnet", "ops._build",
-                 "ops.conv_block", "ops.crop_kernel", "ops.preprocess"):
+    for name in ("convert", "device", "infer.pipeline", "infer.vod_pipeline", "models.resnet",
+                 "models.resnet_transformer", "models.rnn_action_detector", "ops._build",
+                 "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
+                 "video.native_encoder"):
         assert f"playaid_core_torch.{name}" in imported
 
 

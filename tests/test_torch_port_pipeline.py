@@ -206,7 +206,8 @@ def test_pipeline_defaults_to_cuda(monkeypatch):
         BatchedActionPipeline()
 
 
-@pytest.mark.parametrize("family", ["resformer", "rnn"])
+@pytest.mark.parametrize("family", ["cnn3d", "transformer"])
 def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The port has the JAX package's three families and no other."""
+    with pytest.raises(ValueError, match="cnn.*resformer.*rnn"):
         BatchedActionPipeline(family=family, device="cpu")
