@@ -10,9 +10,13 @@ synthetic 1080p clip: noise background with two discs on the fighter
 trajectories.
 
 Phases (any failure exits non-zero, and no result line is printed):
-1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a);
+1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a)
+   and, at the same time, the native log parser (native/log_parser.cpp)
+   with g++, which links no FFmpeg library;
 2. crop kernel (K1) against its plain version at the main-path shapes and
-   on boxes that hang off every frame edge;
+   on boxes that hang off every frame edge; its window entry against
+   batched_window_resize at the window route's shapes (96 windows of 384^2
+   -> 128^2) and at edge origins (negative corners, side > W - 2, side 0);
 3. residual-block kernel (K2) against its plain version on the real
    layer4[1] weights and input, float32 (3xTF32) and bfloat16;
 4. the device slice from pinned frames, with PyTorch's default TF32 flags
@@ -32,20 +36,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    the CPU;
 7. the ResFormer (ResNet-50 + 3 transformer layers) and RNN (ResNet-18 +
    3-layer LSTM) families at full width with seeded random weights through
-   the same analyzer, against the CPU on the first 96 frames.
+   the same analyzer, against the CPU on the first 96 frames;
+8. the log path: a scripted ult_logger log of 480 frames (written here,
+   with json) -> boxes_from_log through the native parser built in phase 1
+   -> VodAnalyzer(host_resize=False), stride 1, chunk 48: 1080p frames from
+   a stand-in capture -> 384-px windows cut on the host -> pinned ring ->
+   K1's window entry -> ResNet-18 with K2 -> labels, argmax then Viterbi
+   (timed): K1 (window entry) and K2 launches, host-to-device bytes per
+   chunk (the windows and their origins, no weights), card vs CPU labels on
+   the first 96 frames, frames/s and its split; then the command line,
+   main([...]) in this process, on the same log with a port checkpoint
+   file made from the bench weights, --stride 2, through phase 6's decoder
+   stand-in: one CSV row per frame, moves named by CLASS_ID_TO_MOVE.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
-built there: phases 6 and 7 put a stand-in behind the port's
-native_decoder.acquire/release/probe, in this script only.  Its
+built there: phases 6, 7 and 8's command line put a stand-in behind the
+port's native_decoder.acquire/release/probe, in this script only.  Its
 decode_crops returns the disc clip's packed YUV420 crops, made on the host
 with numpy; everything after decode is the port's own.  The CPU tests hold
-the port's decoder against the JAX package's, bit for bit.
+the port's decoder against the JAX package's, bit for bit.  It has no cv2
+either, so phase 8's window route reads its frames from a stand-in put
+behind BoundedSegmentDecoder.open_capture (again in this script only):
+1080p frames with discs at the log's boxes, rendered with numpy.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -61,6 +80,7 @@ ASSET = os.path.join(ROOT, "playaid_core_tpu", "assets", "bench_cnn63.npz")
 HEIGHT, WIDTH = 1080, 1920
 NUM_FRAMES, CHUNK, STRIDE = 480, 48, 2
 CROP, PADDING, BOX_PX, DISC_RADIUS = 128, 30, 260, 90
+WINDOW = 384  # the window route's host-side window (VodAnalyzer's default)
 CPU_FRAMES = 96
 SWITCH_COST = 16.0
 FAMILY_SEED = 0
@@ -92,9 +112,17 @@ def fighter_boxes(num_frames, width=WIDTH, height=HEIGHT, box_px=BOX_PX):
     return boxes
 
 
+@functools.lru_cache(maxsize=1)
+def noise_background():
+    """The clips' 1080p BGR background, made once (read-only)."""
+    base = np.random.default_rng(0).integers(0, 60, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+    base.flags.writeable = False
+    return base
+
+
 def render_frames(indices, num_frames, out):
     """BGR frames of the disc clip for the given frame indices, into out."""
-    base = np.random.default_rng(0).integers(0, 60, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+    base = noise_background()
     r = DISC_RADIUS
     yy, xx = np.ogrid[-r:r + 1, -r:r + 1]
     disc = yy ** 2 + xx ** 2 <= r * r
@@ -195,6 +223,32 @@ def trace_device_events(path):
             and "dur" in e]
 
 
+def trace_copy_audit(path, kernel_key):
+    """What an exported chrome trace says of its host-to-device copies:
+    each copy's (bytes, stream); the streams of the kernels whose name holds
+    kernel_key; the cudaMemcpy* calls traced on the host; and the records
+    the trace itself shows lost: those calls whose copy is missing on the
+    device side (matched by correlation id), and any note of dropped
+    records that the profiler wrote beside the events."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    traced = {e.get("args", {}).get("correlation") for e in device}
+    calls = [e.get("args", {}).get("correlation") for e in events
+             if e.get("cat") == "cuda_runtime" and e.get("name", "").startswith("cudaMemcpy")]
+    return {
+        "h2d": [(e.get("args", {}).get("bytes"), e.get("args", {}).get("stream"))
+                for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", "")],
+        "kernel_streams": {e.get("args", {}).get("stream") for e in device
+                           if e["cat"] == "kernel" and kernel_key in e.get("name", "")},
+        "calls": len(calls),
+        "lost": [c for c in calls if c not in traced],
+        "notes": [f"{k}: {str(v)[:200]}" for k, v in trace.items()
+                  if k != "traceEvents" and "drop" in str(v).lower()],
+    }
+
+
 def busy_us(events):
     """Length of the union of the events' intervals (streams overlap)."""
     total, end = 0.0, -1.0
@@ -249,26 +303,114 @@ def device_ms(torch, fn, iters, kernel_name, warmup=3):
             sum(e.count for e in rows) / iters)
 
 
-def crop_touched_bytes(boxes, h, w, size, padding):
-    """Source bytes the crops need: per crop, the distinct rows times the
-    distinct columns of in-frame bilinear taps, times 3 channels."""
-    boxes = boxes.astype(np.float32)
-    cx = np.floor(boxes[:, 0] * np.float32(w))
-    cy = np.floor(boxes[:, 1] * np.float32(h))
-    half = np.floor(np.maximum(np.floor(boxes[:, 2] * np.float32(w)),
-                               np.floor(boxes[:, 3] * np.float32(h))) / 2)
-    side = np.maximum(2 * (half + padding), 1)
+def touched_bytes(y0, x0, side, h, w, size):
+    """Source bytes the crops of windows (y0, x0, side) of an h x w source
+    need: per crop, the distinct rows times the distinct columns of
+    in-frame bilinear taps, times 3 channels."""
+    side = np.maximum(np.asarray(side, np.float32), 1)
     i = np.arange(size, dtype=np.float32)
     total = 0
-    for q in range(len(boxes)):
+    for q in range(len(side)):
         counts = []
-        for origin, length in ((cy[q] - half[q] - padding, h), (cx[q] - half[q] - padding, w)):
-            src = origin + (i + 0.5) * side[q] / size - 0.5
+        for origin, length in ((y0[q], h), (x0[q], w)):
+            src = np.float32(origin) + (i + 0.5) * side[q] / size - 0.5
             src = src[(src >= -1) & (src <= length)]
             taps = np.concatenate([np.floor(src), np.floor(src) + 1])
             counts.append(len(np.unique(taps[(taps >= 0) & (taps < length)])))
         total += counts[0] * counts[1] * 3
     return total
+
+
+def crop_touched_bytes(boxes, h, w, size, padding):
+    """touched_bytes of the boxes' square windows (square_window_params)."""
+    boxes = boxes.astype(np.float32)
+    cx = np.floor(boxes[:, 0] * np.float32(w))
+    cy = np.floor(boxes[:, 1] * np.float32(h))
+    half = np.floor(np.maximum(np.floor(boxes[:, 2] * np.float32(w)),
+                               np.floor(boxes[:, 3] * np.float32(h))) / 2)
+    return touched_bytes(cy - half - padding, cx - half - padding, 2 * (half + padding),
+                         h, w, size)
+
+
+# The scripted match of phase 8's log: motion kinds whose params_labels.csv
+# entries name these moves (game_data/params_labels.csv), fighter enums
+# (game_data/fighters.json), and the camera and stage of
+# tests/synthlog.py's records.
+MOTION_KIND = {"Wait": 19292652517, "ForwardSmash": 39434321014, "Jab": 44474425470,
+               "DashAttack": 49064254701, "Damaged": 26068145260, "TechRoll": 65401729311,
+               "LedgeHang": 45039193950, "LedgeNormalGetUp": 127456238928}
+FIGHTER_ENUM = {"Byleth": 86, "Pikachu": 8}
+LOG_STAGE = 86
+LOG_GAP_AT, LOG_GAP_SIZE = 200, 2  # frames dropped from the file, repaired on parse
+P0_MOVES = ("Wait", "ForwardSmash", "Wait", "Jab", "DashAttack", "Wait")
+P1_MOVES = ("Wait", "Damaged", "TechRoll", "Wait", "LedgeHang", "LedgeNormalGetUp")
+
+
+def log_record(i, fighter_id, name, action, pos_x, pos_y, damage):
+    """One ult_logger line's record, with tests/synthlog.py's fields."""
+    return {
+        "animation_frame_num": 0, "attack_connected": False, "camera_fov": 30.0,
+        "camera_position": {"x": 0.0, "y": 14.0, "z": 167.24},
+        "camera_target_position": {"x": 0.0, "y": 11.85, "z": 0.0},
+        "can_act": True, "damage": damage, "facing": 1.0 if fighter_id == 0 else -1.0,
+        "fighter_id": fighter_id, "fighter_name": FIGHTER_ENUM[name], "hitstun_left": 0.0,
+        "motion_kind": MOTION_KIND[action], "num_frames_left": 25200 - i, "pos_x": pos_x,
+        "pos_y": pos_y, "shield_size": 50.0, "stage_id": LOG_STAGE, "status_kind": 0,
+        "stock_count": 3,
+    }
+
+
+def write_match_log(path, num_frames):
+    """A scripted two-fighter match, one JSON line per fighter per frame:
+    the fighters walk towards each other and back, cycle through their
+    moves every 40 frames, and frames LOG_GAP_AT.. are missing from the
+    file while num_frames_left keeps counting (the parser repeats the
+    frame before the gap)."""
+    with open(path, "w") as f:
+        for i in range(num_frames):
+            if LOG_GAP_AT <= i < LOG_GAP_AT + LOG_GAP_SIZE:
+                continue
+            t = i / num_frames
+            sway = 12.0 * np.sin(2 * np.pi * t)
+            recs = (log_record(i, 0, "Byleth", P0_MOVES[(i // 40) % len(P0_MOVES)],
+                               -30.0 + sway, 4.0 * abs(np.sin(6 * np.pi * t)), 0.0),
+                    log_record(i, 1, "Pikachu", P1_MOVES[(i // 40) % len(P1_MOVES)],
+                               30.0 - sway, 0.0, 2.5 * (i // 40)))
+            for rec in recs:
+                f.write(json.dumps(rec) + "\n")
+
+
+class LogClipCapture:
+    """Stand-in frame source behind BoundedSegmentDecoder.open_capture:
+    1080p BGR frames of noise with two discs at the log's boxes, rendered
+    into one buffer per capture (seek / read / release, as cv2's)."""
+
+    def __init__(self, boxes):
+        self.boxes = boxes
+        self.pos = 0
+        self.base = noise_background()
+        self.frame = np.empty_like(self.base)
+        r = DISC_RADIUS
+        yy, xx = np.ogrid[-r:r + 1, -r:r + 1]
+        self.disc = yy ** 2 + xx ** 2 <= r * r
+
+    def seek(self, index):
+        self.pos = index
+
+    def read(self):
+        if self.pos >= len(self.boxes):
+            return False, None
+        frame, r = self.frame, DISC_RADIUS
+        frame[:] = self.base
+        for box, colour in zip(self.boxes[self.pos], ((0, 200, 255), (255, 80, 0))):
+            cx = min(max(int(box[0] * WIDTH), r), WIDTH - r - 1)
+            cy = min(max(int(box[1] * HEIGHT), r), HEIGHT - r - 1)
+            frame[cy - r:cy + r + 1, cx - r:cx + r + 1][self.disc] = colour
+        self.pos += 1
+        return True, frame
+
+    def release(self):
+        pass
 
 
 def bf16_ulps(out, ref):
@@ -475,6 +617,190 @@ def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
               f"same embeddings, max abs err {lp_err:.3e} (tol {LOG_PROB_TOL})")
 
 
+def run_log_phase(torch, dev, check, wrappers):
+    """Phase 8: the log path through VodAnalyzer(host_resize=False), then
+    the command line.  Returns each wrapper's launches during the timed
+    analyze."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from playaid_core_torch.convert import load_npz_tree
+    from playaid_core_torch.infer import vod_pipeline
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.infer.vod_pipeline import (
+        BoundedSegmentDecoder,
+        VodAnalyzer,
+        boxes_from_log,
+    )
+    from playaid_core_torch.ontology import CLASS_ID_TO_MOVE
+
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    log_path = os.path.join(work, "match_log.txt")
+    write_match_log(log_path, NUM_FRAMES)
+    t0 = time.perf_counter()
+    boxes = boxes_from_log(log_path, parser="native")
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    same = np.array_equal(boxes, boxes_from_log(log_path, parser="python"))
+    check(boxes.shape == (NUM_FRAMES, 2, 4) and same and 0 < boxes[..., 2:].min()
+          and boxes[..., :2].min() > 0 and boxes[..., :2].max() < 1,
+          f"phase 8: boxes_from_log {boxes.shape} through the native parser in {parse_ms:.1f} ms "
+          f"(gap of {LOG_GAP_SIZE} frames repaired), equal to the Python parser's: {same}")
+
+    # The card's machine has no cv2: frames come from the stand-in capture.
+    BoundedSegmentDecoder.open_capture = staticmethod(lambda path: LogClipCapture(boxes))
+    clip = "log_clip.mp4"  # the stand-in serves it; no file is read
+    win = WINDOW
+    kw = dict(host_resize=False, window=win, stride=1, chunk=CHUNK, switch_cost=SWITCH_COST)
+    pipe = BatchedActionPipeline(device=dev)
+    argmax = VodAnalyzer(pipe, variables=load_npz_tree(ASSET), decode="argmax", **kw)
+    viterbi = VodAnalyzer(pipe, decode="viterbi", **kw)
+    first = argmax.analyze(clip, boxes)
+    for w in wrappers:
+        w.launches = 0
+    timed = viterbi.analyze(clip, boxes)
+    launches = [w.launches for w in wrappers]
+    num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
+    check(launches[0] == num_chunks and launches[1] > 0,
+          f"phase 8: launches during the timed analyze: K1 window entry {launches[0]} (one a "
+          f"chunk: {num_chunks}), K2 residual_block {launches[1]}")
+    for name, res in (("argmax", first), ("viterbi", timed)):
+        check(res["labels"].shape == (NUM_FRAMES, 2) and res["frames"] == NUM_FRAMES
+              and 0 <= res["labels"].min() and res["labels"].max() < 63
+              and np.isfinite(res["confidences"]).all() and res["backend"] == "cv2",
+              f"phase 8: {name} labels {res['labels'].shape} in [0, 63), {res['frames']} frames, "
+              f"backend {res['backend']} (frames from the capture)")
+
+    # Bytes sent to the card under the profiler: per chunk the windows and
+    # their origins, nothing else of size, all on the staging ring's copy
+    # stream (not K1's).  What the ring was handed is the cross-check.  A
+    # trace short of a copy is profiled once more only when the trace shows
+    # that it lost the record (a traced cudaMemcpy call with no copy on the
+    # device, or a note of dropped records); a short trace without such a
+    # sign fails the check.
+    trace = os.path.join(work, "window_trace.json")
+    win_bytes = CHUNK * 2 * win * win * 3
+    org_bytes = CHUNK * 2 * 3 * 4
+    to_device = vod_pipeline.PinnedStager.to_device
+    for attempt in (1, 2):
+        staged = []
+
+        def counted(stager, *arrays):
+            staged.append(sum(a.nbytes for a in arrays))
+            return to_device(stager, *arrays)
+
+        vod_pipeline.PinnedStager.to_device = counted
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                argmax.analyze(clip, boxes)
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            vod_pipeline.PinnedStager.to_device = to_device
+        prof.export_chrome_trace(trace)
+        audit = trace_copy_audit(trace, "crop_resize")
+        h2d = [b for b, _ in audit["h2d"]]
+        big = [b for b in h2d if b is not None and b >= 65536]
+        org = [b for b in h2d if b == org_bytes]
+        win_streams = {s for b, s in audit["h2d"] if b == win_bytes}
+        log(f"phase 8: profiled run {attempt}: {len(h2d)} host-to-device copies in the trace "
+            f"({h2d.count(None)} without a size, {len(big)} of >= 64 KiB, {len(org)} of "
+            f"{org_bytes} B); {audit['calls']} cudaMemcpy calls traced on the host, "
+            f"{len(audit['lost'])} of them with no copy on the device; profiler notes of "
+            f"dropped records: {audit['notes'] or 'none'}; the staging ring was handed "
+            f"{len(staged)} chunks of {sorted(set(staged))} B")
+        if len(big) == len(org) == num_chunks or not (audit["lost"] or audit["notes"]):
+            break
+    rest = sum(b for b in h2d if b is not None and b < 65536 and b != org_bytes)
+    check(staged == [win_bytes + org_bytes] * num_chunks and None not in h2d
+          and big == [win_bytes] * num_chunks and org == [org_bytes] * num_chunks
+          and rest < 65536,
+          f"phase 8: host-to-device copies under torch.profiler: {len(big)} of >= 64 KiB "
+          f"totalling {sum(big)} B = {sum(big) / num_chunks:.0f} B a chunk (the chunk's windows: "
+          f"{win_bytes} B), {len(org)} of {org_bytes} B (the origins), the rest {rest} B; "
+          f"staged {len(staged)} chunks of windows and origins")
+    check(len(win_streams) == 1 and audit["kernel_streams"]
+          and not win_streams & audit["kernel_streams"],
+          f"phase 8: the window copies ran on stream {sorted(win_streams, key=str)}, K1 on "
+          f"{sorted(audit['kernel_streams'], key=str)}: the staging ring's copy stream, not K1's")
+    events = trace_device_events(trace)
+    busy = busy_us(events)
+    by_name = {}
+    for name, _, _, dur, _ in events:
+        by_name[name] = by_name.get(name, 0.0) + dur
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"phase 8 profile: {us / 1e3:9.3f} ms  {name[:100]}")
+
+    # The Viterbi run split where classify_buffer starts and ends.
+    marks = {}
+    classify = pipe.classify_buffer
+
+    def timed_classify(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["classify_start"] = time.perf_counter()
+        out = classify(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks["classify_end"] = time.perf_counter()
+        return out
+
+    pipe.classify_buffer = timed_classify
+    t0 = time.perf_counter()
+    viterbi.analyze(clip, boxes)
+    t1 = time.perf_counter()
+    del pipe.classify_buffer
+    log(f"phase 8: Viterbi run split at classify_buffer (card synchronised there): decode "
+        f"(stand-in capture), windows, staging, K1 and embed of all chunks "
+        f"{(marks['classify_start'] - t0) * 1e3:.1f} ms, classify_buffer "
+        f"{(marks['classify_end'] - marks['classify_start']) * 1e3:.1f} ms, the rest "
+        f"{(t1 - marks['classify_end']) * 1e3:.1f} ms")
+    # The frame source alone: the stand-in's frames and the windows cut from
+    # them, on one thread.
+    cap = LogClipCapture(boxes)
+    t0 = time.perf_counter()
+    for i in range(NUM_FRAMES):
+        vod_pipeline.extract_windows(cap.read()[1], boxes[i], win, PADDING)
+    source_fps = NUM_FRAMES / (time.perf_counter() - t0)
+    fps = timed["fps"]
+    log(f"phase 8: VodAnalyzer(host_resize=False).analyze {NUM_FRAMES} frames (Viterbi run) in "
+        f"{timed['seconds'] * 1e3:.1f} ms = {fps:.1f} frames/s end to end; stand-in frames + "
+        f"extract_windows alone on one thread {source_fps:.1f} frames/s; device busy "
+        f"{busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall under the profiler = "
+        f"{busy / wall_us:.3f}; {num_chunks} chunks of {win_bytes} B of windows")
+
+    # The first CPU_FRAMES frames on the card and on the CPU.
+    cpu_pipe = BatchedActionPipeline(device="cpu").load_variables(load_npz_tree(ASSET))
+    for decode in ("argmax", "viterbi"):
+        on_card = VodAnalyzer(pipe, decode=decode, **kw).analyze(clip, boxes[:CPU_FRAMES])
+        on_cpu = VodAnalyzer(cpu_pipe, decode=decode, **kw).analyze(clip, boxes[:CPU_FRAMES])
+        same = on_card["labels"] == on_cpu["labels"]
+        line = (f"phase 8: card vs CPU {decode} labels over {CPU_FRAMES} frames agree on "
+                f"{int(same.sum())}/{same.size} = {same.mean():.4f}")
+        if decode == "argmax":
+            check(same.mean() >= LABEL_AGREEMENT_MIN, line + f" (min {LABEL_AGREEMENT_MIN})")
+        else:
+            log(line)
+
+    # The command line, in this process, through phase 6's decoder stand-in.
+    ckpt = os.path.join(work, "cnn63_state.pt")
+    BatchedActionPipeline(device="cpu").load_variables(load_npz_tree(ASSET)).save_checkpoint(ckpt)
+    out_csv = os.path.join(work, "labels.csv")
+    t0 = time.perf_counter()
+    vod_pipeline.main(["--video", "disc_clip.mp4", "--log", log_path, "--checkpoint", ckpt,
+                       "--stride", "2", "--out", out_csv])
+    cli_s = time.perf_counter() - t0
+    with open(out_csv) as f:
+        rows = [line.rstrip("\n").split(",") for line in f]
+    moves = set(CLASS_ID_TO_MOVE.values())
+    check(rows[0] == ["frame", "p0_action", "p0_conf", "p1_action", "p1_conf"]
+          and [r[0] for r in rows[1:]] == [str(i) for i in range(NUM_FRAMES)]
+          and all(r[1] in moves and r[3] in moves and 0 <= float(r[2]) <= 100
+                  and 0 <= float(r[4]) <= 100 for r in rows[1:]),
+          f"phase 8: command line (--stride 2, --checkpoint {os.path.basename(ckpt)}) wrote "
+          f"{len(rows) - 1} CSV rows for {NUM_FRAMES} frames in {cli_s:.1f} s, moves named by "
+          f"CLASS_ID_TO_MOVE ({len({r[1] for r in rows[1:]} | {r[3] for r in rows[1:]})} "
+          f"distinct)")
+    return launches
+
+
 def main():
     import torch
 
@@ -496,8 +822,13 @@ def main():
         residual_block_packed,
         residual_block_ref,
     )
-    from playaid_core_torch.ops.crop_kernel import square_crop_resize
-    from playaid_core_torch.ops.preprocess import batched_square_crop_resize
+    from playaid_core_torch.infer.vod_pipeline import extract_windows
+    from playaid_core_torch.ops.crop_kernel import square_crop_resize, window_resize
+    from playaid_core_torch.ops.preprocess import (
+        batched_square_crop_resize,
+        batched_window_resize,
+    )
+    from playaid_core_torch.video import _native
 
     failures = []
 
@@ -510,14 +841,35 @@ def main():
     dev = torch.device("cuda", 0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- phase 1: build ----
+    # ---- phase 1: build (nvcc for the kernels, g++ for the log parser, at once) ----
     t0 = time.perf_counter()
+    parser_build = {}
+
+    def build_parser():
+        t = time.perf_counter()
+        try:
+            parser_build["lib"] = _native.build("log_parser")
+        except Exception as e:  # noqa: BLE001 - reported by the check below
+            parser_build["error"] = e
+        parser_build["s"] = time.perf_counter() - t
+
+    parser_thread = threading.Thread(target=build_parser)
+    parser_thread.start()
     logs = _build.build()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("built in", "entry function", "registers", "spill")):
                 log(f"  {name}: {line.strip()}")
+    parser_thread.join()
+    cmd = _native.command("log_parser", _native.BUILD_DIR / "liblog_parser.so")
+    libav = subprocess.run(["sh", "-c", "ldconfig -p | grep -c libavcodec"],
+                           capture_output=True, text=True).stdout.strip()
+    shown = " ".join(os.path.relpath(c, ROOT) if c.startswith(ROOT) else c for c in cmd)
+    check("lib" in parser_build and not [f for f in cmd if f.startswith("-l")],
+          f"phase 1: native/log_parser.cpp built with g++ in {parser_build['s']:.1f} s "
+          f"({parser_build.get('error', 'ok')}) by `{shown}`, which links no library; "
+          f"libavcodec entries in this machine's ldconfig cache: {libav or 0}")
 
     # ---- inputs: weights and the sampled frames of the disc clip ----
     state = from_jax_cnn(load_npz_tree(ASSET))
@@ -559,6 +911,40 @@ def main():
     odd_err = float((odd_out - odd_ref).abs().max())
     check(odd_err <= K1_TOL, f"phase 2: K1 crop_resize 30-px crops of oversized windows vs the "
           f"CPU plain version, max abs err {odd_err:.3e} (tol {K1_TOL})")
+
+    # K1's window entry at the window route's shapes: a chunk's 96 windows
+    # of 384^2, cut on the host around the disc clip's boxes, -> 128^2.
+    def window_set(k):
+        wins = np.empty((CHUNK, 2, WINDOW, WINDOW, 3), np.uint8)
+        origins = np.empty((CHUNK, 2, 3), np.float32)
+        for j in range(CHUNK):
+            row = k * CHUNK + j
+            wins[j], origins[j] = extract_windows(host[row].numpy(), boxes_all[sampled[row]],
+                                                  WINDOW, PADDING)
+        return (torch.from_numpy(wins.reshape(-1, WINDOW, WINDOW, 3)).to(dev),
+                torch.from_numpy(origins.reshape(-1, 3)).to(dev))
+
+    def window_plain(wins, origins):
+        return batched_window_resize(wins.flip(-1), origins[:, 0], origins[:, 1], origins[:, 2],
+                                     CROP)
+
+    win_sets = [window_set(k) for k in range(3)]  # 127 MB of windows: past the 50 MB L2
+    wins0, org0 = win_sets[0]
+    kw_out = window_resize(wins0, org0, CROP, bgr_to_rgb=True)
+    kw_ref = window_plain(wins0, org0)
+    # Edge origins: negative corners, a side wider than the window less 2,
+    # side 0 (clamped to 1), a window mostly outside.
+    edge_org = torch.tensor([[-20.0, -35.5, 300.0], [10.0, 5.0, 400.0], [0.0, 0.0, 0.0],
+                             [-100.0, 250.0, 200.0]], device=dev)
+    edge_wins = wins0[:4].contiguous()
+    kw_edge = window_resize(edge_wins, edge_org, CROP, bgr_to_rgb=True)
+    kw_edge_ref = window_plain(edge_wins, edge_org)
+    torch.cuda.synchronize()
+    kw_err = max(float((kw_out - kw_ref).abs().max()), float((kw_edge - kw_edge_ref).abs().max()))
+    check(tuple(kw_out.shape) == (2 * CHUNK, CROP, CROP, 3) and kw_err <= K1_TOL,
+          f"phase 2: K1 window entry {tuple(wins0.shape)} -> {tuple(kw_out.shape)} + 4 edge "
+          f"origins, max abs err {kw_err:.3e} (tol {K1_TOL}); sides "
+          f"{float(org0[:, 2].min()):.0f}-{float(org0[:, 2].max()):.0f} px")
 
     # ---- phase 3: K2 on the real layer4[1] weights and input ----
     net = pipe.embed
@@ -757,6 +1143,42 @@ def main():
                 + n_crops * CROP * CROP * 3 * 4 + n_crops * 4 * 4)
     k1_bound_ms = k1_bytes / PEAK_BYTES_PER_S * 1e3
 
+    # K1's window entry at the route's shapes, and its yardstick: grid_sample
+    # on the same windows (as floats, channels first) at the same points.
+    def window_grid_inputs(k):
+        wins, origins = win_sets[k]
+        frames = wins.flip(-1).permute(0, 3, 1, 2).float() / 255.0
+        i = torch.arange(CROP, device=dev, dtype=torch.float32)
+        side = torch.clamp(origins[:, 2], min=1.0)
+        sy = origins[:, 0, None] + (i + 0.5) * side[:, None] / CROP - 0.5
+        sx = origins[:, 1, None] + (i + 0.5) * side[:, None] / CROP - 0.5
+        gy = (2 * sy + 1) / WINDOW - 1  # align_corners=False
+        gx = (2 * sx + 1) / WINDOW - 1
+        return frames, torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), -1)
+
+    win_lib_inputs = [window_grid_inputs(k) for k in range(len(win_sets))]
+    wlib_out = F.grid_sample(*win_lib_inputs[0], mode="bilinear", padding_mode="zeros",
+                             align_corners=False).permute(0, 2, 3, 1)
+    log(f"phase 5: grid_sample yardstick vs K1 window plain: max abs err "
+        f"{float((wlib_out - kw_ref).abs().max()):.3e}")
+    del wlib_out
+
+    def kw_call(it):
+        return window_resize(*win_sets[it % len(win_sets)], CROP, bgr_to_rgb=True)
+
+    with torch.inference_mode():
+        kw_ms = time_cuda(torch, kw_call, 60)
+        kw_dev_ms, kw_per_call = device_ms(torch, kw_call, 60, "crop_resize_kernel")
+        kw_plain_ms = time_cuda(torch, lambda it: window_plain(*win_sets[it % len(win_sets)]), 6)
+        kw_lib_ms = time_cuda(torch, lambda it: F.grid_sample(
+            *win_lib_inputs[it % len(win_sets)], mode="bilinear", padding_mode="zeros",
+            align_corners=False), 30)
+    del win_lib_inputs
+    org_np = org0.cpu().numpy()
+    kw_bytes = (touched_bytes(org_np[:, 0], org_np[:, 1], org_np[:, 2], WINDOW, WINDOW, CROP)
+                + 2 * CHUNK * CROP * CROP * 3 * 4 + 2 * CHUNK * 3 * 4)
+    kw_bound_ms = kw_bytes / PEAK_BYTES_PER_S * 1e3
+
     bn = (block.bn1, block.bn2)
     x_nchw = x.contiguous()
 
@@ -826,6 +1248,9 @@ def main():
     log(f"phase 5: K1 call {k1_ms:.4f} ms, device {fmt(k1_dev_ms)} ({k1_per_call:g} kernel "
         f"a call), plain {k1_plain_ms:.4f} ms, grid_sample {k1_lib_ms:.4f} ms, bound "
         f"{k1_bound_ms:.4f} ms ({k1_bytes / 1e6:.2f} MB)")
+    log(f"phase 5: K1 window entry (96 windows of {WINDOW}^2 -> {CROP}^2) call {kw_ms:.4f} ms, "
+        f"device {fmt(kw_dev_ms)} ({kw_per_call:g} kernel a call), plain {kw_plain_ms:.4f} ms, "
+        f"grid_sample {kw_lib_ms:.4f} ms, bound {kw_bound_ms:.4f} ms ({kw_bytes / 1e6:.2f} MB)")
     log(f"phase 5: K2 f32 (3xTF32) call {k2_ms:.4f} ms, device {fmt(k2_dev_ms)} "
         f"({k2_per_call:g} kernels a call; {k2_flops / k2_ms / 1e9:.2f} TFLOP/s of f32 work by "
         f"call time), bound {k2_bound_ms:.4f} ms (3 x {k2_flops / 1e9:.2f} GFLOP TF32; CUDA-core "
@@ -846,6 +1271,9 @@ def main():
                                  [square_crop_resize, residual_block_packed])
     run_family_phase(torch, dev, check, boxes_all, stand_in, residual_block_packed)
 
+    # ---- phase 8: the log path, the window route and the command line ----
+    log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed])
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -863,8 +1291,13 @@ def main():
          "bf16_device_ms": k2_bf16_dev_ms, "bf16_bound_ms": k2_bf16_bound_ms,
          "bf16_plain_ms": k2_bf16_plain_ms, "bf16_library_ms": k2_bf16_lib_ms},
     ]
-    for kernel, n in zip(kernels, vod_launches):
+    for kernel, n, n_window in zip(kernels, vod_launches, log_launches):
         kernel["vod_launches"] = n
+        kernel["window_launches"] = n_window
+    # K1's window entry (phase 8's path), beside the frame entry's numbers.
+    kernels[0].update({"window_max_abs_err": kw_err, "window_ms": kw_ms,
+                       "window_device_ms": kw_dev_ms, "window_plain_ms": kw_plain_ms,
+                       "window_bound_ms": kw_bound_ms, "window_library_ms": kw_lib_ms})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -1,7 +1,10 @@
 // Batched square crop + letterbox + bilinear resize + BGR->RGB + /255.
 //
 // Replaces the TPU kernel playaid_core_tpu/ops/pallas_kernels.py:
-// pallas_square_crop_resize (_crop_kernel, _axis_weight_matrix).  On the
+// pallas_square_crop_resize (_crop_kernel, _axis_weight_matrix), and the
+// same resample on windows cut out on the host
+// (playaid_core_tpu/ops/preprocess.py: batched_window_resize, which the
+// VOD window route runs through the TPU's _crop_one).  On the
 // TPU each (crop, channel) program copied a fixed window of the frame into
 // VMEM and resampled it as two matrix products with dense weight matrices
 // Wy * window * Wx^T.  Those matrices have two non-zeros per row, so here
@@ -12,10 +15,18 @@
 // is a few operations per output value.  At the main path's 48 crops of a
 // 1080p frame (side 320, S 128) that is 18.88 MB, 0.0056 ms at 3.35 TB/s.
 //
+// The window route reads windows instead of frames: at its 96 windows of
+// 384 x 384 (side about 320) the taps touch about 23.6 MB and the output is
+// 18.9 MB, 0.013 ms at 3.35 TB/s.
+//
 // Design:
-// - One block per (crop, band of output rows).  Thread 0 computes the
-//   crop's window once; the block then finds the in-frame column span of
-//   its bilinear taps.
+// - Two entries, one kernel body: crop_resize takes normalised yolo boxes
+//   and computes each crop's square window from them; window_resize takes
+//   each window's origin and side (y0, x0, side) as floats, one crop per
+//   window.  The geometry source is the only difference.
+// - One block per (crop, band of output rows).  Thread 0 reads or computes
+//   the crop's window once; the block then finds the in-frame column span
+//   of its bilinear taps.
 // - Staging.  For each output row of the band the block stages its two
 //   tap rows (at most two per output row) over that column span into
 //   shared memory, with 16-byte cp.async copies from 16-byte-aligned
@@ -63,7 +74,7 @@ __device__ __forceinline__ float source_coord(float origin, int i, float side, i
 
 __global__ void __launch_bounds__(THREADS)
 crop_resize_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ boxes,
-                   float* __restrict__ out, int n_frames, int boxes_per_frame, int h,
+                   const float* __restrict__ origins, float* __restrict__ out, int n_frames, int boxes_per_frame, int h,
                    int w, int s, float padding, int bgr_to_rgb, float scale,
                    int stage_bytes) {
   extern __shared__ __align__(16) uint8_t smem[];  // staged rows, then row buffers
@@ -77,10 +88,17 @@ crop_resize_kernel(const uint8_t* __restrict__ frames, const float* __restrict__
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  // The square source window of square_window_params, in the same float32
+  // The square source window: given by origins (window_resize, side at
+  // least 1), or that of square_window_params in the same float32
   // operations: side = 2 * (floor(max(w_px, h_px) / 2) + padding), centred
   // on the integer centre pixel.
-  if (tid == 0) {
+  if (tid == 0 && origins != nullptr) {
+    win_y0 = origins[q * 3 + 0];
+    win_x0 = origins[q * 3 + 1];
+    win_side = fmaxf(origins[q * 3 + 2], 1.0f);
+    col_lo = INT_MAX;
+    col_hi = -1;
+  } else if (tid == 0) {
     const float cx = floorf(boxes[q * 4 + 0] * (float)w);
     const float cy = floorf(boxes[q * 4 + 1] * (float)h);
     const float half = floorf(fmaxf(floorf(boxes[q * 4 + 2] * (float)w),
@@ -195,15 +213,11 @@ crop_resize_kernel(const uint8_t* __restrict__ frames, const float* __restrict__
   }
 }
 
-}  // namespace
-
-// frames [n_frames, h, w, 3] uint8, 16-byte aligned; boxes [n_frames *
-// boxes_per_frame, 4] float32 normalised (cx, cy, w, h); out [n_frames *
-// boxes_per_frame, s, s, 3] float32.
-extern "C" int crop_resize(const void* frames, const void* boxes, void* out,
-                           int n_frames, int boxes_per_frame, int h, int w,
-                           int s, float padding, int bgr_to_rgb, int normalize,
-                           void* stream) {
+// The launch of both entries: the geometry comes from boxes or from
+// origins, whichever is not null.
+int launch(const void* frames, const void* boxes, const void* origins, void* out,
+           int n_frames, int boxes_per_frame, int h, int w, int s, float padding,
+           int bgr_to_rgb, int normalize, void* stream) {
   const int n_crops = n_frames * boxes_per_frame;
   if (n_crops == 0 || s == 0) return (int)cudaSuccess;
   if ((uintptr_t)frames % 16 != 0) return (int)cudaErrorInvalidValue;
@@ -220,8 +234,30 @@ extern "C" int crop_resize(const void* frames, const void* boxes, void* out,
   }
   const dim3 grid(n_crops, (s + MAX_BAND - 1) / MAX_BAND);
   crop_resize_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, (const float*)boxes, (float*)out, n_frames,
-      boxes_per_frame, h, w, s, padding, bgr_to_rgb, normalize ? 1.0f / 255.0f : 1.0f,
-      stage_bytes);
+      (const uint8_t*)frames, (const float*)boxes, (const float*)origins, (float*)out,
+      n_frames, boxes_per_frame, h, w, s, padding, bgr_to_rgb,
+      normalize ? 1.0f / 255.0f : 1.0f, stage_bytes);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// frames [n_frames, h, w, 3] uint8, 16-byte aligned; boxes [n_frames *
+// boxes_per_frame, 4] float32 normalised (cx, cy, w, h); out [n_frames *
+// boxes_per_frame, s, s, 3] float32.
+extern "C" int crop_resize(const void* frames, const void* boxes, void* out,
+                           int n_frames, int boxes_per_frame, int h, int w,
+                           int s, float padding, int bgr_to_rgb, int normalize,
+                           void* stream) {
+  return launch(frames, boxes, nullptr, out, n_frames, boxes_per_frame, h, w, s,
+                padding, bgr_to_rgb, normalize, stream);
+}
+
+// windows [n, h, w, 3] uint8, 16-byte aligned; origins [n, 3] float32
+// window-relative (y0, x0, side); out [n, s, s, 3] float32.
+extern "C" int window_resize(const void* windows, const void* origins, void* out, int n,
+                             int h, int w, int s, int bgr_to_rgb, int normalize,
+                             void* stream) {
+  return launch(windows, nullptr, origins, out, n, 1, h, w, s, 0.0f, bgr_to_rgb, normalize,
+                stream);
 }

@@ -7,7 +7,9 @@ gathered over the embedding sequence and classified by the temporal head:
 
 1. ``preprocess_frames``: frames + boxes -> crops (CUDA kernel
    ``csrc/crop_resize.cu`` on the card);
-2. ``embed_crops`` / ``embed_crops_u8`` / ``embed_crops_yuv``: crops ->
+2. ``embed_crops`` / ``embed_crops_u8`` / ``embed_crops_yuv`` /
+   ``embed_windows`` (windows cut out on the host, resized by the same
+   kernel's window entry on the card): crops ->
    per-frame embeddings: ResNet-18 -> 1000 (CNN), ResNet-50 -> 2048 -> 247
    (ResFormer), ResNet-18 -> 512 -> 300 (RNN).  ResNet-18's last identity
    block is the CUDA kernel ``csrc/residual_block.cu`` on the card;
@@ -20,11 +22,15 @@ gathered over the embedding sequence and classified by the temporal head:
 
 Weights live in the pipeline's modules: load them with
 :meth:`BatchedActionPipeline.load_variables` (a JAX-layout numpy tree or
-the port's state dicts, see ``convert.py``), or draw seeded random ones
-with :meth:`BatchedActionPipeline.init`.
+the port's state dicts, see ``convert.py``) or
+:meth:`BatchedActionPipeline.load_checkpoint` (a reference Lightning
+``.ckpt`` or a file of :meth:`BatchedActionPipeline.save_checkpoint`), or
+draw seeded random ones with :meth:`BatchedActionPipeline.init`.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -35,7 +41,12 @@ from playaid_core_torch.device import full_float32, resolve_device
 from playaid_core_torch.models.resnet import ResNet18, ResNet50
 from playaid_core_torch.models.resnet_transformer import TransformerEncoderLayer, time_encoding
 from playaid_core_torch.models.rnn_action_detector import StackedLSTM
-from playaid_core_torch.ops.crop_kernel import square_crop_resize
+from playaid_core_torch.models.lightning_ckpt import (
+    convert_state_dict,
+    extract_state_dict,
+    load_lightning_checkpoint,
+)
+from playaid_core_torch.ops.crop_kernel import square_crop_resize, window_resize
 from playaid_core_torch.ops.preprocess import middle_out_frame_indices
 
 FAMILIES = ("cnn", "resformer", "rnn")
@@ -194,6 +205,37 @@ class BatchedActionPipeline:
         of ``variables`` is kept."""
         return self.load_state_dicts(to_state_dicts(self.family, variables))
 
+    def save_checkpoint(self, path):
+        """Save the modules' weights as ``{"embed": ..., "head": ...}``
+        state dicts (CPU tensors) with ``torch.save``: the port's
+        checkpoint file, read back by :meth:`load_checkpoint`."""
+        cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+        torch.save({"embed": cpu(self.embed.state_dict()),
+                    "head": cpu(self.head.state_dict())}, path)
+
+    def load_checkpoint(self, path):
+        """Load weights from ``path`` into this pipeline's modules.
+
+        ``path`` is a reference Lightning ``.ckpt`` container (its state
+        dict goes through the same name maps as the JAX package's,
+        ``models/torch_convert.py``, then :meth:`from_monolithic`, then
+        ``convert.py``) or a file of :meth:`save_checkpoint`.  Either is
+        read with ``torch.load(weights_only=True)`` first and a restricted
+        unpickler second (``models/lightning_ckpt.py``).  An orbax
+        directory (the JAX Trainer's) raises: the port does not read
+        orbax.
+        """
+        if os.path.isdir(path):
+            raise ValueError(f"{path} is a directory (an orbax checkpoint of the JAX "
+                             "Trainer?); the port reads reference .ckpt files and its own "
+                             "state-dict files, not orbax")
+        container = load_lightning_checkpoint(path)
+        if isinstance(container, dict) and set(container) == {"embed", "head"}:
+            return self.load_state_dicts(container)
+        monolithic = convert_state_dict(extract_state_dict(container), self.family,
+                                        self.sequence_length)
+        return self.load_variables(self.from_monolithic(monolithic))
+
     @torch.no_grad()
     def init(self, seed=0):
         """Seeded random weights, drawn on the CPU from one
@@ -278,6 +320,15 @@ class BatchedActionPipeline:
         b = yc + 2.017232 * (u - 128.0)
         rgb = torch.stack([r, g, b], dim=-1)
         return self.embed(torch.clamp(rgb, 0.0, 255.0) / 255.0)
+
+    @torch.inference_mode()
+    def embed_windows(self, wins_u8, origins):
+        """BGR uint8 windows ``[M, W, W, 3]`` + window-relative origins
+        ``[M, 3]`` (y0, x0, side) -> RGB crops resized to ``crop_size``
+        and /255 (the crop kernel's window entry on the card, its plain
+        version on the CPU) -> embeddings ``[M, embed_dim]``."""
+        return self.embed(window_resize(wins_u8, origins, out_size=self.crop_size,
+                                        bgr_to_rgb=True))
 
     @torch.inference_mode()
     def preprocess_frames(self, frames_u8, boxes, padding=30):

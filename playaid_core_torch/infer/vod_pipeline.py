@@ -1,6 +1,8 @@
 """End-to-end VOD analysis: decode -> staging -> embed -> buffer -> labels.
 
-Counterpart of ``playaid_core_tpu/infer/vod_pipeline.py``.  Its layers:
+Counterpart of ``playaid_core_tpu/infer/vod_pipeline.py``, with its
+command line (:func:`main`) and :func:`boxes_from_log`, which projects the
+fighters' boxes from an ult_logger log.  Its layers:
 
 * **host decode**: the native libavcodec crop extractor
   (``video/native_decoder.py``) turns a chunk of frames into packed
@@ -9,26 +11,35 @@ Counterpart of ``playaid_core_tpu/infer/vod_pipeline.py``.  Its layers:
   on the calling thread; with several, :class:`NativeChunkDecoder`
   workers hand chunks to a sink.  The cv2 route (``decode_backend="cv2"``)
   decodes with ``cv2.VideoCapture`` in :class:`BoundedSegmentDecoder`
-  workers and crops on the host with :func:`extract_crops`;
+  workers and crops on the host with :func:`extract_crops`.  The window
+  route (``host_resize=False``) decodes the same way but cuts a fixed
+  window around each box with :func:`extract_windows` and leaves the
+  resize to the device;
 * **staging**: one dispatcher thread per analysis copies each chunk into
   a small ring of pinned host buffers and issues the host-to-device copy
   on its own CUDA stream; the compute stream waits for the copy, and a
   slot is refilled only after its last copy has finished;
-* **embed**: ``embed_crops_yuv`` / ``embed_crops_u8`` of the pipeline
-  (cuDNN, and the residual-block kernel in ResNet-18);
+* **embed**: ``embed_crops_yuv`` / ``embed_crops_u8`` of the pipeline, or
+  ``embed_windows`` on the window route (the crop kernel's window entry,
+  then the same embed), on cuDNN and the residual-block kernel in
+  ResNet-18;
 * **buffer**: ``scatter_embeddings`` into one embedding buffer;
 * **head and decode**: ``classify_buffer`` (argmax or Viterbi), then each
   sampled frame's label is repeated over the ``stride`` frames it stands
   for.
 
 Weights are loaded into the pipeline's modules on its device once, when
-the analyzer is made.  Not ported yet: ``host_resize=False`` (windows
-resized on the device), ``mesh=``, ``boxes_from_log`` and the command
-line (ROADMAP.md, queue 1).
+the analyzer is made.  Not ported yet: ``mesh=`` (ROADMAP.md, queue 1).
+
+Command line (the card unless ``--device cpu``)::
+
+    python -m playaid_core_torch.infer.vod_pipeline --video V --log L \
+        [--checkpoint C] [--stride N] [--out labels.csv] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import os
 import queue
@@ -41,6 +52,38 @@ import torch
 
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline
 from playaid_core_torch.video import native_decoder
+
+
+def extract_windows(frame, boxes, window, padding):
+    """Slice per-box square windows out of one BGR frame.
+
+    boxes: ``[K, 4]`` normalised yolo.  Returns (windows ``[K, window,
+    window, 3]`` uint8 BGR with black out-of-frame fill, origins ``[K, 3]``
+    = window-relative (y0, x0, side) for the device resample), matching
+    YoloCrop.square_crop geometry (reference: fighter.py:323-344).
+    """
+    h, w = frame.shape[:2]
+    k = boxes.shape[0]
+    wins = np.zeros((k, window, window, 3), np.uint8)
+    origins = np.zeros((k, 3), np.float32)
+    for j in range(k):
+        cx, cy, bw, bh = boxes[j]
+        cxp, cyp = int(cx * w), int(cy * h)
+        half = int(max(int(bw * w), int(bh * h)) / 2)
+        side = 2 * (half + padding)
+        if side > window - 2:
+            # The crop exceeds the window: shrink it around the same centre
+            # rather than truncate its bottom and right.
+            half = (window - 2) // 2 - padding
+            side = 2 * (half + padding)
+        ys = cyp - half - padding
+        xs = cxp - half - padding
+        vy0, vy1 = max(0, ys), min(h, ys + window)
+        vx0, vx1 = max(0, xs), min(w, xs + window)
+        if vy1 > vy0 and vx1 > vx0:
+            wins[j, vy0 - ys:vy1 - ys, vx0 - xs:vx1 - xs] = frame[vy0:vy1, vx0:vx1]
+        origins[j] = (0.0, 0.0, float(side))
+    return wins, origins
 
 
 def extract_crops(frame, boxes, out_size, padding):
@@ -69,17 +112,40 @@ def extract_crops(frame, boxes, out_size, padding):
     return out
 
 
+class Cv2Capture:
+    """Frames of a video file through ``cv2.VideoCapture``: ``seek(index)``,
+    ``read() -> (ok, BGR frame)``, ``release()``."""
+
+    def __init__(self, path):
+        import cv2
+
+        self._cv2 = cv2
+        self._cap = cv2.VideoCapture(path)
+
+    def seek(self, index):
+        self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, index)
+
+    def read(self):
+        return self._cap.read()
+
+    def release(self):
+        self._cap.release()
+
+
 class BoundedSegmentDecoder:
-    """Decode a video with N cv2 workers over chunks of frames, run a
+    """Decode a video with N workers over chunks of frames, run a
     per-frame host transform in the worker, and yield ``(start,
     collate(start, items))`` in chunk order, with at most ``AHEAD`` chunks
-    decoded past the consumer."""
+    decoded past the consumer.
+
+    Each worker opens its own capture with :meth:`open_capture`, the one
+    seam for another frame source (:class:`Cv2Capture` by default).
+    """
 
     AHEAD = 6
+    open_capture = staticmethod(Cv2Capture)
 
     def __init__(self, path, num_frames, chunk, transform, collate, workers=None):
-        import cv2  # noqa: F401 - fail here, not in a worker, when cv2 is missing
-
         self.path = path
         self.num_frames = num_frames
         self.chunk = chunk
@@ -122,9 +188,7 @@ class BoundedSegmentDecoder:
                 self._cond.notify_all()
 
     def _worker_loop(self):
-        import cv2
-
-        cap = cv2.VideoCapture(self.path)
+        cap = self.open_capture(self.path)
         pos = -10**9
         try:
             while True:
@@ -140,7 +204,7 @@ class BoundedSegmentDecoder:
                 start = chunk_idx * self.chunk
                 stop = min(start + self.chunk, self.num_frames)
                 if start != pos:
-                    cap.set(cv2.CAP_PROP_POS_FRAMES, start)
+                    cap.seek(start)
                 out = []
                 for i in range(start, stop):
                     ok, frame = cap.read()
@@ -245,6 +309,30 @@ class NativeChunkDecoder:
             native_decoder.release(dec)
 
 
+def boxes_from_log(label_path, num_frames=None, log_offset=0, parser="auto"):
+    """Per-frame two-fighter boxes ``[F, 2, 4]`` (normalised yolo) from an
+    ult_logger log via batched camera projection (no detector needed).
+    ``parser``: "auto" or "native" (the C++ parser, built on first use)
+    or "python"."""
+    from playaid_core_torch.timeline import (
+        load_ground_truth_from_path,
+        precompute_timeline_projection,
+        update_fighters_from_timeline,
+    )
+
+    timeline = load_ground_truth_from_path(label_path, log_offset=log_offset, parser=parser)
+    precompute_timeline_projection(timeline)
+    f_total = len(timeline) if num_frames is None else min(num_frames, len(timeline))
+    boxes = np.zeros((f_total, 2, 4), np.float32)
+    fighters = []
+    for i in range(f_total):
+        fighters = update_fighters_from_timeline(i, timeline[i], fighters)
+        for k, fighter in enumerate(fighters[:2]):
+            c = fighter.crop
+            boxes[i, k] = (c.center_x, c.center_y, c.crop_width, c.crop_height)
+    return boxes
+
+
 def auto_lowres(boxes, video_w, video_h, crop_size, padding, max_lowres=2):
     """The largest fractional-decode factor at which the smallest real
     box's crop side (``2 * (max(bw, bh) // 2 + padding)``, as the native
@@ -289,54 +377,58 @@ class PinnedStager:
     """Host-to-device copies of chunks through a ring of pinned host
     buffers and a copy stream.
 
-    :meth:`to_device` copies a chunk into the next slot (after waiting for
-    that slot's previous copy to finish), starts the slot's copy on the
-    copy stream, makes the caller's current stream wait for it, and marks
-    the device tensor as used by that stream so the caching allocator does
-    not hand its memory out again before the stream is done with it.  On
-    the CPU it returns the array as a tensor.  One analysis at a time
-    uses a stager.
+    :meth:`to_device` copies a chunk's arrays (the crops; or the windows
+    and their origins) into the next slot's pinned buffers (after waiting
+    for that slot's previous copies to finish), starts the slot's copies
+    on the copy stream, makes the caller's current stream wait for them,
+    and marks each device tensor as used by that stream so the caching
+    allocator does not hand its memory out again before the stream is done
+    with it.  On the CPU it returns the arrays as tensors.  One analysis at
+    a time uses a stager.
     """
 
     SLOTS = 3
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._host = [None] * self.SLOTS
+        self._host = [[] for _ in range(self.SLOTS)]
         self._copied = [None] * self.SLOTS
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._next = 0
 
-    def to_device(self, array):
+    def to_device(self, *arrays):
+        """The arrays as tensors on the device, in order (a list)."""
         if self._stream is None:
-            return torch.from_numpy(array)
-        if array.dtype != np.uint8:
-            raise TypeError(f"chunks are uint8 crops, got {array.dtype}")
+            return [torch.from_numpy(a) for a in arrays]
         k = self._next
         self._next = (k + 1) % self.SLOTS
         if self._copied[k] is not None:
             self._copied[k].synchronize()
-        host = self._host[k]
-        if host is None or tuple(host.shape) != array.shape:
-            host = torch.empty(array.shape, dtype=torch.uint8, pin_memory=True)
-            self._host[k] = host
-        host.numpy()[...] = array
+        tensors = [torch.from_numpy(a) for a in arrays]
+        hosts = self._host[k]
+        if [(h.shape, h.dtype) for h in hosts] != [(t.shape, t.dtype) for t in tensors]:
+            hosts[:] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for host, array in zip(hosts, arrays):
+            host.numpy()[...] = array
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
-            out = host.to(self.device, non_blocking=True)
+            outs = [host.to(self.device, non_blocking=True) for host in hosts]
             copied = torch.cuda.Event()
             copied.record(self._stream)
         self._copied[k] = copied
         compute.wait_stream(self._stream)
-        out.record_stream(compute)
-        return out
+        for out in outs:
+            out.record_stream(compute)
+        return outs
 
 
 class _ChunkDispatcher:
     """The one thread of an analysis that touches the device: for each
-    chunk handed to :meth:`sink` it stages the crops, embeds them and
-    scatters the embeddings into the buffer.  An error stops the decode at
-    the next chunk and is raised again by :meth:`finish`."""
+    chunk handed to :meth:`sink` it stages the chunk's arrays (``[rows, 2,
+    ...]`` each: the crops, or the windows and their origins), embeds them
+    (``embed(*arrays)``, two fighters to a row) and scatters the
+    embeddings into the buffer.  An error stops the decode at the next
+    chunk and is raised again by :meth:`finish`."""
 
     QUEUE_CHUNKS = 8
     JOIN_TIMEOUT_S = 600.0
@@ -355,14 +447,14 @@ class _ChunkDispatcher:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
-    def sink(self, start, n, crops):
+    def sink(self, start, n, *arrays):
         """Hand over one decoded chunk (from any decode thread); blocks
         while the queue is full, and returns once the run is stopping."""
         if self.error is not None:
             raise self.error
         while not self._stop.is_set():
             try:
-                self._queue.put((start, n, crops), timeout=0.25)
+                self._queue.put((start, n, arrays), timeout=0.25)
                 return
             except queue.Full:
                 continue
@@ -376,12 +468,12 @@ class _ChunkDispatcher:
                 item = self._queue.get()
                 if item is None:
                     return
-                start, n, crops = item
+                start, n, arrays = item
                 if self.error is not None or n == 0:
                     continue  # keep draining so producers never block
                 try:
-                    flat = crops.reshape((crops.shape[0] * crops.shape[1],) + crops.shape[2:])
-                    emb = self.embed(self.stager.to_device(flat))
+                    flat = [a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:]) for a in arrays]
+                    emb = self.embed(*self.stager.to_device(*flat))
                     self.pipeline.scatter_embeddings(self.buf, emb, (start // self.stride) * 2)
                     self.decoded += n
                     self.extent = max(self.extent, (start + n + self.stride - 1) // self.stride)
@@ -412,9 +504,15 @@ class VodAnalyzer:
 
     ``decode_backend``: "native" (the libavcodec crop extractor; a failed
     build raises), "cv2" (``cv2.VideoCapture`` and host-side crops), or
-    "auto", which means "native".  ``transfer_format``: "yuv420" ships
-    packed 4:2:0 crops (half the bytes; converted to RGB on the device),
-    "bgr" ships BGR24, "auto" picks yuv420 on the native backend.
+    "auto", which means "native".  ``host_resize=False`` takes the window
+    route instead: frames from :class:`BoundedSegmentDecoder`, a
+    ``window``-pixel square window around each box cut out on the host,
+    and the resize to the model's crops on the device (the crop kernel's
+    window entry); it ships BGR windows, decodes every frame (``stride``
+    1) and takes ``decode_backend`` "auto" or "cv2".  ``transfer_format``:
+    "yuv420" ships packed 4:2:0 crops (half the bytes; converted to RGB on
+    the device), "bgr" ships BGR24, "auto" picks yuv420 on the native
+    backend.
     ``stride``: classify every stride-th frame and repeat its label over
     the frames in between; ``chunk`` must divide by it.  ``lowres`` (0, 1,
     2 or "auto", see :func:`auto_lowres`) and ``fast_decode`` (True, False
@@ -423,17 +521,18 @@ class VodAnalyzer:
     """
 
     def __init__(self, pipeline: BatchedActionPipeline | None = None, variables=None,
-                 padding=30, chunk=48, decode_workers=None, host_resize=True, mesh=None,
-                 decode_backend="auto", lowres=0, stride=1, transfer_format="auto",
+                 window=384, padding=30, chunk=48, decode_workers=None, host_resize=True,
+                 mesh=None, decode_backend="auto", lowres=0, stride=1, transfer_format="auto",
                  fast_decode="auto", decode="argmax", smooth_radius=0, switch_cost=4.0):
-        if not host_resize:
-            raise NotImplementedError(
-                "host_resize=False (windows resized on the device) is not ported yet; "
-                "see ROADMAP.md, queue 1 item 6")
+        if not host_resize and stride > 1:
+            raise ValueError("stride>1 requires host_resize=True")
+        if not host_resize and decode_backend == "native":
+            raise ValueError("the native decoder makes crops on the host; host_resize=False "
+                             "cuts windows from decoded frames (decode_backend 'auto' or 'cv2')")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (chunks split over several devices) is not ported yet; "
-                "see ROADMAP.md, queue 1 item 6")
+                "see ROADMAP.md, queue 1 item 11")
         if decode_backend not in ("auto", "native", "cv2"):
             raise ValueError(f"decode_backend must be auto, native or cv2, got "
                              f"{decode_backend!r}")
@@ -450,8 +549,10 @@ class VodAnalyzer:
                   "(labels will be meaningless). Pass variables= or a --checkpoint.",
                   file=sys.stderr)
             self.pipeline.init(0)
+        self.window = window
         self.padding = padding
         self.chunk = chunk
+        self.host_resize = host_resize
         self.decode_workers = decode_workers
         self.decode_backend = decode_backend
         self.lowres = lowres
@@ -475,7 +576,7 @@ class VodAnalyzer:
         f_total = boxes.shape[0] if num_frames is None else num_frames
         chunk, stride = self.chunk, self.stride
         crop_size = self.pipeline.crop_size
-        use_native = self.decode_backend in ("auto", "native")
+        use_native = self.host_resize and self.decode_backend in ("auto", "native")
         fmt = self.transfer_format
         if fmt == "auto":
             fmt = "yuv420" if use_native else "bgr"
@@ -494,8 +595,12 @@ class VodAnalyzer:
             elif self.lowres:
                 lowres = min(self.lowres, info["max_lowres"])
 
-        embed = (self.pipeline.embed_crops_yuv if fmt == "yuv420"
-                 else self.pipeline.embed_crops_u8)
+        if not self.host_resize:
+            embed = self.pipeline.embed_windows
+        elif fmt == "yuv420":
+            embed = self.pipeline.embed_crops_yuv
+        else:
+            embed = self.pipeline.embed_crops_u8
         num_chunks = (f_total + chunk - 1) // chunk
         t0 = time.time()
         buf = self.pipeline.make_embedding_buffer(num_chunks * (chunk // stride))
@@ -503,8 +608,10 @@ class VodAnalyzer:
         try:
             if use_native:
                 self._decode_native(dispatcher, video_path, boxes, f_total, padding, lowres, fmt)
-            else:
+            elif self.host_resize:
                 self._decode_cv2(dispatcher, video_path, boxes, f_total, padding)
+            else:
+                self._decode_windows(dispatcher, video_path, boxes, f_total, padding)
         finally:
             # Producers blocked in sink() return once the dispatcher stops;
             # it runs what it holds, then ends at the sentinel.
@@ -580,6 +687,31 @@ class VodAnalyzer:
         finally:
             decoder.close()
 
+    def _decode_windows(self, dispatcher, video_path, boxes, f_total, padding):
+        window = self.window
+
+        def transform(i, frame):
+            return extract_windows(frame, boxes[i], window, padding)
+
+        def collate(start, items):
+            # The frames read, not the full chunk: the device embeds no
+            # padding rows.
+            n = len(items)
+            wins = np.empty((n, boxes.shape[1], window, window, 3), np.uint8)
+            origins = np.empty((n, boxes.shape[1], 3), np.float32)
+            for j, (w, o) in enumerate(items):
+                wins[j] = w
+                origins[j] = o
+            return n, wins, origins
+
+        decoder = BoundedSegmentDecoder(video_path, f_total, self.chunk, transform, collate,
+                                        workers=self.decode_workers)
+        try:
+            for start, (n, wins, origins) in decoder:
+                dispatcher.sink(start, n, wins, origins)
+        finally:
+            decoder.close()
+
 
 def analyze_many(jobs, pipeline=None, variables=None, workers=None, **analyzer_kwargs):
     """Analyze several VODs concurrently through one pipeline.
@@ -611,3 +743,58 @@ def analyze_many(jobs, pipeline=None, variables=None, workers=None, **analyzer_k
             except Exception as e:  # noqa: BLE001 - each job's failure is its result
                 results.append(e)
     return results
+
+
+def main(argv=None):
+    """``analyze-vod``: per-frame action labels over a whole VOD, with the
+    fighters' boxes projected from the ult_logger log (no detector), on the
+    card unless ``--device cpu``."""
+    parser = argparse.ArgumentParser(
+        prog="python -m playaid_core_torch.infer.vod_pipeline",
+        description="Batched action recognition over a full VOD, with fighter boxes "
+                    "projected from the log (detection-free).")
+    parser.add_argument("--video", "-v", required=True, help="Path to the VOD")
+    parser.add_argument("--log", "-l", dest="log_path", required=True,
+                        help="ult_logger log path")
+    parser.add_argument("--family", default="cnn", choices=["cnn", "resformer", "rnn"])
+    parser.add_argument("--frames", default=None, type=int, help="limit analyzed frames")
+    parser.add_argument("--out", "-o", default=None, help="write labels CSV here")
+    parser.add_argument("--checkpoint", "-c", default=None,
+                        help="reference Lightning .ckpt, or a state-dict file of "
+                             "BatchedActionPipeline.save_checkpoint")
+    parser.add_argument("--backend", default="auto", choices=["auto", "native", "cv2"],
+                        help="decode backend (native = libavcodec crop extractor)")
+    parser.add_argument("--lowres", default="auto",
+                        help="fractional decode: 0/1/2, or 'auto' to pick the largest "
+                             "label-safe factor from the box sizes")
+    parser.add_argument("--stride", default=1, type=int,
+                        help="classify every stride-th frame, propagate labels")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA device; 'cpu' runs the plain "
+                             "PyTorch versions)")
+    args = parser.parse_args(argv)
+    from playaid_core_torch.ontology import CLASS_ID_TO_MOVE
+
+    lowres = args.lowres if args.lowres == "auto" else int(args.lowres)
+    boxes = boxes_from_log(args.log_path, num_frames=args.frames)
+    pipe = BatchedActionPipeline(family=args.family, device=args.device)
+    if args.checkpoint:
+        pipe.load_checkpoint(args.checkpoint)
+    analyzer = VodAnalyzer(pipe, decode_backend=args.backend, lowres=lowres,
+                           stride=args.stride)
+    result = analyzer.analyze(args.video, boxes)
+    print(f"{result['frames']} frames in {result['seconds']:.2f}s "
+          f"({result['fps']:.1f} fps)")
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("frame,p0_action,p0_conf,p1_action,p1_conf\n")
+            for i in range(result["frames"]):
+                l0, l1 = result["labels"][i]
+                c0, c1 = result["confidences"][i]
+                f.write(f"{i},{CLASS_ID_TO_MOVE.get(int(l0), l0)},{c0:.2f},"
+                        f"{CLASS_ID_TO_MOVE.get(int(l1), l1)},{c1:.2f}\n")
+        print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,13 @@
 """Batched square crop/resize: the CUDA kernel ``csrc/crop_resize.cu`` and
-its wrapper.
+its two wrappers.
 
 Counterpart of ``playaid_core_tpu/ops/pallas_kernels.py``.  For a CUDA
-tensor :func:`square_crop_resize` launches the kernel (or raises); for a
-CPU tensor it runs the plain version,
-:func:`playaid_core_torch.ops.preprocess.batched_square_crop_resize`.
+tensor each wrapper launches the kernel (or raises); for a CPU tensor it
+runs the plain version: :func:`square_crop_resize` takes frames and boxes
+(plain version :func:`~playaid_core_torch.ops.preprocess.batched_square_crop_resize`),
+:func:`window_resize` takes windows cut out on the host and their origins
+(plain version :func:`~playaid_core_torch.ops.preprocess.batched_window_resize`).
+Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -14,15 +17,19 @@ import ctypes
 import torch
 
 from playaid_core_torch.ops import _build
-from playaid_core_torch.ops.preprocess import batched_square_crop_resize
+from playaid_core_torch.ops.preprocess import batched_square_crop_resize, batched_window_resize
+
+_ARGTYPES = {
+    "crop_resize": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "window_resize": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
 
 
-def _library():
-    lib = _build.load("crop_resize")
-    fn = lib.crop_resize
+def _library(entry="crop_resize"):
+    fn = getattr(_build.load("crop_resize"), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
     return fn
 
@@ -69,3 +76,45 @@ def square_crop_resize(frames_u8, boxes, out_size=128, padding=0,
 
 
 square_crop_resize.launches = 0
+
+
+def window_resize(windows_u8, origins, out_size=128, bgr_to_rgb=False, normalize=True):
+    """Square crops ``[M, S, S, 3]`` float32 resampled from windows.
+
+    windows_u8 ``[M, W, W, 3]`` uint8 (BGR when ``bgr_to_rgb``), cut out
+    on the host, black where out of frame; origins ``[M, 3]`` float
+    window-relative (y0, x0, side), side clamped to at least 1.  On the
+    card the windows must be contiguous and 16-byte aligned, as the
+    staging ring delivers them: the wrapper raises rather than copy.
+    """
+    if windows_u8.dim() != 4 or windows_u8.shape[-1] != 3:
+        raise ValueError(f"windows must be [M, W, W, 3], got {tuple(windows_u8.shape)}")
+    if tuple(origins.shape) != (windows_u8.shape[0], 3):
+        raise ValueError(f"origins must be [M, 3] for M={windows_u8.shape[0]} windows, "
+                         f"got {tuple(origins.shape)}")
+    if windows_u8.device.type == "cpu":
+        if bgr_to_rgb:
+            windows_u8 = windows_u8.flip(-1)
+        return batched_window_resize(windows_u8, origins[:, 0], origins[:, 1], origins[:, 2],
+                                     out_size, normalize)
+    if windows_u8.device.type != "cuda" or origins.device != windows_u8.device:
+        raise ValueError("windows and origins must lie on the same CUDA device")
+    if windows_u8.dtype != torch.uint8:
+        raise TypeError(f"the kernel takes uint8 windows, got {windows_u8.dtype}")
+    if not windows_u8.is_contiguous() or windows_u8.data_ptr() % 16:
+        raise ValueError("the kernel takes contiguous, 16-byte-aligned windows")
+    m, h, w = windows_u8.shape[:3]
+    origins_f = origins.float().contiguous()
+    out = torch.empty((m, out_size, out_size, 3), dtype=torch.float32,
+                      device=windows_u8.device)
+    status = _library("window_resize")(
+        windows_u8.data_ptr(), origins_f.data_ptr(), out.data_ptr(), m, h, w, out_size,
+        int(bgr_to_rgb), int(normalize),
+        torch.cuda.current_stream(windows_u8.device).cuda_stream,
+    )
+    _build.check(status, "window_resize launch")
+    _build.count_launch(window_resize)
+    return out
+
+
+window_resize.launches = 0

@@ -7,9 +7,10 @@ crops ``[.., S, S, 3]`` float32: each output pixel samples the source
 bilinearly at ``origin + (i + 0.5) * side / S - 0.5``, and taps outside
 the frame count as zero, which gives the black letterbox.
 
-:func:`batched_square_crop_resize` writes the resample as two products
-with dense weight matrices per crop, exactly as the JAX function does.
-It is the plain version of the CUDA kernel in ``ops/crop_kernel.py``.
+:func:`batched_square_crop_resize` and :func:`batched_window_resize`
+write the resample as two products with dense weight matrices per crop,
+exactly as the JAX functions do.  They are the plain versions of the CUDA
+kernel's two entries in ``ops/crop_kernel.py``.
 """
 
 from __future__ import annotations
@@ -74,6 +75,25 @@ def batched_square_crop_resize(frames, boxes, out_size=128, padding=0,
     if normalize:
         out = out / 255.0
     return out[:, 0] if one_per_frame else out
+
+
+def batched_window_resize(windows, y0, x0, side, out_size=128, normalize=True):
+    """Resample windows cut out on the host to square crops.
+
+    windows ``[M, W, W, 3]`` (uint8 or float; black where out of frame);
+    y0, x0, side ``[M]`` float window-relative crop geometry, side
+    clamped to at least 1.  The resample of
+    :func:`batched_square_crop_resize` with the window given instead of
+    computed from a box.  Returns float32 ``[M, out_size, out_size, 3]``.
+    """
+    side = torch.clamp(side.float(), min=1.0)
+    wy = _axis_weights(y0.float(), side, windows.shape[1], out_size)  # [M, S, W]
+    wx = _axis_weights(x0.float(), side, windows.shape[2], out_size)  # [M, S, W]
+    tmp = torch.einsum("msh,mhwc->mswc", wy, windows.float())
+    out = torch.einsum("mswc,mtw->mstc", tmp, wx)
+    if normalize:
+        out = out / 255.0
+    return out
 
 
 def middle_out_frame_indices(middle_frame, num_frames_per_sample, frame_delta,

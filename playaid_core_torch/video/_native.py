@@ -1,11 +1,12 @@
-"""Build and load the repository's native video libraries.
+"""Build and load the repository's native libraries.
 
-``native/<name>.cpp`` (the libavcodec decoder and encoder that the JAX
-package also builds) is compiled in place by ``g++`` into
-``build/native/lib<name>.so`` at the root of the checkout at its first
-use, and again whenever the source is newer than the library.  A failed
-build raises with ``g++``'s error output: the port has no silent
-fallback to another decoder.
+``native/<name>.cpp`` (the libavcodec decoder and encoder, and the
+ult_logger log parser, which the JAX package also builds) is compiled in
+place by ``g++`` into ``build/native/lib<name>.so`` at the root of the
+checkout at its first use, and again whenever the source is newer than
+the library.  Each source links only the libraries it needs: the decoder
+and encoder link FFmpeg's, the log parser none.  A failed build raises
+with ``g++``'s error output: the port has no silent fallback.
 """
 
 from __future__ import annotations
@@ -19,10 +20,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 NATIVE_SRC = ROOT / "native"
 BUILD_DIR = ROOT / "build" / "native"
-LINK = ["-lavformat", "-lavcodec", "-lavutil", "-lswscale"]
+FFMPEG_LINK = ["-lavformat", "-lavcodec", "-lavutil", "-lswscale"]
+LINK = {"video_decoder": FFMPEG_LINK, "video_encoder": FFMPEG_LINK, "log_parser": []}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def command(name: str, out: Path) -> list[str]:
+    """The ``g++`` command that builds ``native/<name>.cpp`` into ``out``."""
+    return ["g++", "-O3", "-shared", "-fPIC", "-o", str(out),
+            str(NATIVE_SRC / f"{name}.cpp"), *LINK[name]]
 
 
 def build(name: str) -> Path:
@@ -33,14 +41,14 @@ def build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(src), *LINK]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run(command(name, tmp), capture_output=True, text=True)
     except FileNotFoundError as e:
         raise RuntimeError(f"g++ is needed to build native/{name}.cpp: {e}") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ could not build native/{name}.cpp (it needs the FFmpeg "
-                           f"development headers and libraries):\n{proc.stderr}")
+        needs = (" (it needs the FFmpeg development headers and libraries)"
+                 if LINK[name] else "")
+        raise RuntimeError(f"g++ could not build native/{name}.cpp{needs}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 

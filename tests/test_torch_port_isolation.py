@@ -1,5 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
-and chip_smoke.py refuses to run without a CUDA device.
+its card-path modules import no cv2, PIL, yaml or click (the card's
+machine has none of them), and chip_smoke.py refuses to run without a
+CUDA device.
 
 The import check runs in a subprocess, because tests/conftest.py imports
 jax into the test process.
@@ -27,6 +29,22 @@ print(" ".join(sorted(names)))
 """
 
 
+# Modules the log-driven VOD path imports on the card.
+CARD_PATH = ("constants", "ontology", "frame_data", "geometry", "fighter", "native", "timeline",
+             "infer.vod_pipeline")
+HOST_ONLY = ("cv2", "PIL", "yaml", "click")
+
+_IMPORT_CARD_PATH = f"""
+import importlib, sys
+for name in {BANNED + HOST_ONLY!r}:
+    sys.modules[name] = None
+for name in {CARD_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch.infer.vod_pipeline import boxes_from_log, main
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -42,8 +60,15 @@ def test_port_imports_with_jax_blocked():
     for name in ("convert", "device", "infer.pipeline", "infer.vod_pipeline", "models.resnet",
                  "models.resnet_transformer", "models.rnn_action_detector", "ops._build",
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
-                 "video.native_encoder"):
+                 "video.native_encoder", "adict", "models.lightning_ckpt",
+                 "models.torch_convert", *CARD_PATH):
         assert f"playaid_core_torch.{name}" in imported
+
+
+def test_card_path_imports_with_cv2_pil_yaml_click_blocked():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_CARD_PATH], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def _imported_roots(path):

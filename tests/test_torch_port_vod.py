@@ -273,9 +273,16 @@ def test_analyzer_defaults_to_cuda(monkeypatch):
         VodAnalyzer()
 
 
-@pytest.mark.parametrize("kwargs", [{"host_resize": False}, {"mesh": object()}])
+@pytest.mark.parametrize("kwargs", [{"host_resize": False, "stride": 2}, {"mesh": object()},
+                                    {"host_resize": False, "decode_backend": "native"}])
 def test_unported_routes_raise(port, kwargs):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """mesh= is not ported; the window route (host_resize=False) is, at
+    stride 1 only and with frames from a capture, as in the JAX package."""
+    expected = {"stride": (ValueError, "stride>1 requires host_resize"),
+                "mesh": (NotImplementedError, "mesh= .* not ported"),
+                "decode_backend": (ValueError, "native decoder makes")}
+    error, match = next(expected[k] for k in kwargs if k in expected)
+    with pytest.raises(error, match=match):
         VodAnalyzer(port, **kwargs)
 
 
