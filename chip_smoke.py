@@ -47,7 +47,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    the first 96 frames, frames/s and its split; then the command line,
    main([...]) in this process, on the same log with a port checkpoint
    file made from the bench weights, --stride 2, through phase 6's decoder
-   stand-in: one CSV row per frame, moves named by CLASS_ID_TO_MOVE.
+   stand-in: one CSV row per frame, moves named by CLASS_ID_TO_MOVE;
+9. the pixels-only path, no log: a stand-in capture of 240 1280x720 frames
+   (two discs that cross the screen, both HUD damage counters painted with
+   a 5x7 bitmap font, stepping every 30 frames) -> CharacterDetector with
+   the CenterNet detector at full width and seeded weights, batches of 16
+   (frames resized to 256x448 on the card, K2 in the trunk's layer4[1] at
+   8x14x512, held against its plain version there) -> AIRunner cleanup ->
+   run_action_recognition (the bench weights, K2 in the embed at
+   239x4x4x512, held against its plain version on the inputs it ran) ->
+   run_damage_detection (the conv digit net on the card) -> write_output:
+   K2 launches, weights on the card, host-to-device bytes of a detector
+   batch, frames/s of each stage, card vs CPU detections, labels, readings
+   and digit logits.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -56,14 +68,15 @@ port's native_decoder.acquire/release/probe, in this script only.  Its
 decode_crops returns the disc clip's packed YUV420 crops, made on the host
 with numpy; everything after decode is the port's own.  The CPU tests hold
 the port's decoder against the JAX package's, bit for bit.  It has no cv2
-either, so phase 8's window route reads its frames from a stand-in put
-behind BoundedSegmentDecoder.open_capture (again in this script only):
-1080p frames with discs at the log's boxes, rendered with numpy.
+either, so phases 8 and 9 read their frames from stand-ins put behind
+BoundedSegmentDecoder.open_capture (again in this script only): frames
+with discs (and, in phase 9, the HUD counters), rendered with numpy.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -249,6 +262,22 @@ def trace_copy_audit(path, kernel_key):
     }
 
 
+@contextlib.contextmanager
+def profiled(torch):
+    """A torch.profiler session of the host and the card that begins by
+    running one small kernel to its end.  Late in this script's process
+    (after phases 1-8; not at its start) the profiler's trace missed device
+    records of copies in every profile that began with the copies (a lone
+    44 MB copy, three detector batches), and in nearly none that began with
+    such a kernel (tools/torch_port_trace_audit.py lead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
 def busy_us(events):
     """Length of the union of the events' intervals (streams overlap)."""
     total, end = 0.0, -1.0
@@ -281,26 +310,26 @@ def time_cuda(torch, fn, iters, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(torch, fn, iters, kernel_name, warmup=3):
-    """Device milliseconds per call of fn(it) and kernel launches per call:
-    the self device time of the kernels whose name holds kernel_name, over
-    iters back-to-back calls under torch.profiler, divided by iters.
-    (None, 0) when the profiler sees no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(torch, fn, iters, kernel_name, per_call, warmup=3):
+    """Device milliseconds per call of fn(it), and the kernel records traced
+    per call: the self device time of the kernels whose name holds
+    kernel_name, over iters back-to-back calls under torch.profiler,
+    divided by iters.  A call launches per_call such kernels; a trace that
+    holds another count (none, or some records lost) measures nothing, and
+    the time is None."""
     for it in range(warmup):
         fn(it)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         for it in range(iters):
             fn(it)
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU and kernel_name in e.key]
-    if not rows:
-        return None, 0
-    return (sum(e.self_device_time_total for e in rows) / 1e3 / iters,
-            sum(e.count for e in rows) / iters)
+    traced = sum(e.count for e in rows) / iters
+    if traced != per_call:
+        return None, traced
+    return sum(e.self_device_time_total for e in rows) / 1e3 / iters, traced
 
 
 def touched_bytes(y0, x0, side, h, w, size):
@@ -413,6 +442,18 @@ class LogClipCapture:
         pass
 
 
+def k2_ref_args(block, x_nchw):
+    """residual_block_ref's arguments for a BasicBlock and its NCHW input:
+    (x NHWC, conv1 HWIO, folded bn1 scale and bias, conv2, bn2)."""
+    from playaid_core_torch.models.resnet import fold_batch_norm
+
+    s1, b1 = fold_batch_norm(block.bn1)
+    s2, b2 = fold_batch_norm(block.bn2)
+    return (x_nchw.permute(0, 2, 3, 1).contiguous(),
+            block.conv1.weight.permute(2, 3, 1, 0).contiguous(), s1, b1,
+            block.conv2.weight.permute(2, 3, 1, 0).contiguous(), s2, b2)
+
+
 def bf16_ulps(out, ref):
     """Largest |out - ref| in bf16 ulps of max(|ref|, max|ref| / 64)."""
     mag = np.maximum(np.abs(ref), np.abs(ref).max() / 64)
@@ -423,10 +464,8 @@ def bf16_ulps(out, ref):
 def profile_slice(torch, run_slice, slice_s):
     """Device time by kernel over one more run of the slice (a diagnostic:
     a profiler that cannot trace the card is reported, not fatal)."""
-    from torch.profiler import ProfilerActivity, profile
-
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled(torch) as prof:
             t0 = time.perf_counter()
             run_slice()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -449,8 +488,6 @@ def profile_slice(torch, run_slice, slice_s):
 def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     """Phase 6: VodAnalyzer.analyze on the headline configuration.  Returns
     each wrapper's launches during the timed run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from playaid_core_torch.convert import load_npz_tree
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
     from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
@@ -502,7 +539,7 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     # One more run under the profiler: bytes sent to the card, busy share.
     trace = os.path.join(ROOT, "build", "smoke", "vod_trace.json")
     os.makedirs(os.path.dirname(trace), exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         t0 = time.perf_counter()
         argmax.analyze(clip, boxes_all)
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -621,8 +658,6 @@ def run_log_phase(torch, dev, check, wrappers):
     """Phase 8: the log path through VodAnalyzer(host_resize=False), then
     the command line.  Returns each wrapper's launches during the timed
     analyze."""
-    from torch.profiler import ProfilerActivity, profile
-
     from playaid_core_torch.convert import load_npz_tree
     from playaid_core_torch.infer import vod_pipeline
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
@@ -690,7 +725,7 @@ def run_log_phase(torch, dev, check, wrappers):
 
         vod_pipeline.PinnedStager.to_device = counted
         try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiled(torch) as prof:
                 t0 = time.perf_counter()
                 argmax.analyze(clip, boxes)
                 wall_us = (time.perf_counter() - t0) * 1e6
@@ -801,6 +836,329 @@ def run_log_phase(torch, dev, check, wrappers):
     return launches
 
 
+# The pixels-only clip of phase 9: 1280x720 frames of noise, two discs that
+# cross the screen, and both HUD damage counters drawn with a 5x7 bitmap
+# font (whole part large, the decimal digit small, as on the real HUD).
+PIX_W, PIX_H, PIX_FRAMES, PIX_BATCH = 1280, 720, 240, 16
+PIX_DISC_RADIUS, PIX_STEP = 48, 30
+PIX_CPU_FRAMES = 8        # frames of the card-vs-CPU detection check
+PIX_MAX_DET = 1024        # peaks a frame: the seeded heatmap ranks class 3's best near 800
+PIX_SEED_BOX_CELLS = 16.0  # the seeded size head's bias, in output cells
+BOX_TOL = 1e-4            # card vs CPU detection boxes, max abs (normalised)
+GLYPHS = {
+    "0": ("01110", "10001", "10011", "10101", "11001", "10001", "01110"),
+    "1": ("00100", "01100", "00100", "00100", "00100", "00100", "01110"),
+    "2": ("01110", "10001", "00001", "00010", "00100", "01000", "11111"),
+    "3": ("11110", "00001", "00001", "01110", "00001", "00001", "11110"),
+    "4": ("00010", "00110", "01010", "10010", "11111", "00010", "00010"),
+    "5": ("11111", "10000", "11110", "00001", "00001", "10001", "01110"),
+    "6": ("00110", "01000", "10000", "11110", "10001", "10001", "01110"),
+    "7": ("11111", "00001", "00010", "00100", "01000", "01000", "01000"),
+    "8": ("01110", "10001", "10001", "01110", "10001", "10001", "01110"),
+    "9": ("01110", "10001", "10001", "01111", "00001", "00010", "01100"),
+}
+
+
+def hud_values(i):
+    """Both players' damage at frame i: it steps every PIX_STEP frames."""
+    k = i // PIX_STEP
+    return (round(4.7 * k, 1), round(12.3 + 9.1 * k, 1))
+
+
+def paint_hud(frame, x0, y0, value):
+    """Draw a damage value into the 133x60 HUD box at (x0, y0): the whole
+    part at scale 5, the decimal digit at scale 3 on the same baseline."""
+    whole, frac = f"{value:.1f}".split(".")
+    x, base = x0 + 6, y0 + 50
+    for text, scale in ((whole, 5), (frac, 3)):
+        for ch in text:
+            glyph = np.array([[c == "1" for c in row] for row in GLYPHS[ch]])
+            big = np.kron(glyph, np.ones((scale, scale), bool))
+            frame[base - big.shape[0]:base, x:x + big.shape[1]][big] = 255
+            x += big.shape[1] + scale
+        x += 4
+
+
+class PixelsClipCapture:
+    """Stand-in frame source behind BoundedSegmentDecoder.open_capture for
+    phase 9 (seek / read / release and the stream's fps and size): each
+    read renders a new frame, which the caller may keep."""
+
+    fps, width, height, frame_count = 60.0, PIX_W, PIX_H, PIX_FRAMES
+
+    def __init__(self):
+        self.pos = 0
+        self.base = np.random.default_rng(2).integers(0, 50, (PIX_H, PIX_W, 3), dtype=np.uint8)
+        r = PIX_DISC_RADIUS
+        yy, xx = np.ogrid[-r:r + 1, -r:r + 1]
+        self.disc = yy ** 2 + xx ** 2 <= r * r
+
+    def seek(self, index):
+        self.pos = index
+
+    def read(self):
+        if self.pos >= PIX_FRAMES:
+            return False, None
+        from playaid_core_torch.infer.ocr import PLAYER_DAMAGE_CROPS
+
+        i, r = self.pos, PIX_DISC_RADIUS
+        frame = self.base.copy()
+        x = int((0.2 + 0.6 * i / PIX_FRAMES) * PIX_W)
+        for cx, cy, colour in ((x, 400, (0, 200, 255)), (PIX_W - x, 430, (255, 80, 0))):
+            frame[cy - r:cy + r + 1, cx - r:cx + r + 1][self.disc] = colour
+        for player, value in enumerate(hud_values(i)):
+            p = PLAYER_DAMAGE_CROPS[player]
+            paint_hud(frame, int((p["center_x"] - p["crop_width"] / 2) * PIX_W),
+                      int((p["center_y"] - p["crop_height"] / 2) * PIX_H), value)
+        self.pos += 1
+        return True, frame
+
+    def release(self):
+        pass
+
+
+def run_pixels_phase(torch, dev, check, card, k2_wrapper):
+    """Phase 9: the pixels-only path, AIRunner on frames with no log.
+    Returns K2's numbers at the detector's shape and its launches."""
+    import shutil
+
+    import torch.nn.functional as F
+
+    from playaid_core_torch import constants
+    from playaid_core_torch.convert import load_npz_tree
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.infer.detection import CharacterDetector
+    from playaid_core_torch.infer.ocr import PLAYER_DAMAGE_CROPS, segment_digit_components
+    from playaid_core_torch.infer.ocr_conv import ConvDigitOCR, patch_from_component
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.infer.runner import AIRunner
+    from playaid_core_torch.infer.vod_pipeline import BoundedSegmentDecoder
+    from playaid_core_torch.geometry import YoloCrop
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.train.detector_train import DetectorTrainer
+
+    work = os.path.join(ROOT, "build", "smoke")
+    constants.AI_CACHE = os.path.join(work, "ai_cache")
+    shutil.rmtree(constants.AI_CACHE, ignore_errors=True)
+    os.makedirs(work, exist_ok=True)
+    BoundedSegmentDecoder.open_capture = staticmethod(lambda path: PixelsClipCapture())
+    clip, exp = os.path.join("pixels", "clip.mp4"), os.path.join("pixels", "clip")
+    det_kw = dict(classes=(2, 3), max_det=PIX_MAX_DET, batch_size=PIX_BATCH)
+    # Seeded weights: every heatmap logit sits near the -2.19 prior (a
+    # sigmoid of about 0.1), so the default threshold of 0.3 finds nothing;
+    # 0.0 with PIX_MAX_DET candidates gives both classes their best peak.
+    threshold = 0.0
+    cap = PixelsClipCapture()
+    frames = np.stack([cap.read()[1] for _ in range(PIX_BATCH)])
+    rgb = np.ascontiguousarray(frames[..., ::-1])
+
+    trainer = DetectorTrainer(device=dev).init(0)
+    cpu_trainer = DetectorTrainer(device="cpu").init(0)
+    # The seeded size head predicts boxes of about 0 cells (its bias is 0, as
+    # in the JAX init); a bias of 16 output cells (64 px at the 256x448
+    # input) gives boxes that the character detector can cut crops from.
+    with torch.no_grad():
+        for t in (trainer, cpu_trainer):
+            t.model.heads["size"][2].bias.fill_(PIX_SEED_BOX_CELLS)
+    params = list(trainer.model.parameters())
+    check(all(p.device.type == "cuda" for p in params),
+          f"phase 9: all {len(params)} detector weight tensors on {dev} after init")
+
+    # K2 at the detector's shape: layer4[1]'s input from this batch.
+    block = trainer.model.trunk.layer4[1]
+    seen = {}
+    hook = block.register_forward_hook(lambda m, inp, out: seen.setdefault("x", inp[0]))
+    trainer.detect(rgb, max_det=PIX_MAX_DET, score_threshold=threshold, classes=(2, 3))
+    hook.remove()
+    with torch.inference_mode(), full_float32():
+        k2_args = k2_ref_args(block, seen["x"])
+        x_nhwc = k2_args[0]  # [16, 8, 14, 512]
+        pack = block.block_pack(torch.float32)
+        k2_out = residual_block_packed(x_nhwc, pack)
+        k2_ref = residual_block_ref(*k2_args)
+    torch.cuda.synchronize()
+    k2_err = float((k2_out - k2_ref).abs().max())
+    k2_scale = float(k2_ref.abs().max())
+    check(tuple(x_nhwc.shape) == (PIX_BATCH, 8, 14, 512) and k2_err <= K2_F32_REL_TOL * k2_scale,
+          f"phase 9: K2 residual_block f32 at the detector's layer4[1] {tuple(x_nhwc.shape)}: "
+          f"max abs err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {k2_scale:.3f})")
+    x_nchw = seen["x"].contiguous()
+    bn = (block.bn1, block.bn2)
+
+    def cudnn_chain(_):
+        y = F.conv2d(x_nchw, block.conv1.weight, padding=1)
+        y = torch.relu(F.batch_norm(y, bn[0].running_mean, bn[0].running_var, bn[0].weight,
+                                    bn[0].bias, False, 0.0, bn[0].eps))
+        y = F.conv2d(y, block.conv2.weight, padding=1)
+        y = F.batch_norm(y, bn[1].running_mean, bn[1].running_var, bn[1].weight, bn[1].bias,
+                         False, 0.0, bn[1].eps)
+        return torch.relu(y + x_nchw)
+
+    with torch.inference_mode():
+        k2_ms = time_cuda(torch, lambda _: residual_block_packed(x_nhwc, pack), 40)
+        k2_dev_ms, k2_per_call = device_ms(torch, lambda _: residual_block_packed(x_nhwc, pack),
+                                           40, "conv3x3_wgmma_kernel", 2)
+        k2_plain_ms = time_cuda(torch, lambda _: residual_block_ref(*k2_args), 20)
+        with full_float32():
+            k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
+    m, c = PIX_BATCH * 8 * 14, 512
+    k2_flops = 2 * 2 * m * c * 9 * c
+    k2_bytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
+    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
+    log(f"phase 9: K2 f32 at {tuple(x_nhwc.shape)}: call {k2_ms:.4f} ms, device "
+        f"{'not measured' if k2_dev_ms is None else f'{k2_dev_ms:.4f} ms'} "
+        f"({k2_per_call:g} of 2 kernel records a call traced), plain "
+        f"{k2_plain_ms:.4f} ms, cuDNN chain {k2_lib_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
+        f"(3 x {k2_flops / 1e9:.2f} GFLOP TF32); {card}")
+
+    # Card against CPU: the same frames and seeded weights.
+    on_card = trainer.detect(rgb[:PIX_CPU_FRAMES], max_det=PIX_MAX_DET, score_threshold=threshold,
+                             classes=(2, 3))
+    on_cpu = cpu_trainer.detect(rgb[:PIX_CPU_FRAMES], max_det=PIX_MAX_DET, score_threshold=threshold,
+                                classes=(2, 3))
+    # The 16 best peaks of each frame, and each class's best (the one the
+    # character detector crops): identical classes, boxes within BOX_TOL.
+    def best(dets):
+        return [next(bx for c, _, bx in dets if c == k) for k in (2, 3)]
+
+    same_cls = all([c for c, _, _ in a[:16]] == [c for c, _, _ in b[:16]]
+                   for a, b in zip(on_card, on_cpu))
+    box_err = max(float(np.abs(np.array([bx for _, _, bx in a[:16]] + best(a))
+                               - np.array([bx for _, _, bx in b[:16]] + best(b))).max())
+                  for a, b in zip(on_card, on_cpu))
+    check(same_cls and box_err <= BOX_TOL and all(len(d) == PIX_MAX_DET for d in on_card),
+          f"phase 9: card vs CPU detections on {PIX_CPU_FRAMES} frames: the 16 best peaks' "
+          f"classes identical {same_cls}; their boxes and each class's best box max abs err "
+          f"{box_err:.3e} (tol {BOX_TOL})")
+
+    # Host-to-device bytes of one detect() batch: the frames, no weights.  As
+    # in phase 8, a trace short of a copy is profiled once more only when it
+    # shows that it lost the record; a short trace without that sign fails.
+    trace = os.path.join(work, "detect_trace.json")
+    for attempt in (1, 2):
+        with profiled(torch) as prof:
+            trainer.detect(rgb, max_det=PIX_MAX_DET, score_threshold=threshold, classes=(2, 3))
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        audit = trace_copy_audit(trace, "conv3x3_wgmma")
+        h2d = [b for b, _ in audit["h2d"]]
+        big = [b for b in h2d if b is not None and b >= 65536]
+        log(f"phase 9: profiled detect() {attempt}: {len(h2d)} host-to-device copies in the "
+            f"trace ({h2d.count(None)} without a size, {len(big)} of >= 64 KiB: {big}); "
+            f"{audit['calls']} cudaMemcpy calls traced on the host, {len(audit['lost'])} of them "
+            f"with no copy on the device; profiler notes of dropped records: "
+            f"{audit['notes'] or 'none'}")
+        if big == [rgb.nbytes] or not (audit["lost"] or audit["notes"]):
+            break
+    rest = sum(b for b in h2d if b is not None and b < 65536)
+    check(big == [rgb.nbytes] and None not in h2d and rest < 65536,
+          f"phase 9: host-to-device copies of one detect() batch under torch.profiler: "
+          f"{len(big)} of >= 64 KiB = {big} B (the frames: {rgb.nbytes} B), the rest {rest} B "
+          f"in {len(h2d) - len(big)} copies")
+
+    # detect() alone on batches of 16.
+    batches = [np.ascontiguousarray(np.stack([cap.read()[1] for _ in range(PIX_BATCH)])[..., ::-1])
+               for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        trainer.detect(b, max_det=PIX_MAX_DET, score_threshold=threshold, classes=(2, 3))
+    detect_fps = len(batches) * PIX_BATCH / (time.perf_counter() - t0)
+
+    # The character detector over the clip: frames through the capture seam.
+    detector = CharacterDetector(trainer, score_threshold=threshold, **det_kw)
+    k2_wrapper.launches = 0
+    t0 = time.perf_counter()
+    detector.run(clip, exp)
+    detector_s = time.perf_counter() - t0
+    det_launches = k2_wrapper.launches
+    check(det_launches == PIX_FRAMES // PIX_BATCH,
+          f"phase 9: CharacterDetector {PIX_FRAMES} frames in {detector_s * 1e3:.1f} ms = "
+          f"{PIX_FRAMES / detector_s:.1f} frames/s (detect() alone {detect_fps:.1f} frames/s); K2 "
+          f"launches in the trunk {det_launches} (one a batch of {PIX_BATCH}); {card}")
+
+    # The runner: cleanup, recognition (bench weights, crop 128), OCR, output.
+    tree = load_npz_tree(ASSET)
+    pipe = BatchedActionPipeline(device=dev)
+    runner = AIRunner(clip, detector=detector, pipeline=pipe, variables=tree)
+    t0 = time.perf_counter()
+    runner.run_detection_setup()
+    cleanup_s = time.perf_counter() - t0
+    # The embed's layer4[1] inputs during recognition: one call a fighter.
+    embed_block = pipe.embed.layer4[1]
+    embed_inputs = []
+    hook = embed_block.register_forward_hook(lambda m, inp, out: embed_inputs.append(inp[0]))
+    k2_wrapper.launches = 0
+    t0 = time.perf_counter()
+    runner.run_action_recognition()
+    torch.cuda.synchronize()
+    recog_s = time.perf_counter() - t0
+    rec_launches = k2_wrapper.launches
+    hook.remove()
+
+    # K2 at the embed's shape, 239 crops a call: 3,824 rows of 64-row tiles
+    # end in a partial tile at C=512.
+    embed_err, embed_shapes = 0.0, []
+    with torch.inference_mode(), full_float32():
+        embed_pack = embed_block.block_pack(torch.float32)
+        for x in embed_inputs:
+            args = k2_ref_args(embed_block, x)
+            ref = residual_block_ref(*args)
+            err = float((residual_block_packed(args[0], embed_pack) - ref).abs().max())
+            embed_err = max(embed_err, err / float(ref.abs().max()))
+            embed_shapes.append(tuple(args[0].shape))
+    check(len(embed_inputs) == 2 and embed_err <= K2_F32_REL_TOL,
+          f"phase 9: K2 residual_block f32 at the embed's layer4[1] {embed_shapes}: max abs err "
+          f"/ max|ref| {embed_err:.3e} (tol {K2_F32_REL_TOL})")
+    ocr = ConvDigitOCR(device=dev)
+    t0 = time.perf_counter()
+    confident = runner.run_damage_detection(ocr=ocr)
+    ocr_s = time.perf_counter() - t0
+    runner.write_output()
+    n = runner.max_frames
+    data = runner.ai_output_data
+    fighters = sorted(runner.fighters)
+    actions = {f: [data[f][i].action for i in range(n - 1)] for f in fighters}
+    check(fighters == ["Joker", "Pikachu"] and rec_launches > 0
+          and all(a in runner.actions for f in fighters for a in actions[f])
+          and os.path.exists(runner.ai_output_file),
+          f"phase 9: AIRunner on {n} frames: cleanup {n / cleanup_s:.1f} frames/s, recognition "
+          f"{n / recog_s:.1f} frames/s (K2 launches {rec_launches}), OCR {n / ocr_s:.1f} frames/s "
+          f"({confident} confident readings of {2 * n}); {card}")
+
+    # Card against CPU: labels from the same crops, readings and digit logits.
+    cpu_runner = AIRunner(clip, detector=detector,
+                          pipeline=BatchedActionPipeline(device="cpu"), variables=tree)
+    cpu_runner.fighters, cpu_runner.max_frames = runner.fighters, n
+    cpu_runner.run_action_recognition(overwrite=True)
+    cpu_data = cpu_runner.ai_output_data
+    same = [data[f][i].action == cpu_data[f][i].action for f in fighters for i in range(n - 1)]
+    check(np.mean(same) >= LABEL_AGREEMENT_MIN,
+          f"phase 9: card vs CPU action labels agree on {sum(same)}/{len(same)} = "
+          f"{np.mean(same):.4f} (min {LABEL_AGREEMENT_MIN})")
+    cpu_ocr = ConvDigitOCR(device="cpu")
+    reader = PixelsClipCapture()
+    readings_same, patches = True, []
+    for i in range(n):
+        frame = reader.read()[1]
+        for params in PLAYER_DAMAGE_CROPS.values():
+            img = YoloCrop(**params).crop_img(frame)
+            a, b = ocr(img), cpu_ocr(img)
+            readings_same &= a[0] == b[0] and a[1][:2] == b[1][:2]
+            patches += [patch_from_component(c) for c in segment_digit_components(img)[0]]
+    patches = np.stack(patches)[..., None]
+    logit_err = float(np.abs(ocr.logits(patches) - cpu_ocr.logits(patches)).max())
+    values = sorted({data[f][i].damage for f in fighters for i in range(n)})
+    check(readings_same and logit_err <= LOG_PROB_TOL,
+          f"phase 9: card vs CPU readings of {2 * n} HUD crops identical {readings_same}; digit "
+          f"logits of {len(patches)} patches max abs err {logit_err:.3e} (tol {LOG_PROB_TOL}); "
+          f"smoothed values read {values[:8]}")
+    return {"launches": det_launches + rec_launches, "max_abs_err": k2_err,
+            "shape": list(x_nhwc.shape), "ms": k2_ms, "device_ms": k2_dev_ms,
+            "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms, "library_ms": k2_lib_ms,
+            "embed_shapes": [list(s) for s in embed_shapes], "embed_rel_err": embed_err}
+
+
 def main():
     import torch
 
@@ -814,7 +1172,6 @@ def main():
     from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
     from playaid_core_torch.device import full_float32
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
-    from playaid_core_torch.models.resnet import fold_batch_norm
     from playaid_core_torch.ops import _build
     from playaid_core_torch.ops.conv_block import (
         pack_block,
@@ -953,12 +1310,8 @@ def main():
         x = k1_out.reshape(-1, CROP, CROP, 3).permute(0, 3, 1, 2)
         x = net.maxpool(torch.relu(net.bn1(net.conv1(x))))
         x = net.layer4[0](net.layer3(net.layer2(net.layer1(x))))
-        x_nhwc = x.permute(0, 2, 3, 1).contiguous()  # [48, 4, 4, 512]
-        s1, b1 = fold_batch_norm(block.bn1)
-        s2, b2 = fold_batch_norm(block.bn2)
-        w1 = block.conv1.weight.permute(2, 3, 1, 0).contiguous()
-        w2 = block.conv2.weight.permute(2, 3, 1, 0).contiguous()
-        k2_args = (x_nhwc, w1, s1, b1, w2, s2, b2)
+        k2_args = k2_ref_args(block, x)
+        x_nhwc, w1, s1, b1, w2, s2, b2 = k2_args  # x_nhwc [48, 4, 4, 512]
         k2_out = residual_block(*k2_args)
         k2_ref = residual_block_ref(*k2_args)
         bf_args = (x_nhwc.bfloat16(), w1.bfloat16(), s1, b1, w2.bfloat16(), s2, b2)
@@ -1131,7 +1484,7 @@ def main():
 
     with torch.inference_mode():
         k1_ms = time_cuda(torch, k1_call, 80)
-        k1_dev_ms, k1_per_call = device_ms(torch, k1_call, 80, "crop_resize_kernel")
+        k1_dev_ms, k1_per_call = device_ms(torch, k1_call, 80, "crop_resize_kernel", 1)
         k1_plain_ms = time_cuda(torch, lambda it: batched_square_crop_resize(
             frame_sets[it % n_sets], box_sets[it % n_sets], CROP, PADDING, True, True), 16)
         k1_lib_ms = time_cuda(torch, lambda it: F.grid_sample(
@@ -1168,7 +1521,7 @@ def main():
 
     with torch.inference_mode():
         kw_ms = time_cuda(torch, kw_call, 60)
-        kw_dev_ms, kw_per_call = device_ms(torch, kw_call, 60, "crop_resize_kernel")
+        kw_dev_ms, kw_per_call = device_ms(torch, kw_call, 60, "crop_resize_kernel", 1)
         kw_plain_ms = time_cuda(torch, lambda it: window_plain(*win_sets[it % len(win_sets)]), 6)
         kw_lib_ms = time_cuda(torch, lambda it: F.grid_sample(
             *win_lib_inputs[it % len(win_sets)], mode="bilinear", padding_mode="zeros",
@@ -1208,9 +1561,11 @@ def main():
             k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
         log(f"phase 5: cuDNN chain yardstick (TF32 off) vs K2 plain: max abs err {lib2_err:.3e}")
         k2_ms = time_cuda(torch, k2_f32, 40)
-        k2_dev_ms, k2_per_call = device_ms(torch, k2_f32, 40, "conv3x3_wgmma_kernel")
+        # A call launches two kernels: the block's two convolutions.
+        k2_dev_ms, k2_per_call = device_ms(torch, k2_f32, 40, "conv3x3_wgmma_kernel", 2)
         k2_bf16_ms = time_cuda(torch, k2_bf16, 40)
-        k2_bf16_dev_ms, _ = device_ms(torch, k2_bf16, 40, "conv3x3_wgmma_kernel")
+        k2_bf16_dev_ms, k2_bf16_per_call = device_ms(torch, k2_bf16, 40,
+                                                     "conv3x3_wgmma_kernel", 2)
         k2_plain_ms = time_cuda(torch, lambda it: residual_block_ref(*k2_args), 40)
 
         # The bf16 yardsticks: the same cuDNN chain on bf16 activations and
@@ -1255,7 +1610,8 @@ def main():
         f"({k2_per_call:g} kernels a call; {k2_flops / k2_ms / 1e9:.2f} TFLOP/s of f32 work by "
         f"call time), bound {k2_bound_ms:.4f} ms (3 x {k2_flops / 1e9:.2f} GFLOP TF32; CUDA-core "
         f"f32 bound {k2_core_bound_ms:.4f} ms); bf16 call {k2_bf16_ms:.4f} ms, device "
-        f"{fmt(k2_bf16_dev_ms)}, bound {k2_bf16_bound_ms:.4f} ms; plain {k2_plain_ms:.4f} ms, "
+        f"{fmt(k2_bf16_dev_ms)} ({k2_bf16_per_call:g} kernels a call), bound "
+        f"{k2_bf16_bound_ms:.4f} ms; plain {k2_plain_ms:.4f} ms, "
         f"cuDNN chain {k2_lib_ms:.4f} ms; bf16 plain {k2_bf16_plain_ms:.4f} ms, bf16 cuDNN "
         f"chain {k2_bf16_lib_ms:.4f} ms")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1273,6 +1629,9 @@ def main():
 
     # ---- phase 8: the log path, the window route and the command line ----
     log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed])
+
+    # ---- phase 9: the pixels-only path, AIRunner ----
+    pixels = run_pixels_phase(torch, dev, check, card, residual_block_packed)
 
     kernels = [
         {"name": "crop_resize", "route": "cuda",
@@ -1298,6 +1657,8 @@ def main():
     kernels[0].update({"window_max_abs_err": kw_err, "window_ms": kw_ms,
                        "window_device_ms": kw_dev_ms, "window_plain_ms": kw_plain_ms,
                        "window_bound_ms": kw_bound_ms, "window_library_ms": kw_lib_ms})
+    # K2 in the detector's trunk and the action embed of phase 9.
+    kernels[1].update({f"pixels_{k}": v for k, v in pixels.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

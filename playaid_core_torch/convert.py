@@ -263,6 +263,70 @@ def from_jax_rnn(variables):
 _FROM_JAX = {"cnn": from_jax_cnn, "resformer": from_jax_resformer, "rnn": from_jax_rnn}
 
 
+def _conv(state, name, node, transpose=False):
+    """A Flax Conv (or ConvTranspose, ``transpose=True``) ``{kernel, bias}``
+    -> ``name.weight``, ``name.bias``.  A ConvTranspose kernel ``[kh, kw,
+    in, out]`` is flipped in space and becomes ``[in, out, kh, kw]``: Flax
+    does not transpose the kernel (``transpose_kernel=False``), torch
+    does."""
+    if set(node) != {"kernel", "bias"}:
+        raise KeyError(f"{name} must hold exactly a kernel and a bias, got {sorted(node)}")
+    kernel = np.asarray(node["kernel"], np.float32)
+    if transpose:
+        weight = torch.from_numpy(np.ascontiguousarray(kernel[::-1, ::-1].transpose(2, 3, 0, 1)))
+    else:
+        weight = _tensor("weight", kernel)
+    _put(state, f"{name}.weight", weight)
+    _put(state, f"{name}.bias", _vector(node["bias"]))
+
+
+def _batch_norm(state, name, params, stats):
+    if set(params) != {"scale", "bias"} or set(stats) != {"mean", "var"}:
+        raise KeyError(f"{name} must hold a scale, a bias, a mean and a var")
+    for field, value in (*params.items(), *stats.items()):
+        _put(state, f"{name}.{_BN_FIELDS[field]}", _vector(value))
+    _put(state, f"{name}.num_batches_tracked", torch.tensor(0))
+
+
+def from_jax_detector(variables):
+    """A ``CenterNetDetector``'s Flax ``{params, batch_stats}`` tree, as the
+    JAX ``DetectorTrainer`` holds it -> the port's ``CenterNetDetector``
+    state dict.  ``trunk/resnet/...`` is the ResNet-18; ``up_{i}`` and
+    ``up_bn_{i}`` the upsampling stages (``up.{3i}``, ``up.{3i + 1}``);
+    ``{heatmap,size,offset}_{conv,out}`` the heads."""
+    params = dict(variables["params"])
+    stats = dict(variables.get("batch_stats") or {})
+    trunk_p, trunk_s = params.pop("trunk"), stats.pop("trunk", {})
+    if set(trunk_p) != {"resnet"} or set(trunk_s) - {"resnet"}:
+        raise KeyError(f"the detector's trunk must hold one ResNet, got {sorted(trunk_p)}")
+    state = resnet_state_dict(trunk_p["resnet"], trunk_s.get("resnet", {}), prefix="trunk.")
+    for i in range(3):
+        _conv(state, f"up.{3 * i}", params.pop(f"up_{i}"), transpose=True)
+        _batch_norm(state, f"up.{3 * i + 1}", params.pop(f"up_bn_{i}"), stats.pop(f"up_bn_{i}"))
+    for head in ("heatmap", "size", "offset"):
+        _conv(state, f"heads.{head}.0", params.pop(f"{head}_conv"))
+        _conv(state, f"heads.{head}.2", params.pop(f"{head}_out"))
+    if params or stats:
+        raise KeyError(f"no detector parameter for {sorted(params) + sorted(stats)}")
+    return state
+
+
+def from_jax_digits(params):
+    """The digit net's tree as ``ocr_digits.npz`` stores it (``params/{c1,
+    c2, c3, d1, out}``) -> the port's ``DigitNet`` state dict.  The port
+    flattens its last feature map in NHWC order, as Flax does, so ``d1``'s
+    rows keep their order."""
+    node = dict(params.get("params", params))
+    state = {}
+    for name in ("c1", "c2", "c3"):
+        _conv(state, name, node.pop(name))
+    for name in ("d1", "out"):
+        _dense(state, name, node.pop(name))
+    if node:
+        raise KeyError(f"no digit-net parameter for {sorted(node)}")
+    return state
+
+
 def to_state_dicts(family, variables):
     """Weights as the port's ``{"embed", "head"}`` state dicts: a JAX-layout
     tree of the family is converted, state dicts (tensor leaves) pass

@@ -1,9 +1,11 @@
 """Crop geometry and camera projection.
 
 The port's own copy of the projection functions and the ``YoloCrop`` box
-of ``playaid_core_tpu/geometry.py``, as far as :mod:`playaid_core_torch.fighter`
-and :mod:`playaid_core_torch.timeline` use them; the image helpers (square
-crops, resizes, which need PIL and cv2) are not ported.  Rebuild of the
+of ``playaid_core_tpu/geometry.py``, as far as :mod:`playaid_core_torch.fighter`,
+:mod:`playaid_core_torch.timeline` and the pixels-only path (label lines,
+interpolation, square crops, :func:`aspect_resize`) use them.  The image
+helpers compute the JAX package's pixels without PIL or cv2, through
+:mod:`playaid_core_torch.imgproc`.  Rebuild of the
 reference's YoloCrop bbox type and pinhole camera model (reference:
 fighter.py:31-390).  Two paths are provided:
 
@@ -20,6 +22,8 @@ fighter.py:31-390).  Two paths are provided:
 from __future__ import annotations
 
 import numpy as np
+
+from playaid_core_torch import imgproc
 
 
 def calculate_focal_length(fov, image_width):
@@ -158,5 +162,137 @@ class YoloCrop:
             crop_height / image_height,
         )
 
+    @classmethod
+    def from_string(cls, yolo_string):
+        """A YOLOv5 label line ``class cx cy w h confidence``."""
+        class_id, center_x, center_y, width, height, confidence = yolo_string.split(" ")
+        return cls(
+            float(center_x),
+            float(center_y),
+            float(width),
+            float(height),
+            confidence=float(confidence),
+            class_id=int(class_id),
+        )
+
+    def interp(self, b, percent):
+        """Linear interpolation toward crop ``b`` (reference: fighter.py:220-231)."""
+        assert self.class_id == b.class_id, "Interpolating between two different class ids"
+        return YoloCrop(
+            self.center_x + percent * (b.center_x - self.center_x),
+            self.center_y + percent * (b.center_y - self.center_y),
+            self.crop_width + percent * (b.crop_width - self.crop_width),
+            self.crop_height + percent * (b.crop_height - self.crop_height),
+            confidence=self.confidence + percent * (b.confidence - self.confidence),
+            class_id=self.class_id,
+        )
+
     def yolo_crop(self):
         return (self.center_x, self.center_y, self.crop_width, self.crop_height)
+
+    def xyxy_norm(self):
+        return (
+            self.center_x - self.crop_width / 2,
+            self.center_y - self.crop_height / 2,
+            self.center_x + self.crop_width / 2,
+            self.center_y + self.crop_height / 2,
+        )
+
+    def xyxy_pixels(self, image_width, image_height):
+        (x1, y1, x2, y2) = self.xyxy_norm()
+        return (
+            max(0, int(x1 * image_width)),
+            max(0, int(y1 * image_height)),
+            min(image_width, int(x2 * image_width)),
+            min(image_height, int(y2 * image_height)),
+        )
+
+    def yolo_pixels(self, image_width, image_height):
+        return (
+            int(self.center_x * image_width),
+            int(self.center_y * image_height),
+            int(self.crop_width * image_width),
+            int(self.crop_height * image_height),
+        )
+
+    def crop_img(self, image):
+        (x1, y1, x2, y2) = self.xyxy_pixels(image.shape[1], image.shape[0])
+        return image[y1:y2, x1:x2]
+
+    def square_crop(self, image, output_size=128, padding=0):
+        """Square letterboxed crop around the bbox centre (reference:
+        fighter.py:323-381), pixel for pixel as the JAX package's, which
+        goes through PIL and cv2: the window of ``2 * (max(w, h) // 2 +
+        padding)`` pixels (cut at the frame's edges) is fitted into
+        ``max(w, h)`` pixels by ``ImageOps.pad`` (bicubic, centred on
+        black), then resized to ``output_size`` by ``aspect_resize``
+        (``INTER_AREA``) and padded again if it is not square.
+
+        ``padding`` in pixels (int), or as a fraction of the box's square
+        dimension when a float in (0, 1).  Returns (ok, crop) with crop
+        ``[output_size, output_size, 3]``; (False, None) when the fighter
+        is off screen.
+        """
+        (center_x, center_y, crop_width, crop_height) = self.yolo_pixels(
+            image.shape[1], image.shape[0]
+        )
+        square_dim = max(crop_width, crop_height)
+        square_half = int(square_dim / 2)
+        if isinstance(padding, float) and 0 < padding < 1:
+            padding = int(round(padding * square_dim))
+
+        raw_crop = image[
+            max(center_y - square_half - padding, 0):min(
+                center_y + square_half + padding, image.shape[0]
+            ),
+            max(center_x - square_half - padding, 0):min(
+                center_x + square_half + padding, image.shape[1]
+            ),
+            :,
+        ]
+
+        if raw_crop.shape[0] != square_dim or raw_crop.shape[1] != square_dim:
+            try:
+                raw_crop = imgproc.pad(raw_crop, (square_dim, square_dim))
+            except ValueError:
+                return False, None
+
+        if raw_crop.shape[0] == 0 or raw_crop.shape[1] == 0:
+            return False, None  # the fighter is entirely off screen
+
+        crop = aspect_resize(raw_crop, width=output_size)
+        if crop.shape[0] != output_size or crop.shape[1] != output_size:
+            crop = imgproc.pad(crop, (output_size, output_size))
+
+        expected = (output_size, output_size, 3)
+        if crop.shape != expected:
+            raise ValueError(
+                f"Bad output shape, expected {expected} got {crop.shape} "
+                f"(raw_crop shape {raw_crop.shape})"
+            )
+        return True, crop
+
+    def __str__(self):
+        return (
+            f"{self.class_id} {self.center_x} {self.center_y} {self.crop_width} "
+            f"{self.crop_height} {self.confidence}"
+        )
+
+    def __repr__(self):
+        return str(self)
+
+
+def aspect_resize(image, width=None, height=None, interpolation="area"):
+    """Aspect-preserving resize, ``cv2.INTER_AREA`` by default; ``width``
+    wins when both are given (the imutils.resize behaviour the reference
+    relies on, fighter.py:364)."""
+    (h, w) = image.shape[:2]
+    if width is None and height is None:
+        return image
+    if width is None:
+        r = height / float(h)
+        dim = (int(w * r), height)
+    else:
+        r = width / float(w)
+        dim = (width, int(h * r))
+    return imgproc.resize(image, dim, interpolation)

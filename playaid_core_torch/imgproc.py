@@ -1,0 +1,260 @@
+"""The image operations of OpenCV and PIL that the pixels-only path uses,
+written with numpy and torch so that the card's machine, which has
+neither library, computes the same pixels.
+
+* :func:`resize` is ``cv2.resize`` with ``INTER_LINEAR`` or
+  ``INTER_AREA`` on uint8 (1 or 3 channels) and float32 images, bit for
+  bit: OpenCV's 11-bit fixed-point bilinear weights and the rounding of its
+  vectorised vertical pass (``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >>
+  16) + 2 >> 2``), its area tables for shrinking, its block averages for
+  integer shrink factors (``+ 2 >> 2`` for 2x2), and the area variant of
+  bilinear for enlarging.  Columns outside the source are clamped with a
+  zero weight, rows by repeating the edge row.
+* :func:`resize_linear_u8` is the same ``INTER_LINEAR`` on a torch uint8
+  tensor ``[..., H, W, C]`` on any device: the detector resizes its frames
+  on the card with it.
+* :func:`pad` is ``PIL.ImageOps.pad(image, size, color="black")``: PIL's
+  antialiased bicubic resize (a = -0.5, 22-bit fixed point, horizontal
+  pass first, uint8 in between) to fit the size, pasted centred at
+  ``round((size - w) / 2)`` (Python's rounding, half to even).
+
+The CPU tests hold each against OpenCV and PIL on random images.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+_PIL_BITS = 22   # PIL's PRECISION_BITS for 8-bit images
+
+
+def _linear_taps(src, dst, area_mode=False, clamp=True):
+    """OpenCV's bilinear source indices and float32 weights along one axis.
+
+    ``area_mode``: the ``INTER_AREA`` variant used when enlarging.
+    ``clamp``: the horizontal rule (taps past an edge take the edge pixel
+    with weight 0); rows are not clamped, their index is.
+    """
+    inv = dst / src
+    scale = 1.0 / inv
+    d = np.arange(dst)
+    if area_mode:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        pos = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(pos).astype(np.int64)
+        f = (pos - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        f[(s < 0) | (s >= src - 1)] = 0
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), np.float32(1) - f, f
+
+
+def _fixed(w):
+    return np.rint(w * np.float32(1 << _COEF_BITS)).astype(np.int64)
+
+
+def resize_linear_u8(x: torch.Tensor, size, area_mode=False) -> torch.Tensor:
+    """``cv2.resize`` bilinear (or the area variant when enlarging) of uint8
+    images ``[..., H, W, C]`` to ``size = (height, width)``, on x's device."""
+    h, w = size
+    sh, sw = x.shape[-3], x.shape[-2]
+    dev = x.device
+    x0, x1, a0, a1 = _linear_taps(sw, w, area_mode, clamp=True)
+    y0, y1, b0, b1 = _linear_taps(sh, h, area_mode, clamp=False)
+    t = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
+    s = x.to(torch.int32)
+    a0, a1 = t(_fixed(a0).astype(np.int32))[:, None], t(_fixed(a1).astype(np.int32))[:, None]
+    hor = s.index_select(-2, t(x0)) * a0 + s.index_select(-2, t(x1)) * a1  # [..., sh, w, C]
+    r0 = hor.index_select(-3, t(y0)) >> 4
+    r1 = hor.index_select(-3, t(y1)) >> 4
+    b0 = t(_fixed(b0).astype(np.int32))[:, None, None]
+    b1 = t(_fixed(b1).astype(np.int32))[:, None, None]
+    out = (((r0 * b0) >> 16) + ((r1 * b1) >> 16) + 2) >> 2
+    return out.clamp_(0, 255).to(torch.uint8)
+
+
+def _linear_f32(img, h, w, area_mode):
+    sh, sw = img.shape[:2]
+    x0, x1, a0, a1 = _linear_taps(sw, w, area_mode, clamp=True)
+    y0, y1, b0, b1 = _linear_taps(sh, h, area_mode, clamp=False)
+    s = img.reshape(sh, sw, -1)
+    hor = s[:, x0] * a0[:, None] + s[:, x1] * a1[:, None]
+    out = hor[y0] * b0[:, None, None] + hor[y1] * b1[:, None, None]
+    return out.astype(np.float32).reshape((h, w) + img.shape[2:])
+
+
+@functools.lru_cache(maxsize=256)
+def _area_table(ssize, dsize):
+    """OpenCV's computeResizeAreaTab: (destination, source, float32 weight)
+    entries in order, and each entry's slot (its place among its
+    destination's entries).  Cached: crops repeat their sizes; the arrays
+    are not written to."""
+    scale = 1.0 / (dsize / ssize)
+    di, si, alpha = [], [], []
+    for dx in range(dsize):
+        fs1 = dx * scale
+        fs2 = fs1 + scale
+        cell = min(scale, ssize - fs1)
+        s1, s2 = int(np.ceil(fs1)), int(np.floor(fs2))
+        s2 = min(s2, ssize - 1)
+        s1 = min(s1, s2)
+        if s1 - fs1 > 1e-3:
+            di.append(dx), si.append(s1 - 1), alpha.append((s1 - fs1) / cell)
+        for sx in range(s1, s2):
+            di.append(dx), si.append(sx), alpha.append(1.0 / cell)
+        if fs2 - s2 > 1e-3:
+            di.append(dx), si.append(s2), alpha.append(min(min(fs2 - s2, 1.0), cell) / cell)
+    di = np.array(di)
+    slot = np.zeros(len(di), np.int64)
+    for k in range(1, len(di)):
+        slot[k] = slot[k - 1] + 1 if di[k] == di[k - 1] else 0
+    return di, np.array(si), np.array(alpha, np.float32), slot
+
+
+def _area_accumulate(src, dsize):
+    """Weighted sums along axis 0 in the table's order, in float32."""
+    di, si, alpha, slot = _area_table(src.shape[0], dsize)
+    out = np.zeros((dsize,) + src.shape[1:], np.float32)
+    for j in range(int(slot.max()) + 1):
+        m = slot == j
+        out[di[m]] += src[si[m]] * alpha[m].reshape((-1,) + (1,) * (src.ndim - 1))
+    return out
+
+
+def _area_shrink(img, h, w):
+    sh, sw = img.shape[:2]
+    kx, ky = sw / w, sh / h
+    if kx.is_integer() and ky.is_integer():
+        kx, ky = int(kx), int(ky)
+        cells = img.reshape((h, ky, w, kx) + img.shape[2:])
+        if img.dtype == np.uint8:
+            total = cells.astype(np.int64).sum(axis=(1, 3))
+            if kx == ky == 2:
+                return ((total + 2) >> 2).astype(np.uint8)
+            return np.rint(total.astype(np.float32) * np.float32(1.0 / (kx * ky))).astype(np.uint8)
+        terms = [cells[:, a, :, b] for a in range(ky) for b in range(kx)]
+        total = np.zeros_like(terms[0])
+        k = 0
+        while k + 4 <= len(terms):  # OpenCV adds the cell four at a time
+            total = total + (((terms[k] + terms[k + 1]) + terms[k + 2]) + terms[k + 3])
+            k += 4
+        for term in terms[k:]:
+            total = total + term
+        if kx == ky == 2:  # its vector loop, four columns at a time, adds rows first
+            simd = (w // 4) * 4
+            total[:, :simd] = (terms[0] + terms[1])[:, :simd] + (terms[2] + terms[3])[:, :simd]
+        return total * np.float32(1.0 / (kx * ky))
+    src = img.astype(np.float32)
+    out = _area_accumulate(_area_accumulate(np.moveaxis(src, 1, 0), w).swapaxes(0, 1), h)
+    return np.rint(out).astype(np.uint8) if img.dtype == np.uint8 else out
+
+
+def resize(img, dsize, interpolation="linear"):
+    """``cv2.resize(img, dsize, interpolation=INTER_LINEAR | INTER_AREA)``.
+
+    img: uint8 ``[H, W]`` or ``[H, W, C]``, or float32 ``[H, W]``;
+    ``dsize = (width, height)`` as in OpenCV.  Returns the same dtype.
+    """
+    img = np.asarray(img)
+    w, h = dsize
+    sh, sw = img.shape[:2]
+    if (h, w) == (sh, sw):
+        return img.copy()
+    if interpolation not in ("linear", "area"):
+        raise ValueError(f"interpolation must be 'linear' or 'area', got {interpolation!r}")
+    if img.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"resize takes uint8 or float32 images, got {img.dtype}")
+    sx, sy = 1.0 / (w / sw), 1.0 / (h / sh)
+    if interpolation == "linear" and sx == sy == 2.0:
+        interpolation = "area"  # OpenCV's own switch for an exact halving
+    if interpolation == "area" and sx >= 1 and sy >= 1:
+        return _area_shrink(img, h, w)
+    area_mode = interpolation == "area"
+    if img.dtype == np.float32:
+        return _linear_f32(img, h, w, area_mode)
+    x = torch.from_numpy(np.ascontiguousarray(img).reshape(sh, sw, -1))
+    return resize_linear_u8(x, (h, w), area_mode).numpy().reshape((h, w) + img.shape[2:])
+
+
+def _bicubic(x):
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_pass(img, out_size, axis):
+    """One pass of PIL's bicubic resample of a uint8 array along ``axis``."""
+    a = np.moveaxis(img, axis, 0)
+    in_size = a.shape[0]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    lo = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum((center + support + 0.5).astype(np.int64), in_size) - lo
+    k = np.arange(ksize)
+    wt = _bicubic((k[None, :] + lo[:, None] - center[:, None] + 0.5) / filterscale)
+    wt = np.where(k[None, :] < count[:, None], wt, 0.0)
+    total = wt.sum(axis=1, keepdims=True)
+    wt = np.where(total != 0, wt / np.where(total != 0, total, 1.0), wt)
+    fixed = np.where(wt < 0, -0.5 + wt * (1 << _PIL_BITS), 0.5 + wt * (1 << _PIL_BITS))
+    fixed = fixed.astype(np.int64)  # C's (int): toward zero
+    # The taps as one [out, in] matrix, multiplied in float64: every product
+    # and partial sum is an integer below 2**53, so the sums are exact.
+    dense = np.zeros((out_size, in_size))
+    np.add.at(dense, (np.arange(out_size)[:, None], np.minimum(lo[:, None] + k, in_size - 1)),
+              fixed)
+    acc = (dense @ a.reshape(in_size, -1).astype(np.float64)).astype(np.int64)
+    acc = (acc + (1 << (_PIL_BITS - 1))).reshape((out_size,) + a.shape[1:])
+    return np.moveaxis(np.clip(acc >> _PIL_BITS, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_bicubic(img, dsize):
+    """``Image.fromarray(img).resize(dsize, BICUBIC)`` for uint8 images."""
+    w, h = dsize
+    out = img
+    if w != img.shape[1]:
+        out = _pil_pass(out, w, 1)
+    if h != img.shape[0]:
+        out = _pil_pass(out, h, 0)
+    return out if out is not img else img.copy()
+
+
+def pad(img, size):
+    """``ImageOps.pad(Image.fromarray(img), size, color="black")`` as an
+    array: fit inside ``size = (width, height)`` keeping the aspect ratio,
+    then centre on black.  ValueError for an empty image or an empty fit,
+    as PIL."""
+    h, w = img.shape[:2]
+    if h == 0 or w == 0:
+        raise ValueError("cannot pad an empty image")
+    tw, th = size
+    fit = (tw, th)
+    if w / h != tw / th:
+        if w / h > tw / th:
+            nh = round(h / w * tw)
+            fit = (tw, nh) if nh != th else fit
+        else:
+            nw = round(w / h * th)
+            fit = (nw, th) if nw != tw else fit
+    if min(fit) <= 0:
+        raise ValueError("height and width must be > 0")
+    resized = resize_bicubic(img, fit) if fit != (w, h) else img.copy()
+    if fit == (tw, th):
+        return resized
+    out = np.zeros((th, tw) + img.shape[2:], img.dtype)
+    if fit[0] != tw:
+        x = round((tw - fit[0]) * 0.5)
+        out[:, x:x + fit[0]] = resized
+    else:
+        y = round((th - fit[1]) * 0.5)
+        out[y:y + fit[1]] = resized
+    return out

@@ -114,13 +114,19 @@ def extract_crops(frame, boxes, out_size, padding):
 
 class Cv2Capture:
     """Frames of a video file through ``cv2.VideoCapture``: ``seek(index)``,
-    ``read() -> (ok, BGR frame)``, ``release()``."""
+    ``read() -> (ok, BGR frame)``, ``release()``, and the stream's ``fps``,
+    ``width``, ``height`` and ``frame_count`` (not positive when the file
+    does not open)."""
 
     def __init__(self, path):
         import cv2
 
         self._cv2 = cv2
         self._cap = cv2.VideoCapture(path)
+        self.fps = self._cap.get(cv2.CAP_PROP_FPS)
+        self.width = int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        self.frame_count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
 
     def seek(self, index):
         self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, index)

@@ -9,8 +9,9 @@ ResNet-18, 2048 for ResNet-50).  The Bottleneck block puts its stride on
 the 3x3 conv.  Activations are NCHW inside the network.
 
 At inference on a CUDA tensor, ResNet-18's ``layer4[1]`` (the identity
-block of the last stage, 4x4x512 at 128-px input) runs as the fused CUDA
-kernel of ``ops/conv_block.py`` with batch norm folded from its running
+block of the last stage: 4x4x512 at the action model's 128-px crops,
+8x14x512 in the detector's trunk at 256x448) runs as the fused CUDA kernel
+of ``ops/conv_block.py`` with batch norm folded from its running
 statistics, whatever ``num_classes`` is.  The block packs its weights and
 folded batch norm for the kernel once and keeps the pack until a tensor
 it was built from changes.  In training mode, or on the CPU, every block
@@ -129,11 +130,14 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet v1: NCHW float input -> ``[N, num_classes]`` float32, or the
-    pooled features when ``num_classes=0``.  In a BasicBlock network the
-    last block of the last stage is the fused kernel's identity block."""
+    pooled features when ``num_classes=0``, or with ``return_feature_map``
+    the stride-32 map ``[N, C, H/32, W/32]`` before the pool (the
+    detector's trunk).  In a BasicBlock network the last block of the last
+    stage is the fused kernel's identity block."""
 
-    def __init__(self, block, stage_sizes, num_classes=1000):
+    def __init__(self, block, stage_sizes, num_classes=1000, return_feature_map=False):
         super().__init__()
+        self.return_feature_map = return_feature_map
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
         self.maxpool = nn.MaxPool2d(3, 2, padding=1)
@@ -156,6 +160,8 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        if self.return_feature_map:
+            return x
         x = x.mean(dim=(2, 3))
         if self.fc is not None:
             x = self.fc(x)
@@ -163,8 +169,8 @@ class ResNet(nn.Module):
 
 
 class ResNet18(ResNet):
-    def __init__(self, num_classes=1000):
-        super().__init__(BasicBlock, (2, 2, 2, 2), num_classes)
+    def __init__(self, num_classes=1000, return_feature_map=False):
+        super().__init__(BasicBlock, (2, 2, 2, 2), num_classes, return_feature_map)
 
 
 class ResNet50(ResNet):

@@ -33,6 +33,7 @@ from playaid_core_torch.models.lightning_ckpt import (  # noqa: E402
 )
 from playaid_core_torch.ontology import CLASS_ID_TO_MOVE  # noqa: E402
 from tests.synthlog import scripted_match, write_log  # noqa: E402
+from tests.test_torch_port_log import private_jax_native  # noqa: E402,F401 (autouse)
 from tests.test_torch_parity import TorchResNet18, _randomize_bn_stats  # noqa: E402
 from tests.test_torch_parity_resformer import TorchResFormer  # noqa: E402
 from tests.test_torch_port_vod import HEIGHT, NUM_FRAMES, WIDTH, _disc_frames  # noqa: E402

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
-its card-path modules import no cv2, PIL, yaml or click (the card's
-machine has none of them), and chip_smoke.py refuses to run without a
-CUDA device.
+its card-path modules (the log-driven VOD path and the pixels-only path)
+import no cv2, PIL, yaml or click (the card's machine has none of them),
+and chip_smoke.py refuses to run without a CUDA device.
 
 The import check runs in a subprocess, because tests/conftest.py imports
 jax into the test process.
@@ -44,6 +44,33 @@ from playaid_core_torch.infer.vod_pipeline import boxes_from_log, main
 print("ok")
 """
 
+# Modules the pixels-only path (AIRunner, the detector, OCR) imports on the card.
+PIXELS_PATH = ("imgproc", "imgcodec", "geometry", "models.detector", "train.detector_train",
+               "video.reader", "infer.detection", "infer.ocr", "infer.ocr_conv",
+               "infer.ai_output", "infer.runner")
+
+_IMPORT_PIXELS_PATH = f"""
+import importlib, os, sys, tempfile
+for name in {BANNED + HOST_ONLY!r}:
+    sys.modules[name] = None
+for name in {PIXELS_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch import imgcodec
+from playaid_core_torch.infer import ai_output
+from playaid_core_torch.infer.runner import AIRunner, main
+tree = {{"Joker": {{0: {{"action": "Wait", "damage": 12.5}}}}}}
+path = os.path.join(tempfile.mkdtemp(), "ai_output.yaml")
+ai_output.write(path, tree)
+assert ai_output.read(path) == tree  # no yaml: the emitter's own reader
+try:
+    imgcodec.read_crop(path[:-4] + "jpg")
+except ImportError as e:
+    assert "cv2" in str(e)
+else:
+    raise AssertionError("a jpg crop was read without cv2")
+print("ok")
+"""
+
 
 def _env():
     env = dict(os.environ)
@@ -61,12 +88,21 @@ def test_port_imports_with_jax_blocked():
                  "models.resnet_transformer", "models.rnn_action_detector", "ops._build",
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
-                 "models.torch_convert", *CARD_PATH):
+                 "models.torch_convert", *CARD_PATH, *PIXELS_PATH):
         assert f"playaid_core_torch.{name}" in imported
 
 
 def test_card_path_imports_with_cv2_pil_yaml_click_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_CARD_PATH], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_pixels_path_imports_with_cv2_pil_yaml_click_blocked():
+    """The pixels-only path on a machine without cv2, PIL, yaml or click:
+    it imports, writes and reads ai_output.yaml, and names cv2 when asked
+    for a jpg crop."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_PIXELS_PATH], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 

@@ -11,8 +11,10 @@ import os
 import numpy as np
 import pytest
 
+from playaid_core_tpu import native as jax_native
 from playaid_core_tpu import timeline as jax_timeline
 from playaid_core_tpu.infer.vod_pipeline import boxes_from_log as jax_boxes_from_log
+from playaid_core_tpu.video import native_decoder as jax_native_decoder
 from playaid_core_torch import native, timeline
 from playaid_core_torch.infer.vod_pipeline import boxes_from_log
 from playaid_core_torch.video import _native
@@ -21,6 +23,32 @@ from tests.synthlog import scripted_match, write_log
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_FRAMES = 120
 TOL = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_native(tmp_path_factory):
+    """The JAX package's native libraries (its log parser and decoder),
+    built for this process alone.
+
+    That package links each library straight onto its final path in a
+    directory that every process shares (``/tmp/playaid_native`` by
+    default), and the test files that call it run in parallel processes.
+    When two of them find no library at once, both link it.  A process
+    that loads the file while another link is writing it reports the
+    library unavailable for the rest of its life; where the linker
+    rewrites an existing output in place, a process that has already
+    mapped the library may run code pages it had not touched yet from a
+    half-written file.  Here the package gets a private directory and a
+    fresh load at run time, before its first use in the module, so no
+    other process writes the libraries the module's tests call.  The port
+    test files that call the JAX libraries import this fixture.
+    """
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jax_native, jax_native_decoder):
+            mp.setattr(module, "_CACHE_DIR", str(tmp_path_factory.mktemp("jax_native")))
+            mp.setattr(module, "_lib", None)
+            mp.setattr(module, "_build_failed", False)
+        yield
 
 
 @pytest.fixture(scope="module")

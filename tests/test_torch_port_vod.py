@@ -27,6 +27,7 @@ from playaid_core_torch.infer.pipeline import BatchedActionPipeline
 from playaid_core_torch.infer.vod_pipeline import VodAnalyzer, analyze_many
 from playaid_core_torch.video import native_decoder
 from playaid_core_torch.video.native_encoder import NativeVideoWriter
+from tests.test_torch_port_log import private_jax_native  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -1,25 +1,43 @@
 #!/usr/bin/env python3
-"""How often torch.profiler's trace of the port's window route misses a
-host-to-device copy, and whether the trace shows why.
+"""Whether torch.profiler's trace keeps the device records of the port's
+host-to-device copies, and whether it shows when it has lost one.
 
 Run from the root of a checkout on a machine with a card:
-    python3 tools/torch_port_trace_audit.py [RUNS]
+    python3 tools/torch_port_trace_audit.py window [RUNS]
+    python3 tools/torch_port_trace_audit.py lead [REPEATS]
 
-Sets up chip_smoke.py's phase 8 (the scripted 480-frame log, its boxes,
-frames from the numpy capture, VodAnalyzer(host_resize=False), stride 1,
-chunk 48, the bench weights), then profiles RUNS argmax analyses (30 by
-default) and, for each, holds the trace's host-to-device copies against
-what the staging ring was handed, with chip_smoke.trace_copy_audit: copies
-of windows and of origins, cudaMemcpy calls traced on the host, calls with
-no copy on the device, the profiler's notes of dropped records.  Prints a
-line a run, a JSON summary and the card's name and power limit.
+window (the default; RUNS 30): sets up chip_smoke.py's phase 8 (the
+scripted 480-frame log, its boxes, frames from the numpy capture,
+VodAnalyzer(host_resize=False), stride 1, chunk 48, the bench weights),
+then profiles RUNS argmax analyses and, for each, holds the trace's
+host-to-device copies against what the staging ring was handed: copies of
+windows and of origins, cudaMemcpy calls traced on the host, calls with no
+copy on the device, the profiler's notes of dropped records.  Prints a line
+a run and a JSON summary; exits 1 if a trace came up short with no sign of
+a loss.
+
+lead (REPEATS 3): profiles four cases at the start of the process, then
+runs chip_smoke.py's phases 1-8 in this process (its phase 9 is replaced by
+the same four cases), so each case runs REPEATS times young and as often
+late:
+  copy        a lone 44,236,800 B pageable host-to-device copy;
+  copy+lead   the same copy in a chip_smoke.profiled session, which first
+              runs one small kernel to its end;
+  detect x3   three detector batches of 16 720p frames (seeded weights);
+  detect+lead the same three batches in a chip_smoke.profiled session.
+Prints a line a profile and a summary line a case and time (profiles that
+lost a record, of all).
+
+Both modes print the card's name and power limit last.
 """
 
 import json
 import os
 import sys
 import time
+from collections import Counter
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -31,17 +49,15 @@ from playaid_core_torch.convert import load_npz_tree  # noqa: E402
 from playaid_core_torch.infer import vod_pipeline  # noqa: E402
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline  # noqa: E402
 from playaid_core_torch.ops import _build  # noqa: E402
+from playaid_core_torch.train.detector_train import DetectorTrainer  # noqa: E402
+
+WORK = os.path.join(ROOT, "build", "smoke")
 
 
-def main():
-    runs = int(sys.argv[1]) if len(sys.argv) > 1 else 30
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 2
+def window(runs):
     _build.build()
-    work = os.path.join(ROOT, "build", "smoke")
-    os.makedirs(work, exist_ok=True)
-    log_path = os.path.join(work, "match_log.txt")
+    os.makedirs(WORK, exist_ok=True)
+    log_path = os.path.join(WORK, "match_log.txt")
     chip_smoke.write_match_log(log_path, chip_smoke.NUM_FRAMES)
     boxes = vod_pipeline.boxes_from_log(log_path, parser="python")
     vod_pipeline.BoundedSegmentDecoder.open_capture = staticmethod(
@@ -54,7 +70,7 @@ def main():
     num_chunks = (chip_smoke.NUM_FRAMES + chunk - 1) // chunk
     win_bytes, org_bytes = chunk * 2 * win * win * 3, chunk * 2 * 3 * 4
     to_device = vod_pipeline.PinnedStager.to_device
-    trace = os.path.join(work, "trace_audit.json")
+    trace = os.path.join(WORK, "trace_audit.json")
     short = []
     for run in range(runs):
         staged = []
@@ -78,19 +94,92 @@ def main():
         if run == 0:
             with open(trace) as f:
                 print(f"trace keys: {sorted(json.load(f))}")
-        line = (f"run {run}: {wall_ms:.1f} ms; window copies {wins}/{num_chunks}, origin copies "
-                f"{orgs}/{num_chunks}, staged {len(staged)}; cudaMemcpy calls traced "
-                f"{audit['calls']}, with no device copy {len(audit['lost'])}; notes "
-                f"{audit['notes'] or 'none'}; streams {sorted({s for _, s in audit['h2d']}, key=str)}"
-                f" (K1 on {sorted(audit['kernel_streams'], key=str)})")
-        print(line, flush=True)
+        print(f"run {run}: {wall_ms:.1f} ms; window copies {wins}/{num_chunks}, origin copies "
+              f"{orgs}/{num_chunks}, staged {len(staged)}; cudaMemcpy calls traced "
+              f"{audit['calls']}, with no device copy {len(audit['lost'])}; notes "
+              f"{audit['notes'] or 'none'}; streams {sorted({s for _, s in audit['h2d']}, key=str)}"
+              f" (K1 on {sorted(audit['kernel_streams'], key=str)})", flush=True)
         if wins != num_chunks or orgs != num_chunks:
             short.append({"run": run, "windows": wins, "origins": orgs,
                           "lost": len(audit["lost"]), "notes": audit["notes"]})
     print(json.dumps({"runs": runs, "short": short,
                       "short_with_a_sign": sum(1 for s in short if s["lost"] or s["notes"])}))
-    print(chip_smoke.nvidia_smi_line())
     return 1 if any(not (s["lost"] or s["notes"]) for s in short) else 0
+
+
+LOST = Counter()
+RUNS = Counter()
+
+
+def audit_copies(session, fn, tag, when):
+    path = os.path.join(WORK, f"lead_{when}_{tag.replace(' ', '_')}.json")
+    os.makedirs(WORK, exist_ok=True)
+    with session() as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    a = chip_smoke.trace_copy_audit(path, "conv3x3_wgmma")
+    big = [b for b, _ in a["h2d"] if b is not None and b >= 65536]
+    RUNS[when, tag] += 1
+    LOST[when, tag] += bool(a["lost"])
+    print(f"{when:5s} {tag:12s}: {a['calls']} cudaMemcpy calls, {len(a['lost'])} with no copy "
+          f"on the device; host-to-device copies of >= 64 KiB {big}", flush=True)
+
+
+def lead_cases(when, repeats):
+    dev = torch.device("cuda")
+    cap = chip_smoke.PixelsClipCapture()
+    rgb = np.ascontiguousarray(np.stack([cap.read()[1] for _ in range(16)])[..., ::-1])
+    trainer = DetectorTrainer(device=dev).init(0)
+    kw = dict(max_det=64, score_threshold=0.0, classes=(2, 3))
+    for _ in range(3):
+        trainer.detect(rgb, **kw)
+    host = torch.from_numpy(rgb)
+
+    def plain():
+        return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def led():
+        return chip_smoke.profiled(torch)
+
+    def three():
+        for _ in range(3):
+            trainer.detect(rgb, **kw)
+
+    for _ in range(repeats):
+        audit_copies(plain, lambda: host.to(dev), "copy", when)
+        audit_copies(led, lambda: host.to(dev), "copy+lead", when)
+        audit_copies(plain, three, "detect x3", when)
+        audit_copies(led, three, "detect+lead", when)
+
+
+def lead(repeats):
+    lead_cases("young", repeats)
+    chip_smoke.run_pixels_phase = lambda *args: lead_cases("late", repeats) or {}
+    try:
+        chip_smoke.main()
+    except SystemExit:
+        pass
+    for (when, tag), n in sorted(RUNS.items()):
+        print(f"summary {when:5s} {tag:12s}: {LOST[when, tag]} of {n} profiles lost a record")
+    return 0
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    mode = sys.argv[1] if len(sys.argv) > 1 else "window"
+    count = int(sys.argv[2]) if len(sys.argv) > 2 else None
+    if mode == "window":
+        rc = window(count or 30)
+    elif mode == "lead":
+        rc = lead(count or 3)
+    else:
+        print(f"unknown mode {mode!r}: window or lead", file=sys.stderr)
+        return 2
+    print(chip_smoke.nvidia_smi_line())
+    return rc
 
 
 if __name__ == "__main__":
