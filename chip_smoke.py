@@ -59,7 +59,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    run_damage_detection (the conv digit net on the card) -> write_output:
    K2 launches, weights on the card, host-to-device bytes of a detector
    batch, frames/s of each stage, card vs CPU detections, labels, readings
-   and digit logits.
+   and digit logits;
+10. training: a ground-truth tree of .npy crops (the disc clip's crops, 63
+   seeded classes) under build/smoke/ -> UltActionRecogDataset ->
+   Trainer.fit for CNN-63 at full width (batch 8, T 7, 128 px, lr 3e-4,
+   from the bench weights; 2 epochs of 16 steps, validation, checkpoints),
+   then the RNN and ResFormer families from seeded init (2 epochs of 8
+   steps): the JSONL records; K2 launches in train steps (0) and eval
+   steps (> 0 for CNN and RNN); (a) one CNN step on the card against the
+   CPU in float64: loss and every gradient; (b) after training, eval
+   log-probs with layer4[1] on K2 vs on residual_block_ref, and K2 vs its
+   plain version at 56x4x4x512, timed; (c) the epoch checkpoint through
+   BatchedActionPipeline.load_checkpoint on the card; (d) the loss on one
+   fixed batch falls over 20 steps; (e) under torch.profiler, in a fresh
+   process (python3 chip_smoke.py --profile train), each step of a
+   20-step epoch copies its uint8 batch (2,752,512 B), its labels and
+   fighter ids, and no weights, with the device's busy share and K2's
+   device time at 56x4x4x512; then per family the steady-state steps/s
+   and crops/s of an epoch of 50 steps (timed from its third step), and a
+   batch's assembly and a train step timed alone.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -148,20 +166,27 @@ def render_frames(indices, num_frames, out):
             frame[cy - r:cy + r + 1, cx - r:cx + r + 1][disc] = colour
 
 
-def yuv420_crop(frame, box, size, padding):
-    """One letterboxed square crop of a BGR frame as packed planar YUV420
-    (Y, then U, then V; BT.601 limited range), sampled at the nearest
-    pixel, with the native extractor's window: side = 2 * (max(w, h) // 2
-    + padding) around the integer centre.  Outside the frame is black."""
+def bgr_crop(frame, box, size, padding):
+    """One letterboxed square BGR uint8 crop of a frame, sampled at the
+    nearest pixel, with the native extractor's window: side = 2 * (max(w,
+    h) // 2 + padding) around the integer centre.  Outside the frame is
+    black."""
     h, w = frame.shape[:2]
     half = int(max(int(box[2] * w), int(box[3] * h)) / 2)
     side = 2 * (half + padding)
     pos = ((np.arange(size) + 0.5) * side / size).astype(np.int64)
     ys = int(box[1] * h) - half - padding + pos
     xs = int(box[0] * w) - half - padding + pos
-    bgr = frame[np.clip(ys, 0, h - 1)][:, np.clip(xs, 0, w - 1)].astype(np.float32)
+    crop = frame[np.clip(ys, 0, h - 1)][:, np.clip(xs, 0, w - 1)]
     inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
-    bgr[~inside] = 0.0
+    crop[~inside] = 0
+    return crop
+
+
+def yuv420_crop(frame, box, size, padding):
+    """:func:`bgr_crop` as packed planar YUV420 (Y, then U, then V; BT.601
+    limited range)."""
+    bgr = bgr_crop(frame, box, size, padding).astype(np.float32)
     b, g, r = bgr[..., 0], bgr[..., 1], bgr[..., 2]
     y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
     u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
@@ -440,6 +465,15 @@ class LogClipCapture:
 
     def release(self):
         pass
+
+
+def keep_input(seen):
+    """A forward hook that keeps the module's first input of its first call
+    in seen["x"].  It returns None: a hook's return value would replace the
+    module's output."""
+    def hook(module, inp, out):
+        seen.setdefault("x", inp[0])
+    return hook
 
 
 def k2_ref_args(block, x_nchw):
@@ -967,7 +1001,7 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     # K2 at the detector's shape: layer4[1]'s input from this batch.
     block = trainer.model.trunk.layer4[1]
     seen = {}
-    hook = block.register_forward_hook(lambda m, inp, out: seen.setdefault("x", inp[0]))
+    hook = block.register_forward_hook(keep_input(seen))
     trainer.detect(rgb, max_det=PIX_MAX_DET, score_threshold=threshold, classes=(2, 3))
     hook.remove()
     with torch.inference_mode(), full_float32():
@@ -1031,26 +1065,16 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
           f"classes identical {same_cls}; their boxes and each class's best box max abs err "
           f"{box_err:.3e} (tol {BOX_TOL})")
 
-    # Host-to-device bytes of one detect() batch: the frames, no weights.  As
-    # in phase 8, a trace short of a copy is profiled once more only when it
-    # shows that it lost the record; a short trace without that sign fails.
-    trace = os.path.join(work, "detect_trace.json")
-    for attempt in (1, 2):
-        with profiled(torch) as prof:
-            trainer.detect(rgb, max_det=PIX_MAX_DET, score_threshold=threshold, classes=(2, 3))
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(trace)
-        audit = trace_copy_audit(trace, "conv3x3_wgmma")
-        h2d = [b for b, _ in audit["h2d"]]
-        big = [b for b in h2d if b is not None and b >= 65536]
-        log(f"phase 9: profiled detect() {attempt}: {len(h2d)} host-to-device copies in the "
-            f"trace ({h2d.count(None)} without a size, {len(big)} of >= 64 KiB: {big}); "
-            f"{audit['calls']} cudaMemcpy calls traced on the host, {len(audit['lost'])} of them "
-            f"with no copy on the device; profiler notes of dropped records: "
-            f"{audit['notes'] or 'none'}")
-        if big == [rgb.nbytes] or not (audit["lost"] or audit["notes"]):
-            break
+    # Host-to-device bytes of one detect() batch: the frames, no weights,
+    # profiled in a fresh process (profile_in_fresh_process).
+    audit = profile_in_fresh_process("detect")
+    h2d = audit["h2d"]
+    big = [b for b in h2d if b is not None and b >= 65536]
     rest = sum(b for b in h2d if b is not None and b < 65536)
+    log(f"phase 9: detect() profiled in a fresh process: {len(h2d)} host-to-device copies in "
+        f"the trace ({h2d.count(None)} without a size); {audit['calls']} cudaMemcpy calls "
+        f"traced on the host, {audit['lost']} with no copy on the device; profiler notes of "
+        f"dropped records: {audit['notes'] or 'none'}")
     check(big == [rgb.nbytes] and None not in h2d and rest < 65536,
           f"phase 9: host-to-device copies of one detect() batch under torch.profiler: "
           f"{len(big)} of >= 64 KiB = {big} B (the frames: {rgb.nbytes} B), the rest {rest} B "
@@ -1159,6 +1183,473 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
             "embed_shapes": [list(s) for s in embed_shapes], "embed_rel_err": embed_err}
 
 
+# Phase 10: training on the card.  A ground-truth tree of .npy crops (the
+# disc clip's BGR crops around the fighters' boxes) with seeded labels over
+# the 63 classes, in runs of TRAIN_RUN frames.
+TRAIN_FRAMES = {"train": 96, "validation": 48}
+TRAIN_RUN = 8
+TRAIN_BATCH, TRAIN_T = 8, 7
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 16
+FAMILY_EPOCHS, FAMILY_STEPS = 2, 8
+LEARN_STEPS = 20
+TRAIN_LR = 3e-4
+GRAD_REL_TOL = 1e-4       # card vs float64 gradients, of max|g| per tensor
+LOSS_REL_TOL = 1e-5       # card vs float64 loss, relative
+CKPT_LOG_PROB_TOL = 1e-5  # the checkpoint through the pipeline vs the trainer's model
+
+
+TRAIN_ROOT = os.path.join(ROOT, "build", "smoke", "train_gt")
+WIRE_STEPS = 20           # train steps of the profiled epoch
+STEADY_STEPS = 50         # steps of the epoch that gives the steady-state rate
+HOST_BATCHES = 8          # batches assembled, and steps run, alone to split a fit step
+
+
+def train_actions():
+    from playaid_core_torch.ontology import MOVE_TO_CLASS_ID
+
+    return list(MOVE_TO_CLASS_ID)
+
+
+def train_dataset(split, seed=0):
+    """Phase 10's dataset over the tree at TRAIN_ROOT: T 7, frame deltas
+    1-3, both fighters, no augmentation."""
+    from playaid_core_torch.train.dataset import UltActionRecogDataset
+
+    return UltActionRecogDataset(
+        split=split, num_samples=TRAIN_BATCH * TRAIN_STEPS, img_dimension=CROP,
+        anim_subset=train_actions(), num_frames_per_sample=[TRAIN_T], frame_delta=[1, 2, 3],
+        char_subset=["Byleth", "Pikachu"], num_preceding_actions=0, crop_size=CROP, seed=seed,
+        gt_root_train=os.path.join(TRAIN_ROOT, "train"),
+        gt_root_val=os.path.join(TRAIN_ROOT, "validation"),
+        gt_root_test=os.path.join(TRAIN_ROOT, "validation"))
+
+
+def train_config(family, **kw):
+    from playaid_core_torch.train.train import TrainerConfig
+
+    return TrainerConfig(family=family, num_actions=len(train_actions()),
+                         sequence_length=TRAIN_T, batch_size=TRAIN_BATCH,
+                         learning_rate=TRAIN_LR, crop_size=CROP, warmup_steps=0, **kw)
+
+
+def load_bench(model, bench):
+    model.embed.load_state_dict(bench["embed"])
+    model.head.load_state_dict(bench["head"])
+
+
+def profile_h2d(torch, run, trace):
+    """Profile run() and its device work (through profiled); the trace's
+    host-to-device copies, the cudaMemcpy calls traced on the host and how
+    many of them have no copy on the device, notes of dropped records, and
+    the device's busy time against the wall."""
+    with profiled(torch) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(trace)
+    audit = trace_copy_audit(trace, "conv3x3_wgmma")
+    return {"h2d": [b for b, _ in audit["h2d"]], "calls": audit["calls"],
+            "lost": len(audit["lost"]), "notes": audit["notes"],
+            "busy_us": busy_us(trace_device_events(trace)), "wall_us": wall_us}
+
+
+def profile_main(kind):
+    """python3 chip_smoke.py --profile detect|train: profile one detect()
+    batch of phase 9, or an epoch of WIRE_STEPS train steps of phase 10
+    (CNN-63 from the bench weights on the tree at TRAIN_ROOT), after one
+    unprofiled run, in this fresh process; print profile_h2d's result as
+    JSON, for train with K2's device time at the eval shape of the
+    training path (k2_device_ms, k2_records_per_call).  Late in this
+    script's long process the profiler lost the device records of large
+    copies and kernels even after a leading kernel (phases 9 and 10,
+    PERF.md); early in a process it had lost none
+    (tools/torch_port_trace_audit.py lead)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    dev = torch.device("cuda", 0)
+    work = os.path.join(ROOT, "build", "smoke")
+    if kind == "detect":
+        from playaid_core_torch.train.detector_train import DetectorTrainer
+
+        trainer = DetectorTrainer(device=dev).init(0)
+        with torch.no_grad():
+            trainer.model.heads["size"][2].bias.fill_(PIX_SEED_BOX_CELLS)
+        cap = PixelsClipCapture()
+        rgb = np.ascontiguousarray(np.stack([cap.read()[1] for _ in range(PIX_BATCH)])[..., ::-1])
+
+        def run():
+            trainer.detect(rgb, max_det=PIX_MAX_DET, score_threshold=0.0, classes=(2, 3))
+    elif kind == "train":
+        from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+        from playaid_core_torch.train.train import Trainer
+
+        trainer = Trainer(train_config("cnn"), train_dataset("train"))
+        trainer.init_state(0)
+        load_bench(trainer.model, from_jax_cnn(load_npz_tree(ASSET)))
+
+        def run():
+            trainer.fit(num_epochs=1, steps_per_epoch=WIRE_STEPS)
+    else:
+        raise ValueError(f"--profile takes detect or train, not {kind!r}")
+    run()
+    result = profile_h2d(torch, run, os.path.join(work, f"{kind}_trace.json"))
+    if kind == "train":
+        from playaid_core_torch.ops.conv_block import residual_block_packed
+
+        frames, _, _ = next(train_dataset("train", seed=1).batches(TRAIN_BATCH, 1))
+        model = trainer.model.eval()
+        block = model.embed.layer4[1]
+        seen = {}
+        hook = block.register_forward_hook(keep_input(seen))
+        with torch.no_grad():
+            model(torch.from_numpy(frames).to(dev).float() / 255.0)
+        hook.remove()
+        with torch.inference_mode():
+            x_nhwc = k2_ref_args(block, seen["x"])[0]
+            pack = block.block_pack(torch.float32)
+            ms, traced = device_ms(torch, lambda _: residual_block_packed(x_nhwc, pack), 40,
+                                   "conv3x3_wgmma_kernel", 2)
+        result.update({"k2_device_ms": ms, "k2_records_per_call": traced,
+                       "k2_shape": list(x_nhwc.shape)})
+    print(json.dumps(result))
+    return 0
+
+
+def profile_in_fresh_process(kind):
+    """profile_main(kind) in a child process, waited for; its result."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile", kind],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--profile {kind} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def write_train_tree(root, actions):
+    """<root>/<split>/disc_clip/{0_byleth,1_pikachu}/{images,labels}: .npy
+    BGR crops of 128 px cut from the disc clip around each fighter's box,
+    and one label file a crop."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(FAMILY_SEED)
+    frame = np.empty((1, HEIGHT, WIDTH, 3), np.uint8)
+    for split, n in TRAIN_FRAMES.items():
+        boxes = fighter_boxes(n)
+        labels = rng.integers(0, len(actions), (2, (n + TRAIN_RUN - 1) // TRAIN_RUN))
+        dirs = []
+        for k, name in enumerate(("0_byleth", "1_pikachu")):
+            base = os.path.join(root, split, "disc_clip", name)
+            for sub in ("images", "labels"):
+                os.makedirs(os.path.join(base, sub))
+            dirs.append(base)
+        for i in range(n):
+            render_frames([i], n, frame)
+            for k, base in enumerate(dirs):
+                np.save(os.path.join(base, "images", f"{i:06d}.npy"),
+                        bgr_crop(frame[0], boxes[i, k], CROP, PADDING))
+                with open(os.path.join(base, "labels", f"{i:06d}.txt"), "w") as f:
+                    f.write(actions[labels[k, i // TRAIN_RUN]])
+
+
+def run_train_phase(torch, dev, check, card, k2_wrapper):
+    """Phase 10: Trainer.fit on the card for the three families at full
+    width.  Returns K2's numbers at the training path's eval shape."""
+    import torch.nn.functional as F
+
+    from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.profiling import StageTimer
+    from playaid_core_torch.train.train import (
+        Trainer,
+        build_model,
+        create_train_state,
+        make_train_step,
+    )
+
+    work = os.path.join(ROOT, "build", "smoke")
+    actions = train_actions()
+    t0 = time.perf_counter()
+    write_train_tree(TRAIN_ROOT, actions)
+    log(f"phase 10: ground-truth tree of .npy crops ({sum(TRAIN_FRAMES.values()) * 2} crops of "
+        f"{CROP} px, labels over {len(actions)} classes) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    bench = from_jax_cnn(load_npz_tree(ASSET))
+    batch_u8, _, labels = next(train_dataset("train", seed=1).batches(TRAIN_BATCH, 1))
+    check(batch_u8.dtype == np.uint8 and batch_u8.nbytes == TRAIN_BATCH * TRAIN_T * CROP * CROP * 3,
+          f"phase 10: a batch is {batch_u8.shape} uint8, {batch_u8.nbytes} B")
+
+    # (a) One CNN step from the bench weights on one batch, on the card
+    # against the CPU in float64, each gradient within GRAD_REL_TOL of its
+    # max|g|.  The CPU in float32 is no reference: the step is
+    # ill-conditioned there (PERF.md).
+    runs = {}
+    for key, where, dtype in (("card", dev, torch.float32),
+                              ("float64", torch.device("cpu"), torch.float64)):
+        model, loss_fn = build_model("cnn", len(actions), TRAIN_T)
+        load_bench(model, bench)
+        model.to(where, dtype)
+        x_in = torch.from_numpy(batch_u8).to(where)
+        if dtype == torch.float64:
+            x_in = x_in.to(dtype) / 255.0
+        state = create_train_state(model, TRAIN_LR, warmup_steps=0)
+        out = make_train_step(model, loss_fn)(state, x_in, torch.from_numpy(labels).to(where))
+        runs[key] = (float(out[0]), {n: p.grad.detach().cpu().double()
+                                     for n, p in model.named_parameters()})
+    ref_loss, ref_grads = runs["float64"]
+
+    def grad_errs(key):
+        return {n: float((runs[key][1][n] - g).abs().max() / g.abs().max())
+                for n, g in ref_grads.items() if g.abs().max() > 0}
+
+    card_err = grad_errs("card")
+    over = [n for n, e in card_err.items() if e > GRAD_REL_TOL]
+    worst = max(card_err, key=card_err.get)
+    loss_rel = abs(runs["card"][0] - ref_loss) / abs(ref_loss)
+    check(loss_rel <= LOSS_REL_TOL and not over,
+          f"phase 10: one CNN-63 step from the bench weights, card vs the CPU in float64: loss "
+          f"{runs['card'][0]:.6f} vs {ref_loss:.6f}, rel err {loss_rel:.3e} (tol {LOSS_REL_TOL}); "
+          f"gradients max err / max|g| worst {card_err[worst]:.3e} on {worst}, median "
+          f"{np.median(list(card_err.values())):.3e}; the card's tensors over {GRAD_REL_TOL}: {over} of {len(card_err)}")
+
+    def count_k2(trainer):
+        launches = {"train": 0, "eval": 0}
+
+        def counted(fn, key):
+            def run(*args):
+                before = k2_wrapper.launches
+                out = fn(*args)
+                launches[key] += k2_wrapper.launches - before
+                return out
+            return run
+
+        trainer.train_step = counted(trainer.train_step, "train")
+        trainer.eval_step = counted(trainer.eval_step, "eval")
+        return launches
+
+    results, trainers = {}, {}
+
+    def fit(family, epochs, steps, init, ckpt=None):
+        log_path = os.path.join(work, f"train_{family}.jsonl")
+        if os.path.exists(log_path):
+            os.remove(log_path)
+        config = train_config(family, checkpoint_dir=ckpt, log_path=log_path)
+        trainer = Trainer(config, train_dataset("train"), train_dataset("validation"))
+        init(trainer)
+        params = list(trainer.model.parameters())
+        launches = count_k2(trainer)
+        k2_wrapper.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit(num_epochs=epochs, steps_per_epoch=steps)
+        fit_s = time.perf_counter() - t0
+        fit_launches = k2_wrapper.launches
+        last = trainer.metrics_log[-1]
+        results[family] = {"last_epoch_steps_per_sec": last["steps_per_sec"],
+                           "last_epoch_crops_per_sec": last["crops_per_sec"], "fit_s": fit_s,
+                           "k2_train": launches["train"], "k2_eval": launches["eval"]}
+        for rec in trainer.metrics_log:
+            log(f"phase 10: {family} JSONL {json.dumps(rec)}")
+        finite = all(np.isfinite(rec[k]) for rec in trainer.metrics_log
+                     for k in ("train_loss", "val_loss", "grad_norm", "param_norm"))
+        check(finite and all(p.device.type == "cuda" for p in params)
+              and trainer.state.step == epochs * steps and launches["train"] == 0
+              and (launches["eval"] > 0) == (family != "resformer")
+              and fit_launches == launches["train"] + launches["eval"],
+              f"phase 10: {family}: Trainer.fit {epochs} epochs x {steps} steps (batch "
+              f"{TRAIN_BATCH}, T {TRAIN_T}, {CROP} px) in {fit_s:.2f} s; last epoch "
+              f"{last['steps_per_sec']} steps/s = {last['crops_per_sec']} crops/s; K2 launches "
+              f"in the fit {fit_launches}: in train steps {launches['train']} (must be 0), in "
+              f"eval steps {launches['eval']} "
+              f"({'none: ResNet-50' if family == 'resformer' else 'must be > 0'})"
+              f"; losses finite; {card}")
+        trainers[family] = trainer
+        return trainer
+
+    def steady_rate(family):
+        """Trainer.fit's steady-state rate: an epoch of STEADY_STEPS steps
+        without validation, timed from the call of its third step (by then
+        the producer's queue and the two staged copies are full) to the end
+        of its last step on the card."""
+        trainer = trainers[family]
+        step, val, calls = trainer.train_step, trainer.val_dataset, []
+
+        def timed(*args):
+            calls.append(time.perf_counter())
+            out = step(*args)
+            if len(calls) == STEADY_STEPS:
+                torch.cuda.synchronize()
+                calls.append(time.perf_counter())
+            return out
+
+        trainer.train_step, trainer.val_dataset = timed, None
+        try:
+            trainer.fit(num_epochs=1, steps_per_epoch=STEADY_STEPS)
+        finally:
+            trainer.train_step, trainer.val_dataset = step, val
+        rate = (STEADY_STEPS - 2) / (calls[-1] - calls[2])
+        results[family].update({"steps_per_sec": rate,
+                                "crops_per_sec": rate * TRAIN_BATCH * TRAIN_T})
+        log(f"phase 10: {family}: steady state over steps 3-{STEADY_STEPS} of an epoch of "
+            f"{STEADY_STEPS}: {rate:.3f} steps/s = {rate * TRAIN_BATCH * TRAIN_T:.1f} crops/s "
+            f"(the epoch's JSONL record: {trainer.metrics_log[-1]['steps_per_sec']} steps/s, "
+            f"the fill included); {card}")
+
+    def split_step(family):
+        """Where a fit step's time goes: the producer's batch assembly alone
+        (the dataset, on the host) and the train step alone on a batch
+        already on the card (dispatch and device), each a mean over
+        HOST_BATCHES, beside the steady-state rate."""
+        trainer = trainers[family]
+        timer = StageTimer()
+        wire = train_dataset("train", seed=2).batches(TRAIN_BATCH, HOST_BATCHES)
+        for _ in range(HOST_BATCHES):
+            with timer.stage("assemble"):
+                next(wire)
+        on_card = (torch.from_numpy(batch_u8).to(dev), torch.from_numpy(labels).to(dev))
+        trainer.train_step(trainer.state, *on_card)
+        torch.cuda.synchronize()
+        with timer.stage("steps"):
+            for _ in range(HOST_BATCHES):
+                trainer.train_step(trainer.state, *on_card)
+            torch.cuda.synchronize()
+        assemble_ms = 1e3 * timer.totals["assemble"] / HOST_BATCHES
+        step_ms = 1e3 * timer.totals["steps"] / HOST_BATCHES
+        fit_ms = 1e3 / results[family]["steps_per_sec"]
+        results[family].update({"assemble_ms": assemble_ms, "step_ms": step_ms})
+        log(f"phase 10: {family}: a batch assembled alone on the host {assemble_ms:.2f} ms, a "
+            f"train step alone on a batch on the card {step_ms:.2f} ms (means of {HOST_BATCHES}), "
+            f"the steady state {fit_ms:.2f} ms a step; {card}")
+
+    def from_bench(trainer):
+        trainer.init_state(0)
+        load_bench(trainer.model, bench)
+
+    ckpt_dir = os.path.join(work, "train_ckpt")
+    trainer = fit("cnn", TRAIN_EPOCHS, TRAIN_STEPS, from_bench, ckpt=ckpt_dir)
+
+    # (b) K2 after training: eval log-probs through K2 against the same
+    # model with layer4[1] on the plain version; K2 against its plain
+    # version on that block's own input (56 x 4 x 4 x 512).
+    model = trainer.model.eval()
+    block = model.embed.layer4[1]
+    x = torch.from_numpy(batch_u8).to(dev).float() / 255.0
+    seen = {}
+    hook = block.register_forward_hook(keep_input(seen))
+    with torch.no_grad():
+        before = k2_wrapper.launches
+        lp_k2 = model(x)
+        k2_in_eval = k2_wrapper.launches - before
+        hook.remove()
+        block.forward = lambda t: residual_block_ref(*k2_ref_args(block, t)).permute(0, 3, 1, 2)
+        lp_ref = model(x)
+        del block.forward  # the class's forward again
+    lp_err = float((lp_k2 - lp_ref).abs().max())
+    check(k2_in_eval == 1 and lp_err <= LOG_PROB_TOL,
+          f"phase 10: after training, eval log-probs {tuple(lp_k2.shape)} with layer4[1] on K2 "
+          f"({k2_in_eval} launch) vs on residual_block_ref: max abs err {lp_err:.3e} "
+          f"(tol {LOG_PROB_TOL})")
+    with torch.inference_mode(), full_float32():
+        k2_args = k2_ref_args(block, seen["x"])
+        x_nhwc = k2_args[0]
+        pack = block.block_pack(torch.float32)
+        k2_out = residual_block_packed(x_nhwc, pack)
+        k2_ref = residual_block_ref(*k2_args)
+    k2_err = float((k2_out - k2_ref).abs().max())
+    k2_scale = float(k2_ref.abs().max())
+    check(tuple(x_nhwc.shape) == (TRAIN_BATCH * TRAIN_T, 4, 4, 512)
+          and k2_err <= K2_F32_REL_TOL * k2_scale,
+          f"phase 10: K2 residual_block f32 at the trained layer4[1] {tuple(x_nhwc.shape)}: max "
+          f"abs err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {k2_scale:.3f})")
+    x_nchw = seen["x"].contiguous()
+    bn = (block.bn1, block.bn2)
+
+    def cudnn_chain(_):
+        y = F.conv2d(x_nchw, block.conv1.weight, padding=1)
+        y = torch.relu(F.batch_norm(y, bn[0].running_mean, bn[0].running_var, bn[0].weight,
+                                    bn[0].bias, False, 0.0, bn[0].eps))
+        y = F.conv2d(y, block.conv2.weight, padding=1)
+        y = F.batch_norm(y, bn[1].running_mean, bn[1].running_var, bn[1].weight, bn[1].bias,
+                         False, 0.0, bn[1].eps)
+        return torch.relu(y + x_nchw)
+
+    with torch.inference_mode():
+        k2_ms = time_cuda(torch, lambda _: residual_block_packed(x_nhwc, pack), 40)
+        k2_plain_ms = time_cuda(torch, lambda _: residual_block_ref(*k2_args), 20)
+        with full_float32():
+            k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
+    m, c = x_nhwc.shape[0] * 16, 512
+    k2_flops = 2 * 2 * m * c * 9 * c
+    k2_bytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
+    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
+    log(f"phase 10: K2 f32 at {tuple(x_nhwc.shape)}: call {k2_ms:.4f} ms, plain "
+        f"{k2_plain_ms:.4f} ms, cuDNN chain {k2_lib_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
+        f"(3 x {k2_flops / 1e9:.2f} GFLOP TF32); {card}")
+
+    # (c) The last epoch's checkpoint through BatchedActionPipeline.load_checkpoint.
+    path = os.path.join(ckpt_dir, f"step_{TRAIN_EPOCHS - 1}.pt")
+    pipe = BatchedActionPipeline(device=dev).load_checkpoint(path)
+    with torch.inference_mode():
+        emb = pipe.embed_crops(x.reshape(-1, CROP, CROP, 3)).reshape(TRAIN_BATCH, TRAIN_T, -1)
+        lp_pipe = pipe.head(emb)
+    ckpt_err = float((lp_pipe - lp_k2).abs().max())
+    check(ckpt_err <= CKPT_LOG_PROB_TOL,
+          f"phase 10: {os.path.relpath(path, ROOT)} through BatchedActionPipeline.load_checkpoint "
+          f"on the card: log-probs vs the trainer's model max abs err {ckpt_err:.3e} "
+          f"(tol {CKPT_LOG_PROB_TOL})")
+
+    # (e) The wire format: an epoch of WIRE_STEPS steps, profiled in a fresh
+    # process (profile_in_fresh_process), copies each step's uint8 batch, its
+    # labels and fighter ids, and no weights.  K2's device time at the same
+    # shape is taken there too.
+    audit = profile_in_fresh_process("train")
+    k2_dev_ms = audit["k2_device_ms"]
+    log(f"phase 10: K2 f32 at {tuple(audit['k2_shape'])} in the fresh process: device "
+        f"{'not measured' if k2_dev_ms is None else f'{k2_dev_ms:.4f} ms'} "
+        f"({audit['k2_records_per_call']:g} of 2 kernel records a call traced); {card}")
+    h2d = audit["h2d"]
+    big = [b for b in h2d if b is not None and b >= 65536]
+    small = [b for b in h2d if b is not None and b < 65536]
+    per_step_small = TRAIN_BATCH * TRAIN_T * 4 + TRAIN_BATCH * 4  # labels, fighter ids
+    busy_share = audit["busy_us"] / audit["wall_us"]
+    log(f"phase 10: an epoch of {WIRE_STEPS} train steps profiled in a fresh process: "
+        f"{len(h2d)} host-to-device copies in the trace ({h2d.count(None)} without a size); "
+        f"{audit['calls']} cudaMemcpy calls traced on the host, {audit['lost']} with no copy on "
+        f"the device; profiler notes of dropped records: {audit['notes'] or 'none'}")
+    check(big == [batch_u8.nbytes] * WIRE_STEPS and None not in h2d
+          and sum(small) == WIRE_STEPS * per_step_small,
+          f"phase 10: host-to-device copies of {WIRE_STEPS} profiled train steps: {big} B (the "
+          f"uint8 batches, {batch_u8.nbytes} B each) and {sum(small)} B in {len(small)} small "
+          f"copies (labels and fighter ids, {per_step_small} B a step); no weights; device busy "
+          f"{audit['busy_us'] / 1e3:.1f} ms of {audit['wall_us'] / 1e3:.1f} ms wall = "
+          f"{busy_share:.3f}")
+    results["cnn"]["busy_share"] = busy_share
+
+    # (d) Learning: 20 steps on one fixed batch.
+    fixed = (torch.from_numpy(batch_u8).to(dev), torch.from_numpy(labels).to(dev))
+    losses = [float(trainer.train_step(trainer.state, *fixed)[0]) for _ in range(LEARN_STEPS)]
+    check(losses[-1] < losses[0],
+          f"phase 10: loss on one fixed batch over {LEARN_STEPS} steps: {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+
+    # The RNN and the ResFormer at full width from seeded init.
+    for family in ("rnn", "resformer"):
+        fit(family, FAMILY_EPOCHS, FAMILY_STEPS, lambda t: t.init_state(FAMILY_SEED))
+    for family in trainers:
+        steady_rate(family)
+        split_step(family)
+    log(f"phase 10: families {json.dumps(results)}; {card}")
+    launches = sum(r["k2_train"] + r["k2_eval"] for r in results.values())
+    return {"launches": launches, "eval_launches": {f: r["k2_eval"] for f, r in results.items()},
+            "train_step_launches": sum(r["k2_train"] for r in results.values()),
+            "max_abs_err": k2_err, "shape": list(x_nhwc.shape), "ms": k2_ms,
+            "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+            "library_ms": k2_lib_ms, "families": results}
+
+
 def main():
     import torch
 
@@ -1166,6 +1657,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA "
               "device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--profile"]:
+        return profile_main(sys.argv[2])
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
@@ -1633,6 +2126,9 @@ def main():
     # ---- phase 9: the pixels-only path, AIRunner ----
     pixels = run_pixels_phase(torch, dev, check, card, residual_block_packed)
 
+    # ---- phase 10: training on the card ----
+    training = run_train_phase(torch, dev, check, card, residual_block_packed)
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -1659,6 +2155,8 @@ def main():
                        "window_bound_ms": kw_bound_ms, "window_library_ms": kw_lib_ms})
     # K2 in the detector's trunk and the action embed of phase 9.
     kernels[1].update({f"pixels_{k}": v for k, v in pixels.items()})
+    # K2 in the eval steps of phase 10's training (none in its train steps).
+    kernels[1].update({f"train_{k}": v for k, v in training.items() if k != "families"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

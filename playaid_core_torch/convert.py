@@ -6,7 +6,12 @@ one: ``{"embed": {"params": ..., "batch_stats": ...}, "head": {"params":
 ...}}``.  :func:`from_jax_cnn`, :func:`from_jax_resformer` and
 :func:`from_jax_rnn` turn a family's tree into the port's state dicts;
 :func:`to_state_dicts` picks the right one, or passes state dicts
-through.  Every leaf of a tree maps to exactly one entry; a leaf with no
+through.  A monolithic model of the JAX package (``{"params": ...,
+"batch_stats": ...}`` of ``CNNActionDetector``, ``RNNActionDetector`` or
+``ResnetTransformerDetector``) is split into that form by
+:func:`split_monolithic`, and :func:`monolithic_state_dict` gives the port
+detector's whole state dict; it also maps an optax Adam state's ``mu`` or
+``nu`` tree (the structure of ``params``) onto the port's names.  Every leaf of a tree maps to exactly one entry; a leaf with no
 counterpart raises ``KeyError``.
 
 Layouts: conv HWIO -> OIHW; Dense ``[in, out]`` -> Linear ``[out, in]``;
@@ -181,7 +186,7 @@ def _attention_state(state, prefix, node):
 
 
 def _vector(value):
-    return torch.from_numpy(np.array(value, np.float32))
+    return torch.from_numpy(np.array(value, np.float32, order="C"))
 
 
 def _layer_norm(state, name, node):
@@ -335,3 +340,43 @@ def to_state_dicts(family, variables):
            for part in ("embed", "head") for v in variables[part].values()):
         return {"embed": variables["embed"], "head": variables["head"]}
     return _FROM_JAX[family](variables)
+
+
+def split_monolithic(family, variables):
+    """A monolithic model's numpy tree (``{"params": ..., "batch_stats":
+    ...}`` of the JAX package's models) -> the family's ``{embed, head}``
+    trees, split as the JAX pipeline splits it."""
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    if family == "cnn":
+        inner_p = params["model"]
+        inner_s = stats.get("model", {})
+        embed = {"params": {"cnn2d": inner_p["ResNet_0"]},
+                 "batch_stats": {"cnn2d": inner_s.get("ResNet_0", {})}}
+        head = {"params": {k: inner_p[k] for k in _HEAD_LAYERS}}
+    elif family == "rnn":
+        embed = {"params": {"ResNet_0": params["ResNet_0"],
+                            "encoder_proj": params["encoder_proj"]},
+                 "batch_stats": {"ResNet_0": stats.get("ResNet_0", {})}}
+        head = {"params": {k: params[k] for k in ("lstm", "decoder_hidden", "decoder_out")}}
+    elif family == "resformer":
+        inner_p = params["model"]
+        inner_s = stats.get("model", {})
+        embed = {"params": {"ResNet_0": inner_p["ResNet_0"],
+                            "resnet_ffn": inner_p["resnet_ffn"]},
+                 "batch_stats": {"ResNet_0": inner_s.get("ResNet_0", {})}}
+        head_keys = [k for k in inner_p if k.startswith("layer_")] + ["classifier"]
+        head = {"params": {k: inner_p[k] for k in head_keys}}
+    else:
+        raise ValueError(f"no model family {family!r}")
+    return {"embed": embed, "head": head}
+
+
+def monolithic_state_dict(family, variables):
+    """A monolithic model's ``{"params", "batch_stats"}`` tree -> the state
+    dict of the port's detector of that family (keys ``embed.*`` and
+    ``head.*``).  Given ``{"params": mu}`` (an optax ``ScaleByAdamState``'s
+    ``mu`` or ``nu``), it maps the moments onto the parameters' names; the
+    LSTM's ``bias_ih_l*``, which Flax does not have, come out as zeros."""
+    split = to_state_dicts(family, split_monolithic(family, variables))
+    return {f"{part}.{k}": v for part in ("embed", "head") for k, v in split[part].items()}

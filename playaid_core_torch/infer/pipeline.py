@@ -36,9 +36,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from playaid_core_torch.convert import to_state_dicts
+from playaid_core_torch.convert import split_monolithic, to_state_dicts
 from playaid_core_torch.device import full_float32, resolve_device
-from playaid_core_torch.models.resnet import ResNet18, ResNet50
+from playaid_core_torch.models.resnet import ResNet18, ResNet50, at_least_float32
 from playaid_core_torch.models.resnet_transformer import TransformerEncoderLayer, time_encoding
 from playaid_core_torch.models.rnn_action_detector import StackedLSTM
 from playaid_core_torch.models.lightning_ckpt import (
@@ -73,12 +73,15 @@ class CNNTemporalHead(nn.Module):
         self.mlp_hidden = nn.Linear(512, 128)
         self.classifier = nn.Linear(128, num_actions)
 
-    def forward(self, window_feats):
+    def logits(self, window_feats):
         y = window_feats.reshape(window_feats.shape[0], -1)
         with full_float32():
             y = torch.relu(self.temporal_dense(y))
             y = torch.relu(self.mlp_hidden(y))
-            return torch.log_softmax(self.classifier(y).float(), dim=1)
+            return at_least_float32(self.classifier(y))
+
+    def forward(self, window_feats):
+        return torch.log_softmax(self.logits(window_feats), dim=1)
 
 
 class ResFormerEmbed(nn.Module):
@@ -111,14 +114,17 @@ class ResFormerTemporalHead(nn.Module):
                                     for _ in range(num_layers))
         self.classifier = nn.Linear(d_model, num_actions)
 
-    def forward(self, window_feats):
+    def logits(self, window_feats):
         b = window_feats.shape[0]
         freq = self.time_features.to(window_feats.dtype).expand(b, -1, -1)
         with full_float32():
             y = torch.cat([window_feats, freq], dim=2)
             for layer in self.layers:
                 y = layer(y)
-            return torch.log_softmax(self.classifier(y).float(), dim=2)
+            return at_least_float32(self.classifier(y))
+
+    def forward(self, window_feats):
+        return torch.log_softmax(self.logits(window_feats), dim=2)
 
 
 class RNNEmbed(nn.Module):
@@ -148,7 +154,7 @@ class RNNTemporalHead(nn.Module):
     def forward(self, window_feats):
         with full_float32():
             y = torch.relu(self.decoder_hidden(self.lstm(window_feats)))
-            return torch.log_softmax(self.decoder_out(y).float(), dim=2)
+            return torch.log_softmax(at_least_float32(self.decoder_out(y)), dim=2)
 
 
 class BatchedActionPipeline:
@@ -265,29 +271,7 @@ class BatchedActionPipeline:
         """Split a trained monolithic model's numpy tree (``{"params": ...,
         "batch_stats": ...}`` of the JAX package's models) into this
         family's ``{embed, head}`` trees, as the JAX package does."""
-        params = variables["params"]
-        stats = variables.get("batch_stats") or {}
-        if self.family == "cnn":
-            inner_p = params["model"]
-            inner_s = stats.get("model", {})
-            embed = {"params": {"cnn2d": inner_p["ResNet_0"]},
-                     "batch_stats": {"cnn2d": inner_s.get("ResNet_0", {})}}
-            head = {"params": {k: inner_p[k]
-                               for k in ("temporal_dense", "mlp_hidden", "classifier")}}
-        elif self.family == "rnn":
-            embed = {"params": {"ResNet_0": params["ResNet_0"],
-                                "encoder_proj": params["encoder_proj"]},
-                     "batch_stats": {"ResNet_0": stats.get("ResNet_0", {})}}
-            head = {"params": {k: params[k] for k in ("lstm", "decoder_hidden", "decoder_out")}}
-        else:
-            inner_p = params["model"]
-            inner_s = stats.get("model", {})
-            embed = {"params": {"ResNet_0": inner_p["ResNet_0"],
-                                "resnet_ffn": inner_p["resnet_ffn"]},
-                     "batch_stats": {"ResNet_0": inner_s.get("ResNet_0", {})}}
-            head_keys = [k for k in inner_p if k.startswith("layer_")] + ["classifier"]
-            head = {"params": {k: inner_p[k] for k in head_keys}}
-        return {"embed": embed, "head": head}
+        return split_monolithic(self.family, variables)
 
     # ---- embedding ----
 

@@ -16,16 +16,54 @@ statistics, whatever ``num_classes`` is.  The block packs its weights and
 folded batch norm for the kernel once and keeps the pack until a tensor
 it was built from changes.  In training mode, or on the CPU, every block
 runs unfused.  ResNet-50 has no BasicBlock and runs on cuDNN throughout.
+
+Training follows Flax: batch norm (:class:`BatchNorm2d`) normalises with
+the biased batch variance and moves its running statistics by momentum 0.9
+toward the batch mean and the *biased* batch variance (``nn.BatchNorm2d``
+would take the unbiased one), and :func:`init_flax_` draws weights as the
+Flax modules initialise them.  The fused kernel has no backward and never
+runs in training mode.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from playaid_core_torch.ops.conv_block import pack_block, residual_block_packed
 
 BN_EPS = 1e-5
+FLAX_MOMENTUM = 0.1  # torch's convention: Flax's momentum 0.9
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters and buffers) whose training-mode
+    update is Flax's ``BatchNorm(momentum=0.9)``: running mean and variance
+    move by a tenth toward the batch mean and the biased batch variance.
+    In eval mode it is ``nn.BatchNorm2d`` on the running statistics."""
+
+    def __init__(self, num_features, eps=BN_EPS):
+        super().__init__(num_features, eps=eps, momentum=FLAX_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def at_least_float32(x):
+    """float32 for lower precisions, as the JAX models cast their outputs;
+    float64 stays float64 (a reference run in double precision)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def fold_batch_norm(bn: nn.BatchNorm2d):
@@ -42,14 +80,14 @@ class BasicBlock(nn.Module):
     def __init__(self, in_planes, planes, stride=1, fused=False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_planes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes, eps=BN_EPS),
+                BatchNorm2d(planes),
             )
         if fused and self.downsample is not None:
             raise ValueError("the fused kernel computes identity blocks only")
@@ -108,16 +146,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_planes = planes * self.expansion
         self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_planes, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(out_planes)
         self.downsample = None
         if stride != 1 or in_planes != out_planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_planes, out_planes, 1, stride, bias=False),
-                nn.BatchNorm2d(out_planes, eps=BN_EPS),
+                BatchNorm2d(out_planes),
             )
 
     def forward(self, x):
@@ -129,7 +167,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet v1: NCHW float input -> ``[N, num_classes]`` float32, or the
+    """ResNet v1: NCHW float input -> ``[N, num_classes]`` float32 (float64
+    for float64 weights and input), or the
     pooled features when ``num_classes=0``, or with ``return_feature_map``
     the stride-32 map ``[N, C, H/32, W/32]`` before the pool (the
     detector's trunk).  In a BasicBlock network the last block of the last
@@ -139,7 +178,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.return_feature_map = return_feature_map
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, 2, padding=1)
         expansion = getattr(block, "expansion", 1)
         in_planes = 64
@@ -165,7 +204,7 @@ class ResNet(nn.Module):
         x = x.mean(dim=(2, 3))
         if self.fc is not None:
             x = self.fc(x)
-        return x.float()
+        return at_least_float32(x)
 
 
 class ResNet18(ResNet):
@@ -173,6 +212,64 @@ class ResNet18(ResNet):
         super().__init__(BasicBlock, (2, 2, 2, 2), num_classes, return_feature_map)
 
 
+class ResNet34(ResNet):
+    def __init__(self, num_classes=1000, return_feature_map=False):
+        super().__init__(BasicBlock, (3, 4, 6, 3), num_classes, return_feature_map)
+
+
 class ResNet50(ResNet):
     def __init__(self, num_classes=1000):
         super().__init__(Bottleneck, (3, 4, 6, 3), num_classes)
+
+
+FEATURE_DIMS = {"resnet18": 512, "resnet34": 512, "resnet50": 2048}
+
+
+def make_resnet(arch: str, num_classes: int = 1000, return_feature_map=False, s2d_stem=False):
+    """``resnet18``, ``resnet34`` or ``resnet50``.  ``s2d_stem`` is accepted
+    for the JAX signature: its space-to-depth stem computes the same 7x7/2
+    convolution from the same kernel, and the port runs the plain stem."""
+    del s2d_stem
+    if arch == "resnet50":
+        if return_feature_map:
+            raise ValueError("the port's ResNet-50 returns pooled features or logits")
+        return ResNet50(num_classes)
+    return {"resnet18": ResNet18, "resnet34": ResNet34}[arch](num_classes, return_feature_map)
+
+
+# Flax's lecun_normal: a normal truncated at two standard deviations,
+# rescaled so that the truncated draw has variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(weight, generator=None):
+    """Flax's ``lecun_normal()`` on a torch weight (OIHW conv or ``[out,
+    in]`` Linear; fan in is everything but the first axis)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_flax_(module, generator=None):
+    """Initialise ``module``'s convolutions, linear layers and norms in
+    place as the Flax modules do: lecun_normal kernels, zero biases, unit
+    norm scales, running mean 0 and variance 1, and a zero scale on each
+    residual block's last batch norm (``bn2`` of a BasicBlock, ``bn3`` of a
+    Bottleneck).  Draws in module order from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()
+    for m in module.modules():
+        if isinstance(m, BasicBlock):
+            m.bn2.weight.zero_()
+        elif isinstance(m, Bottleneck):
+            m.bn3.weight.zero_()
+    return module

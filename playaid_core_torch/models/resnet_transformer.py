@@ -1,12 +1,19 @@
-"""The ResFormer family's temporal pieces: the sinusoidal time encoding and
-a post-norm transformer encoder layer.
+"""The ResFormer family: the sinusoidal time encoding, a post-norm
+transformer encoder layer, and the trainable whole (:class:`ResFormer`,
+:class:`ResnetTransformerDetector`).
 
 Counterpart of ``playaid_core_tpu/models/resnet_transformer.py``.  The
 layer keeps the parameter names of torch's ``nn.TransformerEncoderLayer``
 (``self_attn.in_proj_weight``, ``self_attn.out_proj``, ``linear1``,
 ``linear2``, ``norm1``, ``norm2``) and the Flax layer's numerics: layer
 norm with eps 1e-6, the query scaled by 1/sqrt(head_dim) before the
-product, ReLU in a 2048-wide feed-forward, dropout absent (inference).
+product, ReLU in a 2048-wide feed-forward.  In training mode it drops out
+at rate 0.1 where the Flax layer does: the attention weights (one
+``[1, 1, T, T]`` mask shared by the batch and the heads, Flax's
+``broadcast_dropout``), the attention output, the feed-forward's ReLU and
+its output.  The masks are drawn from the layer's ``generator`` (a
+``torch.Generator`` on the activations' device, or None for the default
+one).  In eval mode there is no dropout.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from playaid_core_torch.models.resnet import init_flax_, lecun_normal_
 
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -29,6 +38,16 @@ def time_encoding(x: np.ndarray, num_freq: int) -> np.ndarray:
         out.append(np.cos(np.pi * x * (2**i)))
         out.append(np.sin(np.pi * x * (2**i)))
     return np.concatenate(out, axis=1)
+
+
+def dropout(x, rate, generator=None, mask_shape=None):
+    """Flax's train-mode ``Dropout``: keep each entry with probability ``1 -
+    rate`` and scale it by ``1 / (1 - rate)``; ``mask_shape`` (broadcast
+    against ``x``) shares one draw across the axes of size 1."""
+    keep = 1.0 - rate
+    shape = x.shape if mask_shape is None else mask_shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 class SelfAttention(nn.Module):
@@ -45,29 +64,98 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x):
+    def forward(self, x, drop=None):
+        """``drop``: applied to the attention weights ``[B, heads, T, T]``
+        with a mask shape, in training."""
         b, t, e = x.shape
         head_dim = e // self.num_heads
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.reshape(b, t, 3, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
         q = q / math.sqrt(head_dim)
         weights = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        if drop is not None:
+            weights = drop(weights, (1, 1, t, t))
         out = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, e)
         return self.out_proj(out)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer: ``x = norm1(x + attn(x))``, then
-    ``norm2(x + linear2(relu(linear1(x))))``."""
+    ``norm2(x + linear2(relu(linear1(x))))``, with dropout in training."""
 
-    def __init__(self, d_model, num_heads, dim_feedforward=2048):
+    def __init__(self, d_model, num_heads, dim_feedforward=2048, dropout_rate=0.1):
         super().__init__()
+        self.dropout_rate = dropout_rate
+        self.generator = None
         self.self_attn = SelfAttention(d_model, num_heads)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
 
+    def _drop(self, x, mask_shape=None):
+        return dropout(x, self.dropout_rate, self.generator, mask_shape)
+
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        if not self.training or not self.dropout_rate:
+            x = self.norm1(x + self.self_attn(x))
+            return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        x = self.norm1(x + self._drop(self.self_attn(x, self._drop)))
+        y = self._drop(torch.relu(self.linear1(x)))
+        return self.norm2(x + self._drop(self.linear2(y)))
+
+
+class ResFormer(nn.Module):
+    """ResNet-50 (2048-d) -> ``resnet_ffn`` (247) -> time encoding (9) ->
+    3 post-norm transformer layers (d_model 256, 8 heads) -> per-step
+    logits: ``[B, T, H, W, 3]`` in [0, 1] -> ``[B, T, num_actions]``.
+
+    Counterpart of ``ResFormer`` in
+    ``playaid_core_tpu/models/resnet_transformer.py``, built from the
+    pipeline's ``ResFormerEmbed`` (``.embed``) and
+    ``ResFormerTemporalHead`` (``.head``).  T is fixed by the time
+    encoding.  :meth:`set_dropout_generator` gives every layer the
+    generator of its train-mode dropout masks.
+    """
+
+    def __init__(self, num_actions=61, sequence_length=7):
+        super().__init__()
+        # Imported here: the pipeline imports this module for the layer.
+        from playaid_core_torch.infer.pipeline import ResFormerEmbed, ResFormerTemporalHead
+
+        self.embed = ResFormerEmbed()
+        self.head = ResFormerTemporalHead(num_actions, sequence_length)
+
+    def forward(self, frames):
+        b, t = frames.shape[0], frames.shape[1]
+        feats = self.embed(frames.reshape((b * t,) + frames.shape[2:])).reshape(b, t, -1)
+        return self.head.logits(feats)
+
+    def set_dropout_generator(self, generator):
+        for layer in self.head.layers:
+            layer.generator = generator
+        return self
+
+    def init_weights(self, generator=None):
+        """Flax's initialisers: ``init_flax_`` for the ResNet, the dense
+        layers and the norms; lecun_normal for each of the query, key and
+        value kernels, zero biases."""
+        init_flax_(self, generator)
+        with torch.no_grad():
+            for layer in self.head.layers:
+                attn = layer.self_attn
+                e = attn.in_proj_weight.shape[1]
+                for part in range(3):
+                    lecun_normal_(attn.in_proj_weight[part * e:(part + 1) * e], generator)
+                attn.in_proj_bias.zero_()
+        return self
+
+
+class ResnetTransformerDetector(ResFormer):
+    """Forward = log_softmax over the per-step action logits ``[B, T, A]``."""
+
+    def __init__(self, num_actions, sequence_length=7):
+        super().__init__(num_actions, sequence_length)
+
+    def forward(self, frames):
+        return torch.log_softmax(super().forward(frames), dim=2)

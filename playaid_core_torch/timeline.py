@@ -14,13 +14,18 @@ timeline.py:186-280):
   the result in each record under ``_pixel_crop`` for
   :class:`playaid_core_torch.fighter.Fighter` to consume.
 * ``update_fighters_from_timeline``.
+* ``cache_dataset`` — the index of a ``gt_action_detection`` tree that the
+  training dataset samples from (its ``*.jpg`` crops, and the port's
+  lossless ``*.npy`` crops).
 
 Nothing here imports yaml or cv2, so it runs where neither is installed.
 """
 
 from __future__ import annotations
 
+import glob
 import json
+import os
 
 import numpy as np
 
@@ -192,3 +197,56 @@ def update_fighters_from_timeline(frame_number: int, ground_truth, fighters):
         for i, json_data in enumerate(ground_truth):
             fighters[i].update(frame_number, json_data)
     return fighters
+
+
+def cache_dataset(root_dir, char_subset=()):
+    """Index a gt_action_detection tree
+    ``<root>/<video>/<id>_<fighter>/{images,labels}`` (reference:
+    timeline.py:108-163).
+
+    Returns (video_to_sample, move_to_frames):
+      video_to_sample[video][fighter] = [(image_path, label_path), ...]
+      move_to_frames[fighter][move]   = [(video, frame_num), ...]
+
+    Images are the ``*.jpg`` files, as in the JAX package, and the
+    ``*.npy`` crops (BGR uint8, as ``imgcodec.read_crop`` reads them), in
+    sorted order.
+    """
+    video_to_sample = {}
+    move_to_frames = {}
+    if not os.path.isdir(root_dir):
+        return video_to_sample, move_to_frames
+
+    for video_dir in os.scandir(root_dir):
+        if not video_dir.is_dir():
+            continue
+        video_name = video_dir.name
+        video_to_sample[video_name] = {}
+
+        for fighter_dir in os.scandir(video_dir.path):
+            if not fighter_dir.is_dir():
+                continue
+            # Directory structure is <fighter_id>_<fighter_name>.
+            fighter_name = " ".join(fighter_dir.name.split("_")[1:]).title()
+            if char_subset and fighter_name not in char_subset:
+                continue
+            video_to_sample[video_name][fighter_name] = []
+
+            image_dir = os.path.join(fighter_dir.path, "images")
+            label_dir = os.path.join(fighter_dir.path, "labels")
+            image_files = sorted(glob.glob(os.path.join(image_dir, "*.jpg"))
+                                 + glob.glob(os.path.join(image_dir, "*.npy")))
+            label_files = sorted(glob.glob(os.path.join(label_dir, "*.txt")))
+            video_to_sample[video_name][fighter_name].extend(list(zip(image_files, label_files)))
+
+            for frame_num, label_file in enumerate(label_files):
+                with open(label_file) as f:
+                    action = f.read()
+                move_to_frames.setdefault(fighter_name, {}).setdefault(action, []).append(
+                    (video_name, frame_num)
+                )
+
+        if not video_to_sample[video_name]:
+            del video_to_sample[video_name]
+
+    return video_to_sample, move_to_frames

@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
-its card-path modules (the log-driven VOD path and the pixels-only path)
-import no cv2, PIL, yaml or click (the card's machine has none of them),
+its card-path modules (the log-driven VOD path, the pixels-only path and
+the training path) import no cv2, PIL, yaml or click (the card's machine has none of them),
 and chip_smoke.py refuses to run without a CUDA device.
 
 The import check runs in a subprocess, because tests/conftest.py imports
@@ -72,6 +72,30 @@ print("ok")
 """
 
 
+# Modules the training path (Trainer.fit on a tree of .npy crops) imports on the card.
+TRAIN_PATH = ("models.losses", "models.cnn_action_detector", "models.rnn_action_detector",
+              "models.resnet_transformer", "parallel.staging", "profiling", "timeline",
+              "train.augment", "train.dataset", "train.train")
+
+_IMPORT_TRAIN_PATH = f"""
+import importlib, sys
+import numpy as np
+for name in {BANNED + HOST_ONLY!r}:
+    sys.modules[name] = None
+for name in {TRAIN_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch.train import augment
+from playaid_core_torch.train.train import Trainer, main
+try:
+    augment.blur(np.zeros((8, 8, 3), np.uint8), np.random.default_rng(0))
+except ImportError as e:
+    assert "cv2" in str(e)
+else:
+    raise AssertionError("cv2.blur ran without cv2")
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -88,7 +112,7 @@ def test_port_imports_with_jax_blocked():
                  "models.resnet_transformer", "models.rnn_action_detector", "ops._build",
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
-                 "models.torch_convert", *CARD_PATH, *PIXELS_PATH):
+                 "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH):
         assert f"playaid_core_torch.{name}" in imported
 
 
@@ -103,6 +127,14 @@ def test_pixels_path_imports_with_cv2_pil_yaml_click_blocked():
     it imports, writes and reads ai_output.yaml, and names cv2 when asked
     for a jpg crop."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PIXELS_PATH], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_train_path_imports_with_cv2_pil_yaml_click_blocked():
+    """The training path on a machine without cv2, PIL, yaml or click: it
+    imports, and the augmentation ops still on cv2 name it."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN_PATH], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
