@@ -77,7 +77,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    fighter ids, and no weights, with the device's busy share and K2's
    device time at 56x4x4x512; then per family the steady-state steps/s
    and crops/s of an epoch of 50 steps (timed from its third step), and a
-   batch's assembly and a train step timed alone.
+   batch's assembly and a train step timed alone;
+11. device-side synthetic training, in a fresh process (python3
+   chip_smoke.py --synth): a clean-char tree of .npy stand-in sprites under
+   build/smoke/synth/ (generate_sprite_set's layout: 6 fighters x 48 moves x
+   16 frames x 2 facings, square BGRA sprites of 104-176 px drawn with
+   numpy, as the card's machine has no cv2) and train_bench_weights.py's
+   four stage textures as .npy -> DeviceSynthDataset with the arguments of
+   tools/torch_port_train_bench_weights.py (the sprite and stage banks on
+   the card; their copies at construction under torch.profiler, exactly
+   their nbytes) -> Trainer.fit for CNN-63 (batch 16, T 7, 128 px, lr 3e-4
+   decaying over the run, float32; 2 epochs of 20 steps): (a) K1's bank
+   entry against batched_bank_resize at the phase's shapes and on edge
+   windows, C=3 and 4, mirrored or not; (b) synth_composite on the card
+   against the CPU with the same noise and dropout draws; (c) launches in
+   the fit: bank_resize 2 a step, no other kernel of the port's; (d) under
+   torch.profiler, in a process of its own (python3 chip_smoke.py --profile
+   synth, which builds its dataset while the first builds its own, then
+   waits), a 20-step epoch copies only each batch's packed ints and floats
+   and its labels to the card, and the busy share; (e) the loss
+   on one fixed synthetic batch falls over 20 steps; (f) the JSONL
+   records; then the bank entry's and the composite's times and the
+   steady state of a 50-step epoch.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -94,6 +115,7 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import atexit
 import contextlib
 import functools
 import json
@@ -115,6 +137,9 @@ WINDOW = 384  # the window route's host-side window (VodAnalyzer's default)
 CPU_FRAMES = 96
 SWITCH_COST = 16.0
 FAMILY_SEED = 0
+
+PROFILE_SETTLE_S = 0.05   # pause between a profile's first opening kernel and the rest
+PROFILE_OPENERS = 8       # small kernels after the pause, before the work
 
 # H100 SXM data-sheet peaks at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
@@ -266,41 +291,67 @@ def trace_copy_audit(path, kernel_key):
     each copy's (bytes, stream); the streams of the kernels whose name holds
     kernel_key; the cudaMemcpy* calls traced on the host; and the records
     the trace itself shows lost: those calls whose copy is missing on the
-    device side (matched by correlation id), and any note of dropped
-    records that the profiler wrote beside the events."""
+    device side (matched by correlation id), with where they sit (their
+    index among the calls in time order, ms after the trace's first
+    event), and any note of dropped records that the profiler wrote
+    beside the events."""
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"]
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     traced = {e.get("args", {}).get("correlation") for e in device}
-    calls = [e.get("args", {}).get("correlation") for e in events
-             if e.get("cat") == "cuda_runtime" and e.get("name", "").startswith("cudaMemcpy")]
+    calls = sorted((float(e["ts"]), e.get("args", {}).get("correlation")) for e in events
+                   if e.get("cat") == "cuda_runtime" and e.get("name", "").startswith("cudaMemcpy"))
+    start = min((float(e["ts"]) for e in events if "ts" in e), default=0.0)
     return {
         "h2d": [(e.get("args", {}).get("bytes"), e.get("args", {}).get("stream"))
                 for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e.get("name", "")],
         "kernel_streams": {e.get("args", {}).get("stream") for e in device
                            if e["cat"] == "kernel" and kernel_key in e.get("name", "")},
         "calls": len(calls),
-        "lost": [c for c in calls if c not in traced],
+        "lost": [c for _, c in calls if c not in traced],
+        "lost_at": [(i, round((ts - start) / 1e3, 3)) for i, (ts, c) in enumerate(calls)
+                    if c not in traced],
         "notes": [f"{k}: {str(v)[:200]}" for k, v in trace.items()
                   if k != "traceEvents" and "drop" in str(v).lower()],
     }
 
 
 @contextlib.contextmanager
-def profiled(torch):
-    """A torch.profiler session of the host and the card that begins by
-    running one small kernel to its end.  Late in this script's process
-    (after phases 1-8; not at its start) the profiler's trace missed device
-    records of copies in every profile that began with the copies (a lone
-    44 MB copy, three detector batches), and in nearly none that began with
-    such a kernel (tools/torch_port_trace_audit.py lead)."""
+def profiled(torch, cpu=True, settle_s=PROFILE_SETTLE_S):
+    """A torch.profiler session of the card (and of the host, when cpu)
+    that begins by running one small kernel to its end, then, after
+    settle_s seconds, a few more, and ends with one too.
+    Late in this script's process (after phases 1-8; not at its start) the
+    profiler's trace missed device records of copies in every profile that
+    began with the copies (a lone 44 MB copy, three detector batches), and
+    in nearly none that began with such a kernel
+    (tools/torch_port_trace_audit.py lead).  Phase 11's traces, in a young
+    process, each missed one record at their end (the last of two bank
+    copies; one of 160 bank_resize kernels) in a session without the
+    closing kernel; a later run, in that process's second session, lost
+    two (one step's ints and floats) with both kernels.  So phase 11's
+    epoch is profiled as the first session of a process of its own.  Its
+    next sessions, K1's bank timings, then lost one or two of 160 kernel
+    records in each of three runs.  tools/torch_port_trace_audit.py settle
+    found the lost launches at a session's start: its first three (the
+    opening kernels and the first of the work), once 186; after the pause
+    only the first launch of the openers that follow it."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=activities) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+        if settle_s:
+            time.sleep(settle_s)
+            x = torch.ones(1, device="cuda")
+            for _ in range(PROFILE_OPENERS):
+                x.add_(1)
+            torch.cuda.synchronize()
         yield prof
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
 
 
 def busy_us(events):
@@ -337,41 +388,84 @@ def time_cuda(torch, fn, iters, warmup=3):
 
 def device_ms(torch, fn, iters, kernel_name, per_call, warmup=3):
     """Device milliseconds per call of fn(it), and the kernel records traced
-    per call: the self device time of the kernels whose name holds
-    kernel_name, over iters back-to-back calls under torch.profiler,
-    divided by iters.  A call launches per_call such kernels; a trace that
-    holds another count (none, or some records lost) measures nothing, and
-    the time is None."""
+    per call: the durations of the kernels whose name holds kernel_name in
+    the exported chrome trace of iters back-to-back calls under
+    torch.profiler, divided by iters.  The exported trace, because
+    key_averages() has held fewer records than it (159 of 160 bank_resize
+    kernels in phase 11).  A call launches per_call such kernels; a
+    trace that holds another count (none, or some records lost) is
+    profiled again, once, and if that one too is short it measures
+    nothing, and the time is None."""
     for it in range(warmup):
         fn(it)
     torch.cuda.synchronize()
-    with profiled(torch) as prof:
-        for it in range(iters):
-            fn(it)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU and kernel_name in e.key]
-    traced = sum(e.count for e in rows) / iters
-    if traced != per_call:
-        return None, traced
-    return sum(e.self_device_time_total for e in rows) / 1e3 / iters, traced
+    trace = os.path.join(ROOT, "build", "smoke", f"device_ms_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    for _ in range(2):
+        with profiled(torch) as prof:
+            for it in range(iters):
+                fn(it)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        durs = [dur for name, cat, _, dur, _ in trace_device_events(trace)
+                if cat == "kernel" and kernel_name in name]
+        launches, lost = lost_launches(trace)
+        os.remove(trace)
+        traced = len(durs) / iters
+        if traced == per_call:
+            return sum(durs) / 1e3 / iters, traced
+        log(f"device_ms: {len(durs)} of {per_call * iters} {kernel_name} records; {len(lost)} of "
+            f"{launches} launches with no kernel on the device (launch index, ms into the "
+            f"trace: {lost[:12]})")
+    return None, traced
+
+
+def lost_launches(path):
+    """The kernel launches traced on the host in an exported chrome trace,
+    and those with no kernel on the device (matched by correlation id):
+    their index among the launches in time order, ms after the trace's
+    first event."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    traced = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    launches = sorted((float(e["ts"]), e.get("args", {}).get("correlation")) for e in events
+                      if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", ""))
+    start = min(float(e["ts"]) for e in events if "ts" in e)
+    return len(launches), [(i, round((ts - start) / 1e3, 3))
+                           for i, (ts, c) in enumerate(launches) if c not in traced]
+
+
+def taps(origin, side, length, size):
+    """The distinct in-source bilinear tap indices along one axis of a
+    window (origin, side) resampled to size, side clamped to at least 1."""
+    i = np.arange(size, dtype=np.float32)
+    src = np.float32(origin) + (i + 0.5) * np.float32(max(side, 1)) / size - 0.5
+    src = src[(src >= -1) & (src <= length)]
+    t = np.concatenate([np.floor(src), np.floor(src) + 1])
+    return np.unique(t[(t >= 0) & (t < length)]).astype(np.int64)
 
 
 def touched_bytes(y0, x0, side, h, w, size):
     """Source bytes the crops of windows (y0, x0, side) of an h x w source
     need: per crop, the distinct rows times the distinct columns of
     in-frame bilinear taps, times 3 channels."""
-    side = np.maximum(np.asarray(side, np.float32), 1)
-    i = np.arange(size, dtype=np.float32)
+    side = np.asarray(side, np.float32)
+    return sum(len(taps(y0[q], side[q], h, size)) * len(taps(x0[q], side[q], w, size)) * 3
+               for q in range(len(side)))
+
+
+def bank_touched_bytes(rows, origins, flip, h, w, c, size):
+    """Source bytes the bank entry needs: each distinct bank row's pixels
+    that any of its crops taps (mirrored crops tap mirrored columns), read
+    once, times c channels."""
     total = 0
-    for q in range(len(side)):
-        counts = []
-        for origin, length in ((y0[q], h), (x0[q], w)):
-            src = np.float32(origin) + (i + 0.5) * side[q] / size - 0.5
-            src = src[(src >= -1) & (src <= length)]
-            taps = np.concatenate([np.floor(src), np.floor(src) + 1])
-            counts.append(len(np.unique(taps[(taps >= 0) & (taps < length)])))
-        total += counts[0] * counts[1] * 3
+    for row in np.unique(rows):
+        mask = np.zeros((h, w), bool)
+        for q in np.flatnonzero(rows == row):
+            y0, x0, side = origins[q]
+            xs = taps(x0, side, w, size)
+            mask[np.ix_(taps(y0, side, h, size), w - 1 - xs if flip[q] else xs)] = True
+        total += int(mask.sum()) * c
     return total
 
 
@@ -1250,14 +1344,15 @@ def profile_h2d(torch, run, trace):
     prof.export_chrome_trace(trace)
     audit = trace_copy_audit(trace, "conv3x3_wgmma")
     return {"h2d": [b for b, _ in audit["h2d"]], "calls": audit["calls"],
-            "lost": len(audit["lost"]), "notes": audit["notes"],
+            "lost": len(audit["lost"]), "lost_at": audit["lost_at"], "notes": audit["notes"],
             "busy_us": busy_us(trace_device_events(trace)), "wall_us": wall_us}
 
 
 def profile_main(kind):
-    """python3 chip_smoke.py --profile detect|train: profile one detect()
-    batch of phase 9, or an epoch of WIRE_STEPS train steps of phase 10
-    (CNN-63 from the bench weights on the tree at TRAIN_ROOT), after one
+    """python3 chip_smoke.py --profile detect|train|synth: profile one
+    detect() batch of phase 9, or an epoch of WIRE_STEPS train steps of
+    phase 10 (CNN-63 from the bench weights on the tree at TRAIN_ROOT) or,
+    through profile_synth, of phase 11, after one
     unprofiled run, in this fresh process; print profile_h2d's result as
     JSON, for train with K2's device time at the eval shape of the
     training path (k2_device_ms, k2_records_per_call).  Late in this
@@ -1291,8 +1386,10 @@ def profile_main(kind):
 
         def run():
             trainer.fit(num_epochs=1, steps_per_epoch=WIRE_STEPS)
+    elif kind == "synth":
+        return profile_synth(torch, dev, work)
     else:
-        raise ValueError(f"--profile takes detect or train, not {kind!r}")
+        raise ValueError(f"--profile takes detect, train or synth, not {kind!r}")
     run()
     result = profile_h2d(torch, run, os.path.join(work, f"{kind}_trace.json"))
     if kind == "train":
@@ -1313,6 +1410,47 @@ def profile_main(kind):
                                    "conv3x3_wgmma_kernel", 2)
         result.update({"k2_device_ms": ms, "k2_records_per_call": traced,
                        "k2_shape": list(x_nhwc.shape)})
+    print(json.dumps(result))
+    return 0
+
+
+def synth_profile_trainer(dev):
+    """A seeded CNN-63 Trainer of 1 epoch of WIRE_STEPS steps on phase
+    11's dataset, on the tree that write_synth_tree left."""
+    from playaid_core_torch.train.train import Trainer
+
+    tool = bench_tool()
+    data = tool.bench_dataset(os.path.join(SYNTH_ROOT, "clean"),
+                              os.path.join(SYNTH_ROOT, "stages"), SYNTH_STEPS, SYNTH_BATCH,
+                              device=dev)
+    trainer = Trainer(tool.bench_config(1, WIRE_STEPS, SYNTH_BATCH, device=dev,
+                                        warmup_steps=SYNTH_WARMUP, verbose=False), data)
+    trainer.init_state(0)
+    return trainer
+
+
+def profile_synth(torch, dev, work):
+    """profile_main's synth kind: synth_profile_trainer, built, then a wait
+    for a line "go" on stdin (so the caller can build its own meanwhile and
+    keep the card to itself while this process profiles); then one
+    unprofiled epoch and that epoch under profile_h2d, profiled again, up
+    to SYNTH_PROFILES times, only while the trace shows a lost record.
+    Prints a line an attempt and the last one's result as JSON."""
+    trainer = synth_profile_trainer(dev)
+    if sys.stdin.readline().strip() != "go":
+        return 1
+
+    def run():
+        trainer.fit(num_epochs=1, steps_per_epoch=WIRE_STEPS)
+
+    run()
+    for attempt in range(1, SYNTH_PROFILES + 1):
+        result = profile_h2d(torch, run, os.path.join(work, "synth_trace.json"))
+        log(f"phase 11: profiled epoch {attempt}: {result['lost']} of {result['calls']} "
+            f"cudaMemcpy calls with no copy on the device (call index, ms into the trace: "
+            f"{result['lost_at']}), notes of dropped records: {result['notes'] or 'none'}")
+        if not result["lost"] and not result["notes"]:
+            break
     print(json.dumps(result))
     return 0
 
@@ -1351,6 +1489,28 @@ def write_train_tree(root, actions):
                         bgr_crop(frame[0], boxes[i, k], CROP, PADDING))
                 with open(os.path.join(base, "labels", f"{i:06d}.txt"), "w") as f:
                     f.write(actions[labels[k, i // TRAIN_RUN]])
+
+
+def steady_steps_per_sec(torch, trainer, steps):
+    """Trainer.fit's steady state: an epoch of ``steps`` steps without
+    validation, timed from the call of its third step to the end of its
+    last on the card."""
+    step, val, calls = trainer.train_step, trainer.val_dataset, []
+
+    def timed(*args):
+        calls.append(time.perf_counter())
+        out = step(*args)
+        if len(calls) == steps:
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter())
+        return out
+
+    trainer.train_step, trainer.val_dataset = timed, None
+    try:
+        trainer.fit(num_epochs=1, steps_per_epoch=steps)
+    finally:
+        trainer.train_step, trainer.val_dataset = step, val
+    return (steps - 2) / (calls[-1] - calls[2])
 
 
 def run_train_phase(torch, dev, check, card, k2_wrapper):
@@ -1470,27 +1630,11 @@ def run_train_phase(torch, dev, check, card, k2_wrapper):
         return trainer
 
     def steady_rate(family):
-        """Trainer.fit's steady-state rate: an epoch of STEADY_STEPS steps
-        without validation, timed from the call of its third step (by then
-        the producer's queue and the two staged copies are full) to the end
-        of its last step on the card."""
+        """Trainer.fit's steady-state rate (steady_steps_per_sec; by the
+        third step the producer's queue and the two staged copies are
+        full)."""
         trainer = trainers[family]
-        step, val, calls = trainer.train_step, trainer.val_dataset, []
-
-        def timed(*args):
-            calls.append(time.perf_counter())
-            out = step(*args)
-            if len(calls) == STEADY_STEPS:
-                torch.cuda.synchronize()
-                calls.append(time.perf_counter())
-            return out
-
-        trainer.train_step, trainer.val_dataset = timed, None
-        try:
-            trainer.fit(num_epochs=1, steps_per_epoch=STEADY_STEPS)
-        finally:
-            trainer.train_step, trainer.val_dataset = step, val
-        rate = (STEADY_STEPS - 2) / (calls[-1] - calls[2])
+        rate = steady_steps_per_sec(torch, trainer, STEADY_STEPS)
         results[family].update({"steps_per_sec": rate,
                                 "crops_per_sec": rate * TRAIN_BATCH * TRAIN_T})
         log(f"phase 10: {family}: steady state over steps 3-{STEADY_STEPS} of an epoch of "
@@ -1650,6 +1794,419 @@ def run_train_phase(torch, dev, check, card, k2_wrapper):
             "library_ms": k2_lib_ms, "families": results}
 
 
+# ---- phase 11: device-side synthetic training ----
+
+SYNTH_ROOT = os.path.join(ROOT, "build", "smoke", "synth")
+SYNTH_FRAMES = 16         # frames a move and facing, as the JAX tool renders them
+SYNTH_SIDES = (104, 177)  # square tight sprites of 104-176 px, as tight_crop leaves them
+SYNTH_BATCH, SYNTH_T = 16, 7
+SYNTH_EPOCHS, SYNTH_STEPS = 2, 20
+SYNTH_WARMUP = 3          # the JAX tool's 200 warmup steps of 3,000, scaled to this run's 40
+BANK_TOL = 2.55e-3        # max abs on the 0-255 scale: K1's 1e-5 gate on /255 values
+COMPOSITE_SAME_MIN = 0.999  # card vs CPU frames: at most 1 apart, this share identical
+BANK_SETS = 8             # batches of parameters the bank entry is timed over
+SYNTH_PROFILES = 3        # profiled epochs at most, while a trace shows a lost record
+# Row-relative (y0, x0, side) of the bank entry's edge cases, on a 24 x 20
+# source: negative origins, side < 1, side over ten times the source, a
+# window wholly outside.
+BANK_EDGES = [(-6.0, -3.5, 30.0), (3.0, -12.25, 18.0), (4.0, 6.0, 0.25), (10.0, 2.0, 0.0),
+              (-150.0, -120.0, 320.0), (-400.0, -380.0, 900.0), (40.0, 3.0, 10.0),
+              (-80.0, -80.0, 30.0)]
+
+
+@functools.lru_cache(maxsize=None)
+def pixel_grid(side):
+    """Row and column coordinates of a side x side image, float32 (read only)."""
+    return np.mgrid[0:side, 0:side].astype(np.float32)
+
+
+def stand_in_sprite(side, style, move_idx, phase, facing):
+    """A BGRA sprite drawn with numpy, as a tight-cropped skeletal sprite is
+    laid out: a square of side px, transparent around an opaque figure
+    (body, head, one limb whose angle follows the move and the frame's
+    phase) in the fighter's BGR colours, mirrored for facing left."""
+    yy, xx = pixel_grid(side)
+    if facing < 0:
+        xx = side - 1 - xx
+    c = side / 2.0
+    a = 2 * np.pi * (move_idx / 48.0 + phase)
+    body = ((xx - c) / (0.16 * side)) ** 2 + ((yy - 0.58 * side) / (0.26 * side)) ** 2 <= 1
+    head = (xx - c - 0.05 * side * np.sin(a)) ** 2 + (yy - 0.22 * side) ** 2 <= (0.12 * side) ** 2
+    ex, ey = 0.38 * side * np.sin(a), -0.38 * side * np.cos(a)  # the limb's end, from (c, side / 2)
+    t = np.clip(((xx - c) * ex + (yy - side / 2) * ey) / (ex * ex + ey * ey), 0, 1)
+    limb = (xx - c - t * ex) ** 2 + (yy - side / 2 - t * ey) ** 2 <= (0.04 * side) ** 2
+    img = np.zeros((side, side, 4), np.uint8)
+    for mask, color in ((body, style.body_color), (limb, style.limb_color),
+                        (head, style.head_color)):
+        img[mask] = (*color, 255)
+    return img
+
+
+def write_synth_tree(root):
+    """<root>/clean: generate_sprite_set's layout and names for 6 fighters x
+    48 moves x SYNTH_FRAMES frames x 2 facings, variant 0, with .npy
+    stand-in sprites of SYNTH_SIDES px (the card's machine has no cv2 to
+    draw skeletal sprites); <root>/stages: train_bench_weights.py's four
+    540 x 960 stage textures as .npy (BGR), where the tool writes jpg.
+    A tree whose stamp file records the same seed, settings and drawing
+    code is kept as it is.  Returns the two
+    directories, the number of sprites and whether the tree was written."""
+    import hashlib
+    import inspect
+    import shutil
+
+    from playaid_core_torch.datagen.skeletal_sprites import EXTRA_MOVES, FIGHTER_STYLES, MOVES
+
+    tool = bench_tool()
+    jobs = [(os.path.join(root, "clean", fighter, move,
+                          f"{fighter.lower().replace(' ', '-')}_c00_{move.lower()}_frame_"
+                          f"{cam}_{i}.npy"), style, k, i / SYNTH_FRAMES, facing)
+            for fighter, style in FIGHTER_STYLES.items()
+            for k, move in enumerate(MOVES + EXTRA_MOVES)
+            for facing, cam in ((1, 90), (-1, 270)) for i in range(SYNTH_FRAMES)]
+    clean, stages = os.path.join(root, "clean"), os.path.join(root, "stages")
+    stamp_file = os.path.join(root, "stamp.txt")
+    stamp = hashlib.sha256(repr((
+        FAMILY_SEED, SYNTH_FRAMES, SYNTH_SIDES, [j[:2] for j in jobs],
+        [(name, inspect.getsource(draw)) for name, draw in tool.STAGE_SPECS],
+        inspect.getsource(stand_in_sprite), inspect.getsource(write_synth_tree),
+    )).encode()).hexdigest()
+    if os.path.exists(stamp_file):
+        with open(stamp_file) as f:
+            if f.read() == stamp:
+                return clean, stages, len(jobs), False
+    shutil.rmtree(root, ignore_errors=True)
+    for d in {os.path.dirname(j[0]) for j in jobs} | {stages}:
+        os.makedirs(d)
+    rng = np.random.default_rng(FAMILY_SEED)
+    for path, *args in jobs:
+        np.save(path, stand_in_sprite(int(rng.integers(*SYNTH_SIDES)), *args))
+    rng = np.random.default_rng(0)
+    for name, draw_stage in tool.STAGE_SPECS:
+        np.save(os.path.join(stages, f"{name}.npy"), draw_stage(rng).astype(np.uint8))
+    with open(stamp_file, "w") as f:
+        f.write(stamp)
+    return clean, stages, len(jobs), True
+
+
+def bench_tool():
+    """tools/torch_port_train_bench_weights.py, the port's bench-weights
+    trainer, whose dataset and trainer arguments phase 11 runs."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_port_train_bench_weights
+
+    return torch_port_train_bench_weights
+
+
+def synth_main():
+    """python3 chip_smoke.py --synth: phase 11 in a fresh process (its banks
+    are built once, and its profiles run young in a process; check (d)'s
+    epoch in a process it starts, profile_synth).  Prints its lines, then
+    one JSON line: the failed checks and the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, ROOT)
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.conv_block import residual_block_packed
+    from playaid_core_torch.ops.crop_kernel import bank_resize, square_crop_resize, window_resize
+    from playaid_core_torch.ops.preprocess import batched_bank_resize
+    from playaid_core_torch.train.device_synth import synth_composite
+    from playaid_core_torch.train.train import Trainer
+
+    failures = []
+
+    def check(ok, what):
+        log(f"{'ok  ' if ok else 'FAIL'} {what}")
+        if not ok:
+            failures.append(what)
+
+    card = nvidia_smi_line()
+    dev = torch.device("cuda", 0)
+    work = os.path.join(ROOT, "build", "smoke")
+    b, t, s = SYNTH_BATCH, SYNTH_T, CROP
+    t0 = time.perf_counter()
+    clean, stages, n_sprites, written = write_synth_tree(SYNTH_ROOT)
+    log(f"phase 11: {n_sprites} stand-in sprites (.npy BGRA, {SYNTH_SIDES[0]}-"
+        f"{SYNTH_SIDES[1] - 1} px) and 4 stage textures "
+        f"{'written' if written else 'kept (same stamp)'} in {time.perf_counter() - t0:.1f} s")
+    # (d)'s process builds its own dataset and trainer alongside this one's.
+    with open(os.path.join(work, "profile_synth.err"), "w") as err:
+        profiler = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--profile", "synth"], cwd=ROOT,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True)
+    atexit.register(lambda: profiler.poll() is None and (profiler.kill(), profiler.wait()))
+
+    # The dataset as train_bench_weights.py builds it; the banks' copies to
+    # the card under torch.profiler (device activity only: the host's bank
+    # assembly runs thousands of small torch ops).
+    trace = os.path.join(work, "synth_banks_trace.json")
+    with profiled(torch, cpu=False) as prof:
+        t0 = time.perf_counter()
+        data = bench_tool().bench_dataset(clean, stages, SYNTH_STEPS, b, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    prof.export_chrome_trace(trace)
+    bank_h2d = trace_copy_audit(trace, "crop_resize")["h2d"]
+    sprites, stage_bank = data.sprites, data.stages
+    bank_bytes = sprites.nbytes + stage_bank.nbytes
+    check(sum(n for n, _ in bank_h2d if n) == bank_bytes and None not in [n for n, _ in bank_h2d]
+          and sprites.bank.device == dev and stage_bank.bank.device == dev,
+          f"phase 11: banks built in {build_s:.1f} s: sprites {tuple(sprites.bank.shape)} uint8 "
+          f"({sprites.nbytes} B), stages {tuple(stage_bank.bank.shape)} ({stage_bank.nbytes} B) "
+          f"on {dev}; host-to-device copies at construction {[n for n, _ in bank_h2d]} B, "
+          f"sum {sum(n for n, _ in bank_h2d if n)} = the banks' nbytes {bank_bytes}; {card}")
+
+    # Batches of parameters drawn from a probe generator; the dataset's own
+    # stream starts afresh from its seed afterwards.
+    data.rng = np.random.default_rng(1)
+    params = [data._sample_batch_params(b) for _ in range(BANK_SETS)]
+    data.synth_difficulty = 2
+    hard = data._sample_batch_params(b)
+    data.synth_difficulty = 1
+    data.rng = np.random.default_rng(0)
+
+    def on_card(p):
+        return (torch.from_numpy(p["ints"]).to(dev), torch.from_numpy(p["floats"]).to(dev))
+
+    def bank_args(ints, floats, mirror=False):
+        """The two launches' arguments of a batch: sprite rows (flipped as
+        their clip, or every other row when mirror) and stage rows."""
+        flip = ints[:, t + 1, None].expand(b, t).reshape(-1)
+        if mirror:
+            flip = (torch.arange(b * t, device=ints.device) % 2).int()
+        sp = (sprites.bank, ints[:, :t].reshape(-1),
+              torch.stack([floats[:, :t].reshape(-1), floats[:, t:2 * t].reshape(-1),
+                           floats[:, 2 * t:3 * t].reshape(-1)], 1), s, flip)
+        st = (stage_bank.bank, ints[:, t], floats[:, 3 * t:3 * t + 3], s, None)
+        return sp, st
+
+    # (a) K1's bank entry against its plain version on the card.
+    errs = {}
+    with torch.inference_mode(), full_float32():
+        for key, mirror in (("sprites", False), ("sprites, every other row mirrored", True)):
+            sp, st = bank_args(*on_card(params[0]), mirror)
+            errs[key] = float((bank_resize(*sp) - batched_bank_resize(*sp)).abs().max())
+        errs["stages"] = float((bank_resize(*st) - batched_bank_resize(*st)).abs().max())
+        rng = np.random.default_rng(2)
+        for c in (3, 4):
+            edge_bank = torch.from_numpy(rng.integers(0, 256, (5, 24, 20, c), np.uint8)).to(dev)
+            e_rows = torch.arange(len(BANK_EDGES), device=dev) % 5
+            e_org = torch.tensor(BANK_EDGES, device=dev)
+            for mirror in (None, torch.arange(len(BANK_EDGES), device=dev) % 2):
+                e = (edge_bank, e_rows, e_org, 16, mirror)
+                errs[f"edges C={c}{' mirrored' if mirror is not None else ''}"] = float(
+                    (bank_resize(*e) - batched_bank_resize(*e)).abs().max())
+    bank_err = max(errs.values())
+    check(bank_err <= BANK_TOL,
+          f"phase 11: K1 bank_resize vs batched_bank_resize on the card (full float32): "
+          f"{b * t} sprite rows {tuple(sprites.bank.shape[1:])} and {b} stage rows -> {s}^2, "
+          f"and 8 edge windows (negative origins, side < 1, side 45x the source, wholly "
+          f"outside) at C=3 and 4: max abs err {json.dumps(errs)} (tol {BANK_TOL})")
+
+    # (b) synth_composite on the card against the CPU with the same draws.
+    bank_cpu, stage_cpu = sprites.bank.cpu(), stage_bank.bank.cpu()
+    for name, p in (("difficulty 1", params[1]), ("difficulty 2", hard)):
+        ints, floats = on_card(p)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        noise = torch.randn((b, 1, s, s, 3), generator=gen, device=dev)
+        drop_u = torch.rand((b, 1, s, s, 1), generator=gen, device=dev)
+        out = synth_composite(sprites.bank, stage_bank.bank, ints, floats, s, t,
+                              noise=noise, drop_u=drop_u).cpu()
+        ref = synth_composite(bank_cpu, stage_cpu, torch.from_numpy(p["ints"]),
+                              torch.from_numpy(p["floats"]), s, t, noise=noise.cpu(),
+                              drop_u=drop_u.cpu())
+        diff = (out.int() - ref.int()).abs()
+        same = float((diff == 0).float().mean())
+        check(out.shape == (b, t, s, s, 3) and int(diff.max()) <= 1
+              and same >= COMPOSITE_SAME_MIN,
+              f"phase 11: synth_composite {name} on the card vs the CPU with the same draws: "
+              f"max diff {int(diff.max())} (tol 1), identical {same:.6f} (min "
+              f"{COMPOSITE_SAME_MIN})")
+    del bank_cpu, stage_cpu
+
+    # (c), (f) Trainer.fit as train_bench_weights.py drives it, cut to
+    # SYNTH_EPOCHS x SYNTH_STEPS steps: launch counts set to 0 before, read after.
+    log_path = os.path.join(work, "train_synth.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    config = bench_tool().bench_config(SYNTH_EPOCHS, SYNTH_STEPS, b, device=dev,
+                                     warmup_steps=SYNTH_WARMUP, log_path=log_path, verbose=False)
+    trainer = Trainer(config, data)
+    trainer.init_state(0)
+    wrappers = {"bank_resize": bank_resize, "crop_resize": square_crop_resize,
+                "window_resize": window_resize, "residual_block": residual_block_packed}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(num_epochs=SYNTH_EPOCHS, steps_per_epoch=SYNTH_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps = SYNTH_EPOCHS * SYNTH_STEPS
+    check(launches == {"bank_resize": 2 * steps, "crop_resize": 0, "window_resize": 0,
+                       "residual_block": 0} and trainer.state.step == steps,
+          f"phase 11: Trainer.fit on DeviceSynthDataset, {SYNTH_EPOCHS} epochs x {SYNTH_STEPS} "
+          f"steps (CNN-63, batch {b}, T {t}, {s} px, float32) in {fit_s:.2f} s: launches "
+          f"{json.dumps(launches)} (bank_resize 2 a step, no other kernel of the port's)")
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    for rec in records:
+        log(f"phase 11: JSONL {json.dumps(rec)}")
+    check(len(records) == SYNTH_EPOCHS and all(
+        np.isfinite(r[k]) for r in records for k in ("train_loss", "grad_norm", "param_norm")),
+          f"phase 11: {os.path.relpath(log_path, ROOT)} holds {len(records)} records, losses "
+          f"and norms finite")
+
+    # (d) A profiled epoch in a fresh process, whose first profile it is:
+    # per step only the packed parameters and the labels cross to the card
+    # (the fighter ids stay on the host).
+    out, _ = profiler.communicate("go\n", timeout=600)
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if profiler.returncode != 0 or not lines:
+        with open(os.path.join(work, "profile_synth.err")) as f:
+            raise RuntimeError(f"--profile synth exited {profiler.returncode}:\n"
+                               f"{f.read()[-4000:]}")
+    audit = json.loads(lines[-1])
+    h2d = audit["h2d"]
+    per_step = b * (t + 2) * 4 + b * (3 * t + 25) * 4 + b * t * 4  # ints, floats, labels
+    busy_share = audit["busy_us"] / audit["wall_us"]
+    check(None not in h2d and sum(h2d) == WIRE_STEPS * per_step and len(h2d) == 3 * WIRE_STEPS,
+          f"phase 11: an epoch of {WIRE_STEPS} train steps under torch.profiler: {len(h2d)} "
+          f"host-to-device copies, {sum(x for x in h2d if x)} B = {WIRE_STEPS} x {per_step} B "
+          f"(ints {b * (t + 2) * 4}, floats {b * (3 * t + 25) * 4}, labels {b * t * 4}); no "
+          f"pixel or weight bytes; {audit['lost']} of {audit['calls']} cudaMemcpy calls with no "
+          f"copy on the device (at {audit['lost_at']}); device busy "
+          f"{audit['busy_us'] / 1e3:.1f} ms of {audit['wall_us'] / 1e3:.1f} ms wall = "
+          f"{busy_share:.3f}")
+
+    # Timings of the bank entry: a batch's two launches (sprites, stages).
+    sets = [bank_args(*on_card(p)) for p in params]
+
+    def bank_call(it):
+        sp, st = sets[it % BANK_SETS]
+        return bank_resize(*sp), bank_resize(*st)
+
+    def grid_inputs(bank, rows, origins, size, flip):
+        src = bank.index_select(0, rows.long()).float()
+        if flip is not None:
+            src = torch.where(flip.bool()[:, None, None, None], src.flip(2), src)
+        i = torch.arange(size, device=dev, dtype=torch.float32)
+        side = torch.clamp(origins[:, 2], min=1.0)
+        sy = origins[:, 0, None] + (i + 0.5) * side[:, None] / size - 0.5
+        sx = origins[:, 1, None] + (i + 0.5) * side[:, None] / size - 0.5
+        gy = (2 * sy + 1) / bank.shape[1] - 1  # align_corners=False
+        gx = (2 * sx + 1) / bank.shape[2] - 1
+        return (src.permute(0, 3, 1, 2).contiguous(),
+                torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), -1))
+
+    with torch.inference_mode():
+        grids = [[grid_inputs(*a) for a in pair] for pair in sets]
+        lib_out = F.grid_sample(*grids[0][0], mode="bilinear", padding_mode="zeros",
+                                align_corners=False).permute(0, 2, 3, 1)
+        with full_float32():
+            lib_err = float((lib_out - batched_bank_resize(*sets[0][0])).abs().max())
+        bank_ms = time_cuda(torch, bank_call, 80)
+        bank_dev_ms, bank_per_call = device_ms(torch, bank_call, 80, "crop_resize_kernel", 2)
+        with full_float32():
+            bank_plain_ms = time_cuda(torch, lambda it: [batched_bank_resize(*a)
+                                                         for a in sets[it % BANK_SETS]], 8)
+        bank_lib_ms = time_cuda(torch, lambda it: [
+            F.grid_sample(*g, mode="bilinear", padding_mode="zeros", align_corners=False)
+            for g in grids[it % BANK_SETS]], 40)
+    del grids, lib_out
+    p0 = params[0]
+    sp_org = np.stack([p0["floats"][:, :t].ravel(), p0["floats"][:, t:2 * t].ravel(),
+                       p0["floats"][:, 2 * t:3 * t].ravel()], 1)
+    bank_bytes_read = (
+        bank_touched_bytes(p0["ints"][:, :t].ravel(), sp_org, np.zeros(b * t, bool), s, s, 4, s)
+        + bank_touched_bytes(p0["ints"][:, t], p0["floats"][:, 3 * t:3 * t + 3],
+                             np.zeros(b, bool), stage_bank.patch, stage_bank.patch, 3, s))
+    bank_io = bank_bytes_read + b * t * s * s * 4 * 4 + b * s * s * 3 * 4 + b * (t + 1) * 16
+    bank_bound_ms = bank_io / PEAK_BYTES_PER_S * 1e3
+    fmt = "not measured" if bank_dev_ms is None else f"{bank_dev_ms:.4f} ms"
+    log(f"phase 11: K1 bank_resize, a batch's two launches ({b * t} RGBA sprite rows and {b} "
+        f"RGB stage rows -> {s}^2): call {bank_ms:.4f} ms, device {fmt} ({bank_per_call:g} "
+        f"kernel records a call traced), plain {bank_plain_ms:.4f} ms, grid_sample on the "
+        f"gathered rows {bank_lib_ms:.4f} ms (vs plain max abs err {lib_err:.3e}), bound "
+        f"{bank_bound_ms:.4f} ms ({bank_io / 1e6:.2f} MB: {bank_bytes_read / 1e6:.2f} MB of "
+        f"taps read); {card}")
+
+    # The composite's device time and launches a batch.
+    ints0, floats0 = on_card(params[0])
+
+    def composite(_):
+        return synth_composite(sprites.bank, stage_bank.bank, ints0, floats0, s, t,
+                               generator=data.generator)
+
+    def kernel_work(prof, name):
+        """Kernel records and their device ms in a profile's exported trace."""
+        path = os.path.join(work, name)
+        prof.export_chrome_trace(path)
+        durs = [dur for _, cat, _, dur, _ in trace_device_events(path) if cat == "kernel"]
+        return len(durs), sum(durs) / 1e3
+
+    composite(0)
+    torch.cuda.synchronize()
+    with profiled(torch) as lead:  # the opening and closing kernels alone
+        pass
+    with profiled(torch) as prof:
+        for it in range(10):
+            composite(it)
+        torch.cuda.synchronize()
+    (n_lead, ms_lead) = kernel_work(lead, "lead_trace.json")
+    (n_all, ms_all) = kernel_work(prof, "composite_trace.json")
+    comp_launches, comp_dev_ms = (n_all - n_lead) / 10, (ms_all - ms_lead) / 10
+    comp_ms = time_cuda(torch, composite, 20)
+    log(f"phase 11: synth_composite (a batch of {b} x {t} x {s}^2): call {comp_ms:.4f} ms, "
+        f"device {comp_dev_ms:.4f} ms in {comp_launches:g} kernel launches (K1's two "
+        f"included); {card}")
+
+    # (e) Learning: 20 steps on one fixed synthetic batch.
+    frames, _, labels = next(data.device_batches(b, 1))
+    labels = torch.from_numpy(labels).to(dev)
+    losses = [float(trainer.train_step(trainer.state, frames, labels)[0])
+              for _ in range(LEARN_STEPS)]
+    check(losses[-1] < losses[0],
+          f"phase 11: loss on one fixed synthetic batch over {LEARN_STEPS} steps: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # The steady state.
+    rate = steady_steps_per_sec(torch, trainer, STEADY_STEPS)
+    log(f"phase 11: steady state over steps 3-{STEADY_STEPS} of an epoch of {STEADY_STEPS}: "
+        f"{rate:.3f} steps/s = {rate * b * t:.1f} crops/s (the epoch's JSONL record: "
+        f"{trainer.metrics_log[-1]['steps_per_sec']} steps/s, the fill included); {card}")
+    print(json.dumps({
+        "failures": failures, "bank_build_s": build_s, "bank_bytes": bank_bytes,
+        "sprites": n_sprites, "launches": launches, "fit_s": fit_s,
+        "steps_per_sec": rate, "crops_per_sec": rate * b * t, "busy_share": busy_share,
+        "bank_max_abs_err": bank_err, "bank_ms": bank_ms, "bank_device_ms": bank_dev_ms,
+        "bank_plain_ms": bank_plain_ms, "bank_bound_ms": bank_bound_ms,
+        "bank_library_ms": bank_lib_ms, "composite_ms": comp_ms,
+        "composite_device_ms": comp_dev_ms, "composite_launches": comp_launches}), flush=True)
+    return 0
+
+
+def run_synth_phase(check):
+    """Phase 11 through synth_main in a child process: its lines are shown
+    here and each of its failed checks fails here too.  Returns its numbers."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--synth"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        check(False, f"phase 11: chip_smoke.py --synth exited {proc.returncode}:\n"
+                     f"{proc.stderr[-4000:]}")
+        return None
+    res = json.loads(lines[-1])
+    for what in res["failures"]:
+        check(False, what)
+    return res
+
+
 def main():
     import torch
 
@@ -1659,6 +2216,8 @@ def main():
         return 2
     if sys.argv[1:2] == ["--profile"]:
         return profile_main(sys.argv[2])
+    if sys.argv[1:2] == ["--synth"]:
+        return synth_main()
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
@@ -2129,6 +2688,10 @@ def main():
     # ---- phase 10: training on the card ----
     training = run_train_phase(torch, dev, check, card, residual_block_packed)
 
+    # ---- phase 11: device-side synthetic training, in a fresh process ----
+    synth = run_synth_phase(check) or {}
+    log(f"phase 11: {json.dumps({k: v for k, v in synth.items() if k != 'failures'})}; {card}")
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -2157,6 +2720,13 @@ def main():
     kernels[1].update({f"pixels_{k}": v for k, v in pixels.items()})
     # K2 in the eval steps of phase 10's training (none in its train steps).
     kernels[1].update({f"train_{k}": v for k, v in training.items() if k != "families"})
+    # K1's bank entry in phase 11's synthetic training (and K2, none there).
+    synth_launches = synth.get("launches", {})
+    kernels[0].update({k: synth.get(k) for k in (
+        "bank_max_abs_err", "bank_ms", "bank_device_ms", "bank_plain_ms", "bank_bound_ms",
+        "bank_library_ms")})
+    kernels[0]["bank_launches"] = synth_launches.get("bank_resize")
+    kernels[1]["synth_launches"] = synth_launches.get("residual_block")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

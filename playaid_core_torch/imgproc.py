@@ -3,7 +3,7 @@ written with numpy and torch so that the card's machine, which has
 neither library, computes the same pixels.
 
 * :func:`resize` is ``cv2.resize`` with ``INTER_LINEAR`` or
-  ``INTER_AREA`` on uint8 (1 or 3 channels) and float32 images, bit for
+  ``INTER_AREA`` on uint8 (1, 3 or 4 channels) and float32 images, bit for
   bit: OpenCV's 11-bit fixed-point bilinear weights and the rounding of its
   vectorised vertical pass (``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >>
   16) + 2 >> 2``), its area tables for shrinking, its block averages for

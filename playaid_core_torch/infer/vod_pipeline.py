@@ -538,7 +538,7 @@ class VodAnalyzer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (chunks split over several devices) is not ported yet; "
-                "see ROADMAP.md, queue 1 item 11")
+                "see ROADMAP.md, queue 1 item 5")
         if decode_backend not in ("auto", "native", "cv2"):
             raise ValueError(f"decode_backend must be auto, native or cv2, got "
                              f"{decode_backend!r}")

@@ -1,12 +1,15 @@
 """Batched square crop/resize: the CUDA kernel ``csrc/crop_resize.cu`` and
-its two wrappers.
+its three wrappers.
 
 Counterpart of ``playaid_core_tpu/ops/pallas_kernels.py``.  For a CUDA
 tensor each wrapper launches the kernel (or raises); for a CPU tensor it
 runs the plain version: :func:`square_crop_resize` takes frames and boxes
 (plain version :func:`~playaid_core_torch.ops.preprocess.batched_square_crop_resize`),
 :func:`window_resize` takes windows cut out on the host and their origins
-(plain version :func:`~playaid_core_torch.ops.preprocess.batched_window_resize`).
+(plain version :func:`~playaid_core_torch.ops.preprocess.batched_window_resize`),
+:func:`bank_resize` takes a device-resident image bank, the rows to gather,
+their origins and mirrors (plain version
+:func:`~playaid_core_torch.ops.preprocess.batched_bank_resize`).
 Each counts its launches in ``.launches``.
 """
 
@@ -17,12 +20,17 @@ import ctypes
 import torch
 
 from playaid_core_torch.ops import _build
-from playaid_core_torch.ops.preprocess import batched_square_crop_resize, batched_window_resize
+from playaid_core_torch.ops.preprocess import (
+    batched_bank_resize,
+    batched_square_crop_resize,
+    batched_window_resize,
+)
 
 _ARGTYPES = {
     "crop_resize": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float]
                     + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "window_resize": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bank_resize": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -118,3 +126,52 @@ def window_resize(windows_u8, origins, out_size=128, bgr_to_rgb=False, normalize
 
 
 window_resize.launches = 0
+
+
+def bank_resize(bank_u8, rows, origins, out_size, flip=None):
+    """Resampled rows of an image bank, ``[N, S, S, C]`` float32 on the 0-255
+    scale.
+
+    bank_u8 ``[M, H, W, C]`` uint8, C = 3 or 4; rows ``[N]`` int indices
+    into it; origins ``[N, 3]`` float (y0, x0, side) in the row's pixels,
+    side clamped to at least 1; flip ``[N]`` (non-zero mirrors the row left
+    to right) or None.  Taps outside the row count as zero (a sprite's
+    transparent border, a window that hangs off the row).  On the card the
+    bank must be contiguous and 16-byte aligned, as a bank made once and
+    kept there is: the wrapper raises rather than copy it.  A row index
+    outside ``[0, M)`` reads nothing, so its crop is zeros, on the card and
+    on the CPU alike (checking the rows on the card would wait for it).
+    """
+    if bank_u8.dim() != 4 or bank_u8.shape[-1] not in (3, 4):
+        raise ValueError(f"bank must be [M, H, W, 3 or 4], got {tuple(bank_u8.shape)}")
+    n = rows.shape[0]
+    if rows.dim() != 1 or tuple(origins.shape) != (n, 3):
+        raise ValueError(f"rows must be [N] and origins [N, 3], got {tuple(rows.shape)} and "
+                         f"{tuple(origins.shape)}")
+    if flip is not None and tuple(flip.shape) != (n,):
+        raise ValueError(f"flip must be [N] for N={n} rows, got {tuple(flip.shape)}")
+    if bank_u8.device.type == "cpu":
+        return batched_bank_resize(bank_u8, rows, origins, out_size, flip)
+    dev = bank_u8.device
+    if dev.type != "cuda" or any(t is not None and t.device != dev for t in (rows, origins, flip)):
+        raise ValueError("bank, rows, origins and flip must lie on the same CUDA device")
+    if bank_u8.dtype != torch.uint8:
+        raise TypeError(f"the kernel takes a uint8 bank, got {bank_u8.dtype}")
+    if not bank_u8.is_contiguous() or bank_u8.data_ptr() % 16:
+        raise ValueError("the kernel takes a contiguous, 16-byte-aligned bank")
+    m, h, w, c = bank_u8.shape
+    rows_i = rows.to(torch.int32).contiguous()
+    origins_f = origins.float().contiguous()
+    flip_i = None if flip is None else flip.to(torch.int32).contiguous()
+    out = torch.empty((n, out_size, out_size, c), dtype=torch.float32, device=dev)
+    status = _library("bank_resize")(
+        bank_u8.data_ptr(), rows_i.data_ptr(), origins_f.data_ptr(),
+        None if flip_i is None else flip_i.data_ptr(), out.data_ptr(), m, n, h, w, c, out_size,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "bank_resize launch")
+    _build.count_launch(bank_resize)
+    return out
+
+
+bank_resize.launches = 0

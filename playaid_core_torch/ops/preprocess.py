@@ -7,10 +7,11 @@ crops ``[.., S, S, 3]`` float32: each output pixel samples the source
 bilinearly at ``origin + (i + 0.5) * side / S - 0.5``, and taps outside
 the frame count as zero, which gives the black letterbox.
 
-:func:`batched_square_crop_resize` and :func:`batched_window_resize`
-write the resample as two products with dense weight matrices per crop,
-exactly as the JAX functions do.  They are the plain versions of the CUDA
-kernel's two entries in ``ops/crop_kernel.py``.
+:func:`batched_square_crop_resize`, :func:`batched_window_resize` and
+:func:`batched_bank_resize` write the resample as two products with dense
+weight matrices per crop, exactly as the JAX functions do (``_crop_one``:
+rows first, then columns).  They are the plain versions of the CUDA
+kernel's three entries in ``ops/crop_kernel.py``.
 """
 
 from __future__ import annotations
@@ -80,11 +81,11 @@ def batched_square_crop_resize(frames, boxes, out_size=128, padding=0,
 def batched_window_resize(windows, y0, x0, side, out_size=128, normalize=True):
     """Resample windows cut out on the host to square crops.
 
-    windows ``[M, W, W, 3]`` (uint8 or float; black where out of frame);
+    windows ``[M, H, W, C]`` (uint8 or float; black where out of frame);
     y0, x0, side ``[M]`` float window-relative crop geometry, side
     clamped to at least 1.  The resample of
     :func:`batched_square_crop_resize` with the window given instead of
-    computed from a box.  Returns float32 ``[M, out_size, out_size, 3]``.
+    computed from a box.  Returns float32 ``[M, out_size, out_size, C]``.
     """
     side = torch.clamp(side.float(), min=1.0)
     wy = _axis_weights(y0.float(), side, windows.shape[1], out_size)  # [M, S, W]
@@ -94,6 +95,30 @@ def batched_window_resize(windows, y0, x0, side, out_size=128, normalize=True):
     if normalize:
         out = out / 255.0
     return out
+
+
+def batched_bank_resize(bank, rows, origins, out_size, flip=None):
+    """Resample gathered rows of an image bank, unnormalised.
+
+    bank ``[M, H, W, C]`` (uint8 or float, C = 3 or 4); rows ``[N]`` int
+    indices into it; origins ``[N, 3]`` float (y0, x0, side) in the row's
+    pixels, side clamped to at least 1; flip ``[N]`` (non-zero mirrors the
+    row left to right before the resample) or None.  What the JAX
+    device-side synthesis computes with ``jnp.take(bank, rows)``, an
+    optional ``[:, :, ::-1]`` and ``vmap(_crop_one)``
+    (``playaid_core_tpu/train/device_synth.py:223-232, :265-268``).  A row
+    index outside ``[0, M)`` reads nothing: its crop is zeros, as in K1's
+    bank entry.  Returns float32 ``[N, out_size, out_size, C]`` on the 0-255
+    scale.
+    """
+    rows = rows.long()
+    inside = (rows >= 0) & (rows < bank.shape[0])
+    src = bank.index_select(0, torch.where(inside, rows, 0)).float()
+    src = src * inside[:, None, None, None]
+    if flip is not None:
+        src = torch.where(flip.bool()[:, None, None, None], src.flip(2), src)
+    return batched_window_resize(src, origins[:, 0], origins[:, 1], origins[:, 2], out_size,
+                                 normalize=False)
 
 
 def middle_out_frame_indices(middle_frame, num_frames_per_sample, frame_delta,

@@ -14,7 +14,9 @@ ult_action_dataset.py:139-689) for the ground-truth splits:
   ``switch_num_frames_per_sample`` (reference: :561-567);
 * ``batches()``, assembling ``[B, T, H, W, 3]`` uint8 arrays for the
   trainer's staging (uint8 is the wire format: the train step normalises
-  on the device).
+  on the device);
+* :func:`get_character_actions_animations_dict`, the walk of a clean-char
+  sprite tree that ``train/device_synth.py`` builds its sprite bank from.
 
 Every draw comes from the dataset's ``numpy.random.Generator`` (``seed``)
 in the JAX package's order, and images are read and resized with the same
@@ -55,6 +57,51 @@ def middle_out_sample(middle_frame, num_frames_per_sample, frame_delta, max_fram
         middle_out_frame_indices(middle_frame, num_frames_per_sample, frame_delta,
                                  max_frames, min_frame)
     )]
+
+
+def get_character_actions_animations_dict(clean_char_dir=None):
+    """char -> move -> body -> raw_anim -> cam -> frame paths sorted by frame
+    number (reference: dataset_utils.py:429-506), from file names
+    ``{char}_{body}_{anim_name}_frame_{cam}_{frame_num}``.
+
+    Sprites are ``*.png`` files (read through cv2) or ``*.npy`` files, which
+    hold what ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` returns for the
+    PNG (BGRA) and need no cv2.
+    """
+    from glob import glob
+    from pathlib import Path
+
+    clean_char_dir = clean_char_dir or constants.ULT_DATASET_CLEAN_CHAR_DIR
+    character_animations = {}
+    if not os.path.isdir(clean_char_dir):
+        return character_animations
+
+    for fighter in os.listdir(clean_char_dir):
+        fighter_dir = os.path.join(clean_char_dir, fighter)
+        if not os.path.isdir(fighter_dir):
+            continue
+        character_animations.setdefault(fighter, {})
+        for move in os.listdir(fighter_dir):
+            move_dir = os.path.join(fighter_dir, move)
+            if not os.path.isdir(move_dir):
+                continue
+            character_animations[fighter].setdefault(move, {})
+            for animation_file in (glob(os.path.join(move_dir, "*.png"))
+                                   + glob(os.path.join(move_dir, "*.npy"))):
+                attrs = Path(animation_file).stem.split("_")
+                node = (
+                    character_animations[fighter][move]
+                    .setdefault(attrs[1], {})                   # body type
+                    .setdefault("_".join(attrs[2:-2]), {})      # animation name
+                    .setdefault(attrs[-2], [])                  # camera
+                )
+                node.append(animation_file)
+            for body_type in character_animations[fighter][move].values():
+                for anim_name in body_type.values():
+                    for cam in anim_name:
+                        anim_name[cam] = sorted(
+                            anim_name[cam], key=lambda p: int(Path(p).stem.split("_")[-1]))
+    return character_animations
 
 
 class UltActionRecogDataset:

@@ -15,10 +15,12 @@ models/*_detector.py training steps), as an explicit PyTorch loop:
   tensors (no host synchronisation);
 * :class:`Trainer`: batches assembled in a background thread, shipped as
   uint8 through pinned slots and a copy stream two steps ahead
-  (``parallel/staging.py``), per-step metrics kept on the device until the
-  epoch ends, the JAX trainer's JSONL record, its curriculum (train
-  accuracy above the threshold raises the augmentation difficulty) and T
-  resampling for the RNN, validation, and checkpoints: ``step_<epoch>.pt``
+  (``parallel/staging.py``), or, from a dataset with ``device_batches``
+  (``train/device_synth.py``), made on the device and taken straight into
+  the step with only their labels copied; per-step metrics kept on the
+  device until the epoch ends, the JAX trainer's JSONL record, its
+  curriculum (train accuracy above the threshold raises the augmentation
+  difficulty) and T resampling for the RNN, validation, and checkpoints: ``step_<epoch>.pt``
   holds ``{"embed", "head"}`` state dicts, which
   ``BatchedActionPipeline.load_checkpoint`` reads, and
   ``step_<epoch>.trainer.pt`` beside it the optimizer, schedule and
@@ -71,8 +73,6 @@ NOT_BF16 = ("the port trains in float32 only: bfloat16 comes in with the label-a
             "check of the ROADMAP's north star")
 NOT_MODEL_PARALLEL = ("the port trains on one device: a model-parallel mesh is ROADMAP "
                       "queue 1 item 5 (parallel/mesh.py -> torch.distributed)")
-NOT_DEVICE_BATCHES = ("device-side batch generation (train/device_synth.py) is not ported: "
-                      "ROADMAP queue 1 item 4")
 
 
 def build_model(family: str, num_actions: int, sequence_length: int):
@@ -251,15 +251,29 @@ def _training_state_path(path):
     return os.path.splitext(path)[0] + ".trainer.pt"
 
 
+def _device_key(device):
+    """``device`` with the current CUDA device's index filled in, so that
+    ``cuda`` and ``cuda:0`` compare equal; None stays None."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Trainer:
     """Training loop with staging, curriculum, validation and checkpoints,
     on one device."""
 
     def __init__(self, config: TrainerConfig, train_dataset, val_dataset=None):
-        if getattr(train_dataset, "device_batches", None) is not None:
-            raise NotImplementedError(NOT_DEVICE_BATCHES)
         self.config = config
         self.device = resolve_device(config.device)
+        if hasattr(train_dataset, "device_batches") and (
+                _device_key(getattr(train_dataset, "device", None)) != _device_key(self.device)):
+            raise ValueError(
+                f"the dataset makes its batches on {getattr(train_dataset, 'device', None)} and "
+                f"the trainer runs on {self.device}: build both for one device")
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.model, self.loss_fn = build_model(config.family, config.num_actions,
@@ -315,6 +329,22 @@ class Trainer:
                     self._tb_writer.add_scalar(key, value, step)
             self._tb_writer.flush()
 
+    def _epoch_batches(self, steps):
+        """An epoch's (frames, chars, labels) with frames and labels on the
+        device.  A dataset with ``device_batches`` makes its uint8 frames on
+        the device: no producer thread, no staging, only the labels are
+        copied.  Otherwise the host assembles uint8 batches in a background
+        thread and ``device_prefetch`` copies them two steps ahead."""
+        cfg = self.config
+        device_gen = getattr(self.train_dataset, "device_batches", None)
+        if device_gen is not None:
+            for frames, chars, labels in device_gen(cfg.batch_size, steps):
+                yield frames, chars, torch.from_numpy(labels).to(self.device, non_blocking=True)
+            return
+        with BackgroundIterator(self.train_dataset.batches(cfg.batch_size, steps),
+                                maxsize=4) as batches:
+            yield from device_prefetch(batches, 2, self.device)
+
     def fit(self, num_epochs=None, steps_per_epoch=None, seed=0):
         if self.state is None:
             self.init_state(seed)
@@ -329,20 +359,17 @@ class Trainer:
             t_frames = 1
             start = time.time()
             # uint8 batches (the wire format): normalised on the device.
-            batches = BackgroundIterator(self.train_dataset.batches(cfg.batch_size, steps),
-                                         maxsize=4)
-            with batches:
-                for frames, chars, labels in device_prefetch(batches, 2, self.device):
-                    loss, acc, gnorm, pnorm = self.train_step(self.state, frames, labels)
-                    # Kept on the device until the epoch ends: reading one
-                    # here would wait for the step and stop the copies and
-                    # the host's batch assembly from overlapping it.
-                    epoch_losses.append(loss)
-                    epoch_accs.append(acc)
-                    epoch_gnorms.append(gnorm)
-                    epoch_pnorm = pnorm
-                    n_steps += 1
-                    t_frames = frames.shape[1]  # the RNN resamples T per epoch
+            for frames, chars, labels in self._epoch_batches(steps):
+                loss, acc, gnorm, pnorm = self.train_step(self.state, frames, labels)
+                # Kept on the device until the epoch ends: reading one here
+                # would wait for the step and stop the copies and the host's
+                # batch assembly from overlapping it.
+                epoch_losses.append(loss)
+                epoch_accs.append(acc)
+                epoch_gnorms.append(gnorm)
+                epoch_pnorm = pnorm
+                n_steps += 1
+                t_frames = frames.shape[1]  # the RNN resamples T per epoch
             epoch_losses = torch.stack(epoch_losses).tolist() if epoch_losses else []
             epoch_accs = torch.stack(epoch_accs).tolist() if epoch_accs else []
             epoch_gnorms = torch.stack(epoch_gnorms).tolist() if epoch_gnorms else []

@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
-its card-path modules (the log-driven VOD path, the pixels-only path and
-the training path) import no cv2, PIL, yaml or click (the card's machine has none of them),
-and chip_smoke.py refuses to run without a CUDA device.
+its card-path modules (the log-driven VOD path, the pixels-only path, the
+training path and device-side synthesis) import no cv2, PIL, yaml or click
+(the card's machine has none of them), and chip_smoke.py refuses to run
+without a CUDA device.
 
 The import check runs in a subprocess, because tests/conftest.py imports
 jax into the test process.
@@ -75,7 +76,8 @@ print("ok")
 # Modules the training path (Trainer.fit on a tree of .npy crops) imports on the card.
 TRAIN_PATH = ("models.losses", "models.cnn_action_detector", "models.rnn_action_detector",
               "models.resnet_transformer", "parallel.staging", "profiling", "timeline",
-              "train.augment", "train.dataset", "train.train")
+              "train.augment", "train.dataset", "train.train", "datagen.skeletal_sprites",
+              "train.device_synth")
 
 _IMPORT_TRAIN_PATH = f"""
 import importlib, sys
@@ -92,6 +94,41 @@ except ImportError as e:
     assert "cv2" in str(e)
 else:
     raise AssertionError("cv2.blur ran without cv2")
+print("ok")
+"""
+
+
+# Device-side synthesis on a .npy tree (BGRA sprites, BGR stages), as the
+# card's machine runs it: banks, one composited batch, and the sprite
+# generator's refusal without cv2.
+_SYNTH_ON_NPY = f"""
+import os, sys, tempfile
+import numpy as np
+for name in {BANNED + HOST_ONLY!r}:
+    sys.modules[name] = None
+from playaid_core_torch.datagen import skeletal_sprites
+from playaid_core_torch.train.device_synth import DeviceSynthDataset
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+for move in ("Wait", "Jab"):
+    d = os.path.join(root, "clean", "Byleth", move)
+    os.makedirs(d)
+    for i in range(3):
+        sprite = rng.integers(0, 256, (110 + 20 * i, 104, 4), dtype=np.uint8)
+        np.save(os.path.join(d, f"byleth_c00_{{move.lower()}}_frame_90_{{i}}.npy"), sprite)
+os.makedirs(os.path.join(root, "stages"))
+np.save(os.path.join(root, "stages", "a.npy"), rng.integers(0, 256, (200, 240, 3), dtype=np.uint8))
+ds = DeviceSynthDataset(["Wait", "Jab", "Unknown"], ["Byleth"], os.path.join(root, "clean"),
+                        os.path.join(root, "stages"), num_frames_per_sample=3, crop_size=32,
+                        stage_patch=64, device="cpu")
+frames, chars, labels = next(ds.device_batches(2))
+assert tuple(frames.shape) == (2, 3, 32, 32, 3) and ds.sprites.num_sprites == 6
+try:
+    skeletal_sprites.render_sprite("Byleth", "Jab", 0.5)
+except ImportError as e:
+    assert "cv2" in str(e)
+else:
+    raise AssertionError("a sprite was drawn without cv2")
 print("ok")
 """
 
@@ -135,6 +172,15 @@ def test_train_path_imports_with_cv2_pil_yaml_click_blocked():
     """The training path on a machine without cv2, PIL, yaml or click: it
     imports, and the augmentation ops still on cv2 name it."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN_PATH], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_synth_path_runs_on_npy_with_cv2_pil_yaml_click_blocked():
+    """Device-side synthesis on a machine without cv2 (the card's): the
+    sprite and stage banks from .npy files, a composited batch, and the
+    sprite generator naming cv2."""
+    proc = subprocess.run([sys.executable, "-c", _SYNTH_ON_NPY], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 

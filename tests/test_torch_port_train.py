@@ -741,10 +741,21 @@ def test_trainer_defaults_to_cuda_and_refuses_unported_options(tiny_gt_tree):
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(tiny_config(device=None), ds)
 
-    class DeviceSynth:
-        device_batches = staticmethod(lambda batch_size, steps: iter(()))
+    # A dataset with device_batches is no longer refused: its frames go
+    # into the step as they come, and only its labels are copied.
+    frames = torch.zeros((2, 3, CROP, CROP, 3), dtype=torch.uint8)
+    batch = (frames, np.zeros(2, np.int32), np.zeros((2, 3), np.int32))
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    class DeviceSynth:
+        device = torch.device("cpu")
+        device_batches = staticmethod(lambda batch_size, steps: iter([batch]))
+
+    (got, _, labels), = Trainer(tiny_config(), DeviceSynth())._epoch_batches(1)
+    assert got is frames and isinstance(labels, torch.Tensor) and labels.shape == (2, 3)
+
+    # Its device must be the trainer's: a mismatch is named at once.
+    DeviceSynth.device = torch.device("meta")
+    with pytest.raises(ValueError, match="meta.*cpu"):
         Trainer(tiny_config(), DeviceSynth())
 
 

@@ -5,6 +5,8 @@ host-to-device copies, and whether it shows when it has lost one.
 Run from the root of a checkout on a machine with a card:
     python3 tools/torch_port_trace_audit.py window [RUNS]
     python3 tools/torch_port_trace_audit.py lead [REPEATS]
+    python3 tools/torch_port_trace_audit.py synth [REPEATS]
+    python3 tools/torch_port_trace_audit.py settle [REPEATS]
 
 window (the default; RUNS 30): sets up chip_smoke.py's phase 8 (the
 scripted 480-frame log, its boxes, frames from the numpy capture,
@@ -22,13 +24,27 @@ the same four cases), so each case runs REPEATS times young and as often
 late:
   copy        a lone 44,236,800 B pageable host-to-device copy;
   copy+lead   the same copy in a chip_smoke.profiled session, which first
-              runs one small kernel to its end;
+              runs one small kernel to its end (and ends with another);
   detect x3   three detector batches of 16 720p frames (seeded weights);
   detect+lead the same three batches in a chip_smoke.profiled session.
 Prints a line a profile and a summary line a case and time (profiles that
 lost a record, of all).
 
-Both modes print the card's name and power limit last.
+synth (REPEATS 20): chip_smoke.py's phase 11 epoch (its synthetic tree,
+written if need be, chip_smoke.synth_profile_trainer) run once, then
+profiled REPEATS times in a row in this process, whose first profiles they
+are; a line a session (host-to-device copies against the 3 a step, lost
+calls and where they sit) and a summary line.
+
+settle (REPEATS 10): phase 11's dataset built under chip_smoke.profiled
+(device only), as chip_smoke.py --synth builds it; then, REPEATS times,
+80 calls of K1's bank entry (a batch's two launches each) profiled once
+with chip_smoke.profiled's pause and the opening kernels after it, and
+once with its first opening kernel alone (the order alternating); a line a session (bank kernel records
+against 160, kernel launches with no record on the device and where they
+sit) and a summary line a variant.
+
+Every mode prints the card's name and power limit last.
 """
 
 import json
@@ -165,6 +181,73 @@ def lead(repeats):
     return 0
 
 
+def synth(repeats):
+    dev = torch.device("cuda")
+    chip_smoke.write_synth_tree(chip_smoke.SYNTH_ROOT)
+    trainer = chip_smoke.synth_profile_trainer(dev)
+    steps = chip_smoke.WIRE_STEPS
+
+    def run():
+        trainer.fit(num_epochs=1, steps_per_epoch=steps)
+
+    run()
+    short = []
+    for session in range(1, repeats + 1):
+        r = chip_smoke.profile_h2d(torch, run, os.path.join(WORK, "trace_audit_synth.json"))
+        print(f"session {session}: {len(r['h2d'])} of {3 * steps} host-to-device copies, "
+              f"{sum(b for b in r['h2d'] if b)} B; {r['calls']} cudaMemcpy calls, {r['lost']} "
+              f"with no copy on the device (call index, ms into the trace: {r['lost_at']}); "
+              f"notes {r['notes'] or 'none'}; busy {r['busy_us'] / r['wall_us']:.3f}", flush=True)
+        if len(r["h2d"]) != 3 * steps or r["lost"] or r["notes"]:
+            short.append(session)
+    print(json.dumps({"sessions": repeats, "short": short}))
+    return 0
+
+
+def settle(repeats):
+    from playaid_core_torch.ops.crop_kernel import bank_resize
+
+    dev = torch.device("cuda")
+    clean, stages, _, _ = chip_smoke.write_synth_tree(chip_smoke.SYNTH_ROOT)
+    b, t, s = chip_smoke.SYNTH_BATCH, chip_smoke.SYNTH_T, chip_smoke.CROP
+    with chip_smoke.profiled(torch, cpu=False):
+        data = chip_smoke.bench_tool().bench_dataset(clean, stages, chip_smoke.SYNTH_STEPS, b,
+                                                     device=dev)
+        torch.cuda.synchronize()
+    p = data._sample_batch_params(b)
+    ints = torch.from_numpy(p["ints"]).to(dev)
+    floats = torch.from_numpy(p["floats"]).to(dev)
+    flip = ints[:, t + 1, None].expand(b, t).reshape(-1)
+    sp = (data.sprites.bank, ints[:, :t].reshape(-1),
+          torch.stack([floats[:, :t].reshape(-1), floats[:, t:2 * t].reshape(-1),
+                       floats[:, 2 * t:3 * t].reshape(-1)], 1), s, flip)
+    st = (data.stages.bank, ints[:, t], floats[:, 3 * t:3 * t + 3], s, None)
+    for _ in range(3):
+        bank_resize(*sp), bank_resize(*st)
+    torch.cuda.synchronize()
+    trace = os.path.join(WORK, "trace_audit_settle.json")
+    short, sessions = Counter(), Counter()
+    for rep in range(repeats):
+        pauses = (chip_smoke.PROFILE_SETTLE_S, 0.0)
+        for pause in pauses if rep % 2 else pauses[::-1]:
+            with chip_smoke.profiled(torch, settle_s=pause) as prof:
+                for _ in range(80):
+                    bank_resize(*sp), bank_resize(*st)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(trace)
+            records = sum(1 for name, cat, *_ in chip_smoke.trace_device_events(trace)
+                          if cat == "kernel" and "crop_resize_kernel" in name)
+            launches, lost = chip_smoke.lost_launches(trace)
+            sessions[pause] += 1
+            short[pause] += records != 160
+            print(f"repeat {rep}, pause {pause} s: {records} of 160 bank kernel records; "
+                  f"{launches} launches, {len(lost)} with no kernel on the device (launch "
+                  f"index, ms into the trace: {lost})", flush=True)
+    for pause in sorted(sessions):
+        print(f"summary pause {pause} s: {short[pause]} of {sessions[pause]} sessions short")
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -175,8 +258,12 @@ def main():
         rc = window(count or 30)
     elif mode == "lead":
         rc = lead(count or 3)
+    elif mode == "synth":
+        rc = synth(count or 20)
+    elif mode == "settle":
+        rc = settle(count or 10)
     else:
-        print(f"unknown mode {mode!r}: window or lead", file=sys.stderr)
+        print(f"unknown mode {mode!r}: window, lead, synth or settle", file=sys.stderr)
         return 2
     print(chip_smoke.nvidia_smi_line())
     return rc
