@@ -98,7 +98,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    and its labels to the card, and the busy share; (e) the loss
    on one fixed synthetic batch falls over 20 steps; (f) the JSONL
    records; then the bank entry's and the composite's times and the
-   steady state of a 50-step epoch.
+   steady state of a 50-step epoch;
+12. character-detector training: a YOLO tree under build/smoke/detector/
+   (96 training and 64 validation 720x1280 BGR .npy composites of 1-4
+   stand-in characters drawn with numpy, 50-150 px wide, one palette a
+   class, placed as gen_synth_char_detection places them) ->
+   DetectionDataset -> DetectorTrainer (CenterNet, 6 classes, 256x448,
+   head 128, batch 8, AdamW lr 5e-4 wd 1e-4, float32 with TF32 off, Flax's
+   seeded init): (a) one step of batch 2 against the CPU in float64: the
+   card's float32 loss, its float64 gradients, and its float32 gradients'
+   error beside the CPU float32's; (b) the command line, main([...]) in
+   this process, 40 steps on the training split; (c) K1 and K2 launches 0
+   in fit, K2 one a batch of 16 in evaluate(64); (d) after training, K2
+   against its plain version on the trunk's layer4[1] input at
+   16x8x14x512, timed, and evaluate's first batch with layer4[1] on K2 and
+   on residual_block_ref; (e) the loss on one fixed batch falls over 20
+   steps; (f) in a fresh process (python3 chip_smoke.py --profile
+   detector) a 20-step epoch copies exactly its images and targets
+   (5,275,648 B a step) and no weights, with the busy share and K2's device
+   time; (g) the steady state of a 50-step fit, a batch assembled alone, a
+   step alone, and evaluate's loc and loc_class.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -582,6 +601,43 @@ def k2_ref_args(block, x_nchw):
             block.conv2.weight.permute(2, 3, 1, 0).contiguous(), s2, b2)
 
 
+def k2_yardsticks(torch, block, x, k2_args, pack):
+    """K2's call ms on layer4[1]'s pack and input x (NCHW), its plain
+    version's and the cuDNN chain's (conv -> bn -> relu -> conv -> bn -> add
+    -> relu, TF32 off) on the same input, and the least time the card could
+    take: 3xTF32 operations at the TF32 peak, or the bytes (each input read
+    once, the output written once), the larger."""
+    import torch.nn.functional as F
+
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+
+    x_nhwc = k2_args[0]
+    x_nchw = x.contiguous()
+    bn = (block.bn1, block.bn2)
+
+    def cudnn_chain(_):
+        y = F.conv2d(x_nchw, block.conv1.weight, padding=1)
+        y = torch.relu(F.batch_norm(y, bn[0].running_mean, bn[0].running_var, bn[0].weight,
+                                    bn[0].bias, False, 0.0, bn[0].eps))
+        y = F.conv2d(y, block.conv2.weight, padding=1)
+        y = F.batch_norm(y, bn[1].running_mean, bn[1].running_var, bn[1].weight, bn[1].bias,
+                         False, 0.0, bn[1].eps)
+        return torch.relu(y + x_nchw)
+
+    with torch.inference_mode():
+        ms = time_cuda(torch, lambda _: residual_block_packed(x_nhwc, pack), 40)
+        plain_ms = time_cuda(torch, lambda _: residual_block_ref(*k2_args), 20)
+        with full_float32():
+            library_ms = time_cuda(torch, cudnn_chain, 40)
+    m, c = x_nhwc.shape[0] * x_nhwc.shape[1] * x_nhwc.shape[2], x_nhwc.shape[3]
+    flops = 2 * 2 * m * c * 9 * c
+    nbytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
+    bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "gflop": flops / 1e9}
+
+
 def bf16_ulps(out, ref):
     """Largest |out - ref| in bf16 ulps of max(|ref|, max|ref| / 64)."""
     mag = np.maximum(np.abs(ref), np.abs(ref).max() / 64)
@@ -970,8 +1026,11 @@ def run_log_phase(torch, dev, check, wrappers):
 PIX_W, PIX_H, PIX_FRAMES, PIX_BATCH = 1280, 720, 240, 16
 PIX_DISC_RADIUS, PIX_STEP = 48, 30
 PIX_CPU_FRAMES = 8        # frames of the card-vs-CPU detection check
-PIX_MAX_DET = 1024        # peaks a frame: the seeded heatmap ranks class 3's best near 800
+PIX_MAX_DET = 1024        # peaks a frame: class 3's best ranks 29-61 of a seeded heatmap
 PIX_SEED_BOX_CELLS = 16.0  # the seeded size head's bias, in output cells
+# imgproc.linear_u8_tables from 720x1280 to 256x448: column taps (int64) and
+# weights (int32), 448 each; row taps and weights, 256 each.
+PIX_TABLE_COPIES = [448 * 8] * 2 + [448 * 4] * 2 + [256 * 8] * 2 + [256 * 4] * 2
 BOX_TOL = 1e-4            # card vs CPU detection boxes, max abs (normalised)
 GLYPHS = {
     "0": ("01110", "10001", "10011", "10101", "11001", "10001", "01110"),
@@ -1045,12 +1104,27 @@ class PixelsClipCapture:
         pass
 
 
+def seeded_detector(trainer):
+    """Phase 9's detector: Flax's seeded init (DetectorTrainer.init(0)), with
+    two biases moved.  The seeded size head predicts boxes of about 0 cells
+    (its bias is 0, as in the JAX init); a bias of 16 output cells (64 px at
+    the 256x448 input) gives boxes that the character detector can cut
+    crops from.  Flax zeroes each residual block's last batch-norm scale,
+    which would leave layer4[1]'s second convolution out of everything K2
+    is held to here; that scale is set to 1."""
+    import torch
+
+    trainer.init(0)
+    with torch.no_grad():
+        trainer.model.heads["size"][2].bias.fill_(PIX_SEED_BOX_CELLS)
+        trainer.model.trunk.layer4[1].bn2.weight.fill_(1.0)
+    return trainer
+
+
 def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     """Phase 9: the pixels-only path, AIRunner on frames with no log.
     Returns K2's numbers at the detector's shape and its launches."""
     import shutil
-
-    import torch.nn.functional as F
 
     from playaid_core_torch import constants
     from playaid_core_torch.convert import load_npz_tree
@@ -1080,14 +1154,8 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     frames = np.stack([cap.read()[1] for _ in range(PIX_BATCH)])
     rgb = np.ascontiguousarray(frames[..., ::-1])
 
-    trainer = DetectorTrainer(device=dev).init(0)
-    cpu_trainer = DetectorTrainer(device="cpu").init(0)
-    # The seeded size head predicts boxes of about 0 cells (its bias is 0, as
-    # in the JAX init); a bias of 16 output cells (64 px at the 256x448
-    # input) gives boxes that the character detector can cut crops from.
-    with torch.no_grad():
-        for t in (trainer, cpu_trainer):
-            t.model.heads["size"][2].bias.fill_(PIX_SEED_BOX_CELLS)
+    trainer = seeded_detector(DetectorTrainer(device=dev))
+    cpu_trainer = seeded_detector(DetectorTrainer(device="cpu"))
     params = list(trainer.model.parameters())
     check(all(p.device.type == "cuda" for p in params),
           f"phase 9: all {len(params)} detector weight tensors on {dev} after init")
@@ -1110,34 +1178,15 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     check(tuple(x_nhwc.shape) == (PIX_BATCH, 8, 14, 512) and k2_err <= K2_F32_REL_TOL * k2_scale,
           f"phase 9: K2 residual_block f32 at the detector's layer4[1] {tuple(x_nhwc.shape)}: "
           f"max abs err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {k2_scale:.3f})")
-    x_nchw = seen["x"].contiguous()
-    bn = (block.bn1, block.bn2)
-
-    def cudnn_chain(_):
-        y = F.conv2d(x_nchw, block.conv1.weight, padding=1)
-        y = torch.relu(F.batch_norm(y, bn[0].running_mean, bn[0].running_var, bn[0].weight,
-                                    bn[0].bias, False, 0.0, bn[0].eps))
-        y = F.conv2d(y, block.conv2.weight, padding=1)
-        y = F.batch_norm(y, bn[1].running_mean, bn[1].running_var, bn[1].weight, bn[1].bias,
-                         False, 0.0, bn[1].eps)
-        return torch.relu(y + x_nchw)
-
+    k2 = k2_yardsticks(torch, block, seen["x"], k2_args, pack)
     with torch.inference_mode():
-        k2_ms = time_cuda(torch, lambda _: residual_block_packed(x_nhwc, pack), 40)
         k2_dev_ms, k2_per_call = device_ms(torch, lambda _: residual_block_packed(x_nhwc, pack),
                                            40, "conv3x3_wgmma_kernel", 2)
-        k2_plain_ms = time_cuda(torch, lambda _: residual_block_ref(*k2_args), 20)
-        with full_float32():
-            k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
-    m, c = PIX_BATCH * 8 * 14, 512
-    k2_flops = 2 * 2 * m * c * 9 * c
-    k2_bytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
-    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
-    log(f"phase 9: K2 f32 at {tuple(x_nhwc.shape)}: call {k2_ms:.4f} ms, device "
+    log(f"phase 9: K2 f32 at {tuple(x_nhwc.shape)}: call {k2['ms']:.4f} ms, device "
         f"{'not measured' if k2_dev_ms is None else f'{k2_dev_ms:.4f} ms'} "
         f"({k2_per_call:g} of 2 kernel records a call traced), plain "
-        f"{k2_plain_ms:.4f} ms, cuDNN chain {k2_lib_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
-        f"(3 x {k2_flops / 1e9:.2f} GFLOP TF32); {card}")
+        f"{k2['plain_ms']:.4f} ms, cuDNN chain {k2['library_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms (3 x {k2['gflop']:.2f} GFLOP TF32); {card}")
 
     # Card against CPU: the same frames and seeded weights.
     on_card = trainer.detect(rgb[:PIX_CPU_FRAMES], max_det=PIX_MAX_DET, score_threshold=threshold,
@@ -1159,20 +1208,25 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
           f"classes identical {same_cls}; their boxes and each class's best box max abs err "
           f"{box_err:.3e} (tol {BOX_TOL})")
 
-    # Host-to-device bytes of one detect() batch: the frames, no weights,
-    # profiled in a fresh process (profile_in_fresh_process).
+    # Host-to-device bytes of two detect() batches of a frame size that the
+    # trainer has not resized before: the frames each time, the resize
+    # tables (8 small copies) only with the first, no weights and no class
+    # mask (kept on the card since the warm-up); profiled in a fresh process
+    # (profile_in_fresh_process).
     audit = profile_in_fresh_process("detect")
     h2d = audit["h2d"]
     big = [b for b in h2d if b is not None and b >= 65536]
-    rest = sum(b for b in h2d if b is not None and b < 65536)
+    small = [b for b in h2d if b is not None and b < 65536]
     log(f"phase 9: detect() profiled in a fresh process: {len(h2d)} host-to-device copies in "
         f"the trace ({h2d.count(None)} without a size); {audit['calls']} cudaMemcpy calls "
         f"traced on the host, {audit['lost']} with no copy on the device; profiler notes of "
         f"dropped records: {audit['notes'] or 'none'}")
-    check(big == [rgb.nbytes] and None not in h2d and rest < 65536,
-          f"phase 9: host-to-device copies of one detect() batch under torch.profiler: "
-          f"{len(big)} of >= 64 KiB = {big} B (the frames: {rgb.nbytes} B), the rest {rest} B "
-          f"in {len(h2d) - len(big)} copies")
+    check(big == [rgb.nbytes] * 2 and None not in h2d
+          and sorted(small) == sorted(PIX_TABLE_COPIES),
+          f"phase 9: host-to-device copies of two detect() batches under torch.profiler: "
+          f"{len(big)} of >= 64 KiB = {big} B (the frames: {rgb.nbytes} B each), and "
+          f"{sum(small)} B in {len(small)} small copies {sorted(small)} (the resize tables "
+          f"from {PIX_H}x{PIX_W}, once: {sorted(PIX_TABLE_COPIES)})")
 
     # detect() alone on batches of 16.
     batches = [np.ascontiguousarray(np.stack([cap.read()[1] for _ in range(PIX_BATCH)])[..., ::-1])
@@ -1272,8 +1326,9 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
           f"logits of {len(patches)} patches max abs err {logit_err:.3e} (tol {LOG_PROB_TOL}); "
           f"smoothed values read {values[:8]}")
     return {"launches": det_launches + rec_launches, "max_abs_err": k2_err,
-            "shape": list(x_nhwc.shape), "ms": k2_ms, "device_ms": k2_dev_ms,
-            "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms, "library_ms": k2_lib_ms,
+            "shape": list(x_nhwc.shape), "ms": k2["ms"], "device_ms": k2_dev_ms,
+            "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+            "library_ms": k2["library_ms"],
             "embed_shapes": [list(s) for s in embed_shapes], "embed_rel_err": embed_err}
 
 
@@ -1349,13 +1404,14 @@ def profile_h2d(torch, run, trace):
 
 
 def profile_main(kind):
-    """python3 chip_smoke.py --profile detect|train|synth: profile one
-    detect() batch of phase 9, or an epoch of WIRE_STEPS train steps of
-    phase 10 (CNN-63 from the bench weights on the tree at TRAIN_ROOT) or,
-    through profile_synth, of phase 11, after one
-    unprofiled run, in this fresh process; print profile_h2d's result as
-    JSON, for train with K2's device time at the eval shape of the
-    training path (k2_device_ms, k2_records_per_call).  Late in this
+    """python3 chip_smoke.py --profile detect|train|synth|detector: profile
+    two detect() batches of phase 9 (after one at another frame size), or an
+    epoch of WIRE_STEPS train steps of phase 10 (CNN-63 from the bench
+    weights on the tree at TRAIN_ROOT), of phase 11 (profile_synth) or of
+    phase 12 (profile_detector), after one unprofiled run, in this fresh
+    process; print profile_h2d's result as JSON, for train and detector
+    with K2's device time at the path's eval shape (k2_device_ms,
+    k2_records_per_call).  Late in this
     script's long process the profiler lost the device records of large
     copies and kernels even after a leading kernel (phases 9 and 10,
     PERF.md); early in a process it had lost none
@@ -1368,14 +1424,18 @@ def profile_main(kind):
     if kind == "detect":
         from playaid_core_torch.train.detector_train import DetectorTrainer
 
-        trainer = DetectorTrainer(device=dev).init(0)
-        with torch.no_grad():
-            trainer.model.heads["size"][2].bias.fill_(PIX_SEED_BOX_CELLS)
+        trainer = seeded_detector(DetectorTrainer(device=dev))
         cap = PixelsClipCapture()
         rgb = np.ascontiguousarray(np.stack([cap.read()[1] for _ in range(PIX_BATCH)])[..., ::-1])
+        kw = dict(max_det=PIX_MAX_DET, score_threshold=0.0, classes=(2, 3))
+        warm = [rgb[:, :PIX_H // 2, :PIX_W // 2]]  # another size: its own tables
 
         def run():
-            trainer.detect(rgb, max_det=PIX_MAX_DET, score_threshold=0.0, classes=(2, 3))
+            if warm:  # the unprofiled run: cuDNN, the class mask
+                trainer.detect(warm.pop(), **kw)
+                return
+            for _ in range(2):
+                trainer.detect(rgb, **kw)
     elif kind == "train":
         from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
         from playaid_core_torch.train.train import Trainer
@@ -1388,8 +1448,11 @@ def profile_main(kind):
             trainer.fit(num_epochs=1, steps_per_epoch=WIRE_STEPS)
     elif kind == "synth":
         return profile_synth(torch, dev, work)
+    elif kind == "detector":
+        print(json.dumps(profile_detector(torch, dev, work)))
+        return 0
     else:
-        raise ValueError(f"--profile takes detect, train or synth, not {kind!r}")
+        raise ValueError(f"--profile takes detect, train, synth or detector, not {kind!r}")
     run()
     result = profile_h2d(torch, run, os.path.join(work, f"{kind}_trace.json"))
     if kind == "train":
@@ -1491,11 +1554,11 @@ def write_train_tree(root, actions):
                     f.write(actions[labels[k, i // TRAIN_RUN]])
 
 
-def steady_steps_per_sec(torch, trainer, steps):
-    """Trainer.fit's steady state: an epoch of ``steps`` steps without
-    validation, timed from the call of its third step to the end of its
-    last on the card."""
-    step, val, calls = trainer.train_step, trainer.val_dataset, []
+def steady_steps_per_sec(torch, trainer, steps, run):
+    """The steady state of ``run()``, a fit of ``steps`` calls of
+    ``trainer.train_step``: timed from the call of its third step to the end
+    of its last on the card."""
+    step, calls = trainer.train_step, []
 
     def timed(*args):
         calls.append(time.perf_counter())
@@ -1505,19 +1568,26 @@ def steady_steps_per_sec(torch, trainer, steps):
             calls.append(time.perf_counter())
         return out
 
-    trainer.train_step, trainer.val_dataset = timed, None
+    trainer.train_step = timed
+    try:
+        run()
+    finally:
+        trainer.train_step = step
+    return (steps - 2) / (calls[-1] - calls[2])
+
+
+def epoch_without_validation(trainer, steps):
+    """Trainer.fit for one epoch of ``steps`` steps, its validation left out."""
+    val, trainer.val_dataset = trainer.val_dataset, None
     try:
         trainer.fit(num_epochs=1, steps_per_epoch=steps)
     finally:
-        trainer.train_step, trainer.val_dataset = step, val
-    return (steps - 2) / (calls[-1] - calls[2])
+        trainer.val_dataset = val
 
 
 def run_train_phase(torch, dev, check, card, k2_wrapper):
     """Phase 10: Trainer.fit on the card for the three families at full
     width.  Returns K2's numbers at the training path's eval shape."""
-    import torch.nn.functional as F
-
     from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
     from playaid_core_torch.device import full_float32
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
@@ -1634,7 +1704,9 @@ def run_train_phase(torch, dev, check, card, k2_wrapper):
         third step the producer's queue and the two staged copies are
         full)."""
         trainer = trainers[family]
-        rate = steady_steps_per_sec(torch, trainer, STEADY_STEPS)
+        rate = steady_steps_per_sec(
+            torch, trainer, STEADY_STEPS,
+            lambda: epoch_without_validation(trainer, STEADY_STEPS))
         results[family].update({"steps_per_sec": rate,
                                 "crops_per_sec": rate * TRAIN_BATCH * TRAIN_T})
         log(f"phase 10: {family}: steady state over steps 3-{STEADY_STEPS} of an epoch of "
@@ -1708,30 +1780,10 @@ def run_train_phase(torch, dev, check, card, k2_wrapper):
           and k2_err <= K2_F32_REL_TOL * k2_scale,
           f"phase 10: K2 residual_block f32 at the trained layer4[1] {tuple(x_nhwc.shape)}: max "
           f"abs err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {k2_scale:.3f})")
-    x_nchw = seen["x"].contiguous()
-    bn = (block.bn1, block.bn2)
-
-    def cudnn_chain(_):
-        y = F.conv2d(x_nchw, block.conv1.weight, padding=1)
-        y = torch.relu(F.batch_norm(y, bn[0].running_mean, bn[0].running_var, bn[0].weight,
-                                    bn[0].bias, False, 0.0, bn[0].eps))
-        y = F.conv2d(y, block.conv2.weight, padding=1)
-        y = F.batch_norm(y, bn[1].running_mean, bn[1].running_var, bn[1].weight, bn[1].bias,
-                         False, 0.0, bn[1].eps)
-        return torch.relu(y + x_nchw)
-
-    with torch.inference_mode():
-        k2_ms = time_cuda(torch, lambda _: residual_block_packed(x_nhwc, pack), 40)
-        k2_plain_ms = time_cuda(torch, lambda _: residual_block_ref(*k2_args), 20)
-        with full_float32():
-            k2_lib_ms = time_cuda(torch, cudnn_chain, 40)
-    m, c = x_nhwc.shape[0] * 16, 512
-    k2_flops = 2 * 2 * m * c * 9 * c
-    k2_bytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
-    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
-    log(f"phase 10: K2 f32 at {tuple(x_nhwc.shape)}: call {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.4f} ms, cuDNN chain {k2_lib_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
-        f"(3 x {k2_flops / 1e9:.2f} GFLOP TF32); {card}")
+    k2 = k2_yardsticks(torch, block, seen["x"], k2_args, pack)
+    log(f"phase 10: K2 f32 at {tuple(x_nhwc.shape)}: call {k2['ms']:.4f} ms, plain "
+        f"{k2['plain_ms']:.4f} ms, cuDNN chain {k2['library_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms (3 x {k2['gflop']:.2f} GFLOP TF32); {card}")
 
     # (c) The last epoch's checkpoint through BatchedActionPipeline.load_checkpoint.
     path = os.path.join(ckpt_dir, f"step_{TRAIN_EPOCHS - 1}.pt")
@@ -1789,9 +1841,9 @@ def run_train_phase(torch, dev, check, card, k2_wrapper):
     launches = sum(r["k2_train"] + r["k2_eval"] for r in results.values())
     return {"launches": launches, "eval_launches": {f: r["k2_eval"] for f, r in results.items()},
             "train_step_launches": sum(r["k2_train"] for r in results.values()),
-            "max_abs_err": k2_err, "shape": list(x_nhwc.shape), "ms": k2_ms,
-            "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-            "library_ms": k2_lib_ms, "families": results}
+            "max_abs_err": k2_err, "shape": list(x_nhwc.shape), "ms": k2["ms"],
+            "device_ms": k2_dev_ms, "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+            "library_ms": k2["library_ms"], "families": results}
 
 
 # ---- phase 11: device-side synthetic training ----
@@ -2174,7 +2226,8 @@ def synth_main():
           f"{losses[0]:.4f} -> {losses[-1]:.4f}")
 
     # The steady state.
-    rate = steady_steps_per_sec(torch, trainer, STEADY_STEPS)
+    rate = steady_steps_per_sec(torch, trainer, STEADY_STEPS,
+                                lambda: epoch_without_validation(trainer, STEADY_STEPS))
     log(f"phase 11: steady state over steps 3-{STEADY_STEPS} of an epoch of {STEADY_STEPS}: "
         f"{rate:.3f} steps/s = {rate * b * t:.1f} crops/s (the epoch's JSONL record: "
         f"{trainer.metrics_log[-1]['steps_per_sec']} steps/s, the fill included); {card}")
@@ -2207,6 +2260,390 @@ def run_synth_phase(check):
     return res
 
 
+# ---- phase 12: character-detector training ----
+
+DET_ROOT = os.path.join(ROOT, "build", "smoke", "detector")
+DET_IMAGES = {"train": 96, "validation": 64}
+DET_FRAME_H, DET_FRAME_W = 720, 1280   # composites at the stage screenshots' size
+DET_CLASSES = 6                         # len(CHAR_LIST)
+DET_HW = (256, 448)
+DET_BATCH = 8
+DET_GRAD_BATCH = 2        # the card-vs-float64 step
+DET_CLI_STEPS = 40
+DET_FIT_STEPS = 60        # the trainer that evaluate and the K2 checks read
+DET_EVAL_IMAGES = 64      # evaluate's draws: 4 batches of 16
+DET_MAX_DET = 8
+DET_STEP_BYTES = 5_275_648  # a step's uint8 images and float32 heat, size, offset, mask
+# One BGR palette a class (body, head): the stand-ins' colours.
+DET_PALETTE = [((70, 60, 185), (200, 190, 240)), ((40, 150, 230), (30, 60, 120)),
+               ((30, 210, 240), (20, 20, 20)), ((40, 40, 40), (230, 230, 230)),
+               ((40, 80, 130), (60, 140, 200)), ((200, 170, 250), (150, 120, 210))]
+
+
+def stand_in_character(rng, cls):
+    """A BGRA stand-in sprite drawn with numpy: basewidth 50-150 px as the
+    generator draws it, a body ellipse and a head disc in the class's
+    palette; the alpha is the figure."""
+    w = int(rng.integers(50, 151))
+    h = int(w * rng.uniform(1.1, 1.6))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) + 0.5
+    body = (((xx - w / 2) / (w / 2)) ** 2 + ((yy - 0.62 * h) / (0.38 * h)) ** 2) <= 1.0
+    head = ((xx - w / 2) ** 2 + (yy - 0.2 * h) ** 2) <= (0.2 * min(w, h)) ** 2
+    sprite = np.zeros((h, w, 4), np.uint8)
+    sprite[body, :3] = DET_PALETTE[cls][0]
+    sprite[head, :3] = DET_PALETTE[cls][1]
+    sprite[body | head, 3] = 255
+    return sprite
+
+
+def write_detector_tree(root):
+    """<root>/{train,validation}/{images,labels}: 720x1280 BGR .npy
+    composites (a noise background and 1-4 stand-in characters placed as
+    composite_chars_onto_stage places them: centres Gaussian about the
+    frame's centre, sigma a sixth of its size, a centre off the frame moved
+    to the middle; the sprite pasted at the centre less half its size, cut
+    at the frame's edges) and their YOLO labels, written as
+    write_yolo_output writes them.  A tree whose stamp file records the same
+    seed, settings and drawing code is kept as it is.  Returns whether the
+    tree was written."""
+    import hashlib
+    import inspect
+    import shutil
+
+    stamp_file = os.path.join(root, "stamp.txt")
+    stamp = hashlib.sha256(repr((
+        FAMILY_SEED, DET_IMAGES, DET_FRAME_H, DET_FRAME_W, DET_CLASSES, DET_PALETTE,
+        inspect.getsource(stand_in_character), inspect.getsource(write_detector_tree),
+    )).encode()).hexdigest()
+    if os.path.exists(stamp_file):
+        with open(stamp_file) as f:
+            if f.read() == stamp:
+                return False
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(FAMILY_SEED)
+    hh, ww = DET_FRAME_H, DET_FRAME_W
+    for split, n in DET_IMAGES.items():
+        images, labels = (os.path.join(root, split, d) for d in ("images", "labels"))
+        os.makedirs(images)
+        os.makedirs(labels)
+        for i in range(n):
+            frame = rng.integers(0, 256, (hh, ww, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 5))):
+                cls = int(rng.integers(0, DET_CLASSES))
+                sprite = stand_in_character(rng, cls)
+                sh, sw = sprite.shape[:2]
+                cx = int(rng.normal(ww / 2, ww / 6))
+                cy = int(rng.normal(hh / 2, hh / 6))
+                cx = ww // 2 if cx < 0 or cx > ww else cx
+                cy = hh // 2 if cy < 0 or cy > hh else cy
+                x0, y0 = int(cx - sw / 2), int(cy - sh / 2)
+                fy0, fx0 = max(y0, 0), max(x0, 0)
+                fy1, fx1 = min(y0 + sh, hh), min(x0 + sw, ww)
+                part = sprite[fy0 - y0:fy1 - y0, fx0 - x0:fx1 - x0]
+                on = part[..., 3] > 0
+                frame[fy0:fy1, fx0:fx1][on] = part[..., :3][on]
+                rows.append((cls, (cx / ww, cy / hh, sw / ww, sh / hh)))
+            np.save(os.path.join(images, f"comp-{i}.npy"), frame)
+            with open(os.path.join(labels, f"comp-{i}.txt"), "w") as f:
+                for cls, bbox in rows:
+                    f.write(f"{cls} {bbox[0]} {bbox[1]} {bbox[2]} {bbox[3]}\n")
+    with open(stamp_file, "w") as f:
+        f.write(stamp)
+    return True
+
+
+def detector_dataset(split, seed):
+    from playaid_core_torch.train.detector_train import DetectionDataset
+
+    return DetectionDataset(os.path.join(DET_ROOT, split), input_hw=DET_HW,
+                            num_classes=DET_CLASSES, seed=seed)
+
+
+def detector_trainer(dev, seed):
+    """A seeded DetectorTrainer (Flax's init) on phase 12's training split."""
+    from playaid_core_torch.train.detector_train import DetectorTrainer
+
+    return DetectorTrainer(detector_dataset("train", seed), num_classes=DET_CLASSES,
+                           input_hw=DET_HW, device=dev).init(0)
+
+
+def k2_block_input(torch, trainer, images):
+    """layer4[1]'s input in the trunk of trainer's model for one detect()
+    batch of images (eval mode)."""
+    block = trainer.model.trunk.layer4[1]
+    seen = {}
+    hook = block.register_forward_hook(keep_input(seen))
+    try:
+        trainer.detect(images, max_det=DET_MAX_DET, score_threshold=0.0)
+    finally:
+        hook.remove()
+    return block, seen["x"]
+
+
+def profile_detector(torch, dev, work):
+    """profile_main's detector kind: an epoch of WIRE_STEPS steps of
+    phase 12's training, once unprofiled and once under profile_h2d; then
+    K2's device time at the trunk's 16x8x14x512 on a validation batch."""
+    from playaid_core_torch.ops.conv_block import residual_block_packed
+
+    trainer = detector_trainer(dev, 5)
+
+    def run():
+        trainer.fit(WIRE_STEPS, batch_size=DET_BATCH, log_every=WIRE_STEPS)
+
+    run()
+    result = profile_h2d(torch, run, os.path.join(work, "detector_trace.json"))
+    val = detector_dataset("validation", 6)
+    images = np.stack([val.sample(uint8=True)[0] for _ in range(16)])
+    block, x = k2_block_input(torch, trainer, images)
+    with torch.inference_mode():
+        x_nhwc = k2_ref_args(block, x)[0]
+        pack = block.block_pack(torch.float32)
+        ms, traced = device_ms(torch, lambda _: residual_block_packed(x_nhwc, pack), 40,
+                               "conv3x3_wgmma_kernel", 2)
+    result.update({"k2_device_ms": ms, "k2_records_per_call": traced,
+                   "k2_shape": list(x_nhwc.shape)})
+    return result
+
+
+def run_detector_phase(torch, dev, check, card, k1_wrappers, k2_wrapper):
+    """Phase 12: character-detector training on the card at full width.
+    Returns K2's numbers at the trunk's shape and the launches."""
+    import ast
+    import io
+
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.models.resnet import BasicBlock
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.profiling import StageTimer
+    from playaid_core_torch.train.detector_train import DetectorTrainer, main as detector_main
+
+    work = os.path.join(ROOT, "build", "smoke")
+    t0 = time.perf_counter()
+    written = write_detector_tree(DET_ROOT)
+    log(f"phase 12: YOLO tree of {sum(DET_IMAGES.values())} composites ({DET_FRAME_H}x"
+        f"{DET_FRAME_W} BGR .npy, 1-4 stand-in characters of {DET_CLASSES} classes) "
+        f"{'written' if written else 'kept (same stamp)'} in {time.perf_counter() - t0:.1f} s")
+
+    def k1_launches():
+        return sum(w.launches for w in k1_wrappers)
+
+    # (a) One step of batch DET_GRAD_BATCH from the seeded init, with every
+    # residual block's last batch-norm scale set to 1 (Flax zeroes it, which
+    # would give the convolutions and norm before it no gradient at all),
+    # against the CPU in float64: the loss of the card's float32 step within
+    # LOSS_REL_TOL, and every gradient of the card's step in float64 within
+    # GRAD_REL_TOL of its max|g|.  In float32 this step's gradients are
+    # ill-conditioned at full width: a few ReLU inputs within rounding of 0
+    # take the other branch, and every batch norm's backward spreads the
+    # change, so the CPU's own float32 lies about 1e-3 of max|g| (median over
+    # the tensors) off float64 (PERF.md).  The card's float32 is held to at
+    # most three times the CPU float32's error, the median over the tensors
+    # and the worst tensor each.
+    init = DetectorTrainer(num_classes=DET_CLASSES, input_hw=DET_HW, device="cpu").init(0)
+    with torch.no_grad():
+        for m in init.model.modules():
+            if isinstance(m, BasicBlock):
+                m.bn2.weight.fill_(1.0)
+    state = init.model.state_dict()
+    images, targets = next(detector_dataset("train", 1).batches(DET_GRAD_BATCH, 1))
+    runs = {}
+    for key, where, dtype in (("card", dev, torch.float32), ("card64", dev, torch.float64),
+                              ("cpu", torch.device("cpu"), torch.float32),
+                              ("float64", torch.device("cpu"), torch.float64)):
+        trainer = DetectorTrainer(num_classes=DET_CLASSES, input_hw=DET_HW,
+                                  device=where).load_variables(state)
+        trainer.model.to(dtype)
+        loss, _ = trainer.train_step(torch.from_numpy(images).to(where),
+                                     tuple(torch.from_numpy(t).to(where, dtype) for t in targets))
+        runs[key] = (float(loss), {n: p.grad.detach().cpu().double()
+                                   for n, p in trainer.model.named_parameters()})
+    ref_loss, ref_grads = runs["float64"]
+    # up.{0,3,6}.bias feed a train-mode batch norm, whose mean takes them out:
+    # their gradient is 0 in exact arithmetic, held against its conv's scale.
+    scale = {n: float(g.abs().max()) for n, g in ref_grads.items()}
+    for n in ref_grads:
+        if n.startswith("up.") and n.endswith(".bias"):
+            scale[n] = scale[n.replace("bias", "weight")]
+
+    def grad_errs(key):
+        return {n: float((runs[key][1][n] - g).abs().max()) / scale[n]
+                for n, g in ref_grads.items() if scale[n] > 0}
+
+    errs = {key: grad_errs(key) for key in ("card", "card64", "cpu")}
+    median = {key: float(np.median(list(e.values()))) for key, e in errs.items()}
+    worst = {key: max(e, key=e.get) for key, e in errs.items()}
+    top = {key: errs[key][worst[key]] for key in errs}
+    over = [n for n, e in errs["card64"].items() if e > GRAD_REL_TOL]
+    loss_rel = abs(runs["card"][0] - ref_loss) / abs(ref_loss)
+    check(loss_rel <= LOSS_REL_TOL and not over and len(errs["card64"]) == len(ref_grads)
+          and median["card"] <= 3 * median["cpu"] and top["card"] <= 3 * top["cpu"],
+          f"phase 12: one detector step (batch {DET_GRAD_BATCH}, {DET_HW[0]}x{DET_HW[1]}, "
+          f"{DET_CLASSES} classes) from the seeded init with the blocks' bn2 scales at 1, against "
+          f"the CPU in float64: the card's float32 loss {runs['card'][0]:.6f} vs {ref_loss:.6f}, "
+          f"rel err {loss_rel:.3e} (tol {LOSS_REL_TOL}); the card's float64 gradients max err / "
+          f"max|g| worst {top['card64']:.3e} on {worst['card64']} (tol {GRAD_REL_TOL}; the gate "
+          f"covers {len(errs['card64'])} of {len(ref_grads)} tensors, over: {over}); float32 "
+          f"gradients, the card's median {median['card']:.3e} and worst {top['card']:.3e} on "
+          f"{worst['card']} against the CPU float32's {median['cpu']:.3e} and {top['cpu']:.3e} on "
+          f"{worst['cpu']} (tol 3 x each)")
+
+    # (b) The command line, in this process, on the training split.
+    out = io.StringIO()
+    k2_before, k1_before = k2_wrapper.launches, k1_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = detector_main(["--data-root", os.path.join(DET_ROOT, "train"),
+                            "--num-steps", str(DET_CLI_STEPS)])
+    cli_s = time.perf_counter() - t0
+    printed = out.getvalue().strip().splitlines()
+    record = ast.literal_eval(printed[-1]) if printed else {}
+    cli_launches = (k1_launches() - k1_before, k2_wrapper.launches - k2_before)
+    check(rc == 0 and record.get("step") == DET_CLI_STEPS - 1
+          and all(np.isfinite(record[k]) for k in ("loss", "heatmap", "offset", "size"))
+          and cli_launches == (0, 0),
+          f"phase 12: python -m playaid_core_torch.train.detector_train --data-root "
+          f"build/smoke/detector/train --num-steps {DET_CLI_STEPS} (in this process, on the "
+          f"card by default) in {cli_s:.1f} s printed {printed[-1] if printed else None}; K1 "
+          f"and K2 launches {cli_launches}")
+
+    # (c) Launches: none in fit; K2 once a batch of 16 in evaluate.
+    trainer = detector_trainer(dev, 0)
+    log_path = os.path.join(work, "detector_train.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    k2_wrapper.launches, k1_before = 0, k1_launches()
+    t0 = time.perf_counter()
+    trainer.fit(DET_FIT_STEPS, batch_size=DET_BATCH, log_path=log_path)
+    fit_s = time.perf_counter() - t0
+    fit_launches = (k1_launches() - k1_before, k2_wrapper.launches)
+    for rec in trainer.metrics_log:
+        log(f"phase 12: JSONL {json.dumps(rec)}")
+    params = list(trainer.model.parameters())
+    finite = all(np.isfinite(rec[k]) for rec in trainer.metrics_log
+                 for k in ("loss", "heatmap", "offset", "size"))
+    eval_batches = []
+    detect = trainer.detect
+
+    def recording(images, **kw):
+        eval_batches.append(images)
+        return detect(images, **kw)
+
+    trainer.detect = recording
+    k2_wrapper.launches = 0
+    try:
+        scores = trainer.evaluate(detector_dataset("validation", 2), num_images=DET_EVAL_IMAGES)
+    finally:
+        del trainer.detect  # the class's method again
+    eval_launches = k2_wrapper.launches
+    check(finite and all(p.device.type == "cuda" for p in params) and fit_launches == (0, 0)
+          and eval_launches == len(eval_batches) == DET_EVAL_IMAGES // 16,
+          f"phase 12: DetectorTrainer.fit {DET_FIT_STEPS} steps (batch {DET_BATCH}) in "
+          f"{fit_s:.2f} s, losses finite, weights on the card; K1 and K2 launches in the fit "
+          f"{fit_launches} (must be 0); evaluate({DET_EVAL_IMAGES}) K2 launches {eval_launches} "
+          f"in {len(eval_batches)} batches (one a batch); {scores}; {card}")
+
+    # (d) K2 after training at the trunk's shape, and evaluate's first batch
+    # with layer4[1] on K2 and on residual_block_ref.
+    batch16 = eval_batches[0]
+    block, x = k2_block_input(torch, trainer, batch16)
+    with torch.inference_mode(), full_float32():
+        k2_args = k2_ref_args(block, x)
+        x_nhwc = k2_args[0]
+        pack = block.block_pack(torch.float32)
+        k2_out = residual_block_packed(x_nhwc, pack)
+        k2_ref = residual_block_ref(*k2_args)
+    torch.cuda.synchronize()
+    k2_err = float((k2_out - k2_ref).abs().max())
+    k2_scale = float(k2_ref.abs().max())
+    check(tuple(x_nhwc.shape) == (16, DET_HW[0] // 32, DET_HW[1] // 32, 512)
+          and k2_err <= K2_F32_REL_TOL * k2_scale,
+          f"phase 12: K2 residual_block f32 at the trained trunk's layer4[1] "
+          f"{tuple(x_nhwc.shape)}: max abs err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| "
+          f"{k2_scale:.3f})")
+    k2_wrapper.launches = 0
+    on_k2 = trainer.detect(batch16, max_det=DET_MAX_DET, score_threshold=0.0)
+    k2_in_detect = k2_wrapper.launches
+    block.forward = lambda t: residual_block_ref(*k2_ref_args(block, t)).permute(0, 3, 1, 2)
+    try:
+        on_ref = trainer.detect(batch16, max_det=DET_MAX_DET, score_threshold=0.0)
+    finally:
+        del block.forward  # the class's forward again
+    same_cls = all([c for c, _, _ in a] == [c for c, _, _ in b] for a, b in zip(on_k2, on_ref))
+    box_err = max(float(np.abs(np.array([bx for _, _, bx in a]) - np.array([bx for _, _, bx in b]))
+                        .max()) for a, b in zip(on_k2, on_ref))
+    check(k2_in_detect == 1 and same_cls and box_err <= BOX_TOL
+          and all(len(d) == DET_MAX_DET for d in on_k2),
+          f"phase 12: evaluate's first batch of 16 with layer4[1] on K2 ({k2_in_detect} launch) "
+          f"vs on residual_block_ref: the {DET_MAX_DET} best peaks' classes identical "
+          f"{same_cls}, boxes max abs err {box_err:.3e} (tol {BOX_TOL})")
+    k2 = k2_yardsticks(torch, block, x, k2_args, pack)
+
+    # (e) Learning: 20 steps on one fixed batch.
+    images, targets = next(detector_dataset("train", 2).batches(DET_BATCH, 1))
+    fixed = (torch.from_numpy(images).to(dev), tuple(torch.from_numpy(t).to(dev) for t in targets))
+    losses = [float(trainer.train_step(*fixed)[0]) for _ in range(LEARN_STEPS)]
+    check(losses[-1] < losses[0],
+          f"phase 12: loss on one fixed batch over {LEARN_STEPS} steps: {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+
+    # (f) The wire: an epoch of WIRE_STEPS steps profiled in a fresh process
+    # copies each step's images and targets, and no weights.
+    audit = profile_in_fresh_process("detector")
+    k2_dev_ms = audit["k2_device_ms"]
+    h2d = audit["h2d"]
+    wire = [images.nbytes] + [t.nbytes for t in targets]
+    busy_share = audit["busy_us"] / audit["wall_us"]
+    log(f"phase 12: an epoch of {WIRE_STEPS} steps profiled in a fresh process: {len(h2d)} "
+        f"host-to-device copies in the trace ({h2d.count(None)} without a size); "
+        f"{audit['calls']} cudaMemcpy calls traced on the host, {audit['lost']} with no copy on "
+        f"the device; profiler notes of dropped records: {audit['notes'] or 'none'}; K2 f32 at "
+        f"{tuple(audit['k2_shape'])} device "
+        f"{'not measured' if k2_dev_ms is None else f'{k2_dev_ms:.4f} ms'} "
+        f"({audit['k2_records_per_call']:g} of 2 kernel records a call traced); {card}")
+    check(sum(wire) == DET_STEP_BYTES and None not in h2d
+          and sorted(h2d) == sorted(wire * WIRE_STEPS),
+          f"phase 12: host-to-device copies of {WIRE_STEPS} profiled train steps: {len(h2d)} "
+          f"copies, {sum(b for b in h2d if b)} B = {WIRE_STEPS} x {DET_STEP_BYTES} B (a step's "
+          f"uint8 images and float32 heat, size, offset and mask; no weights); device busy "
+          f"{audit['busy_us'] / 1e3:.1f} ms of {audit['wall_us'] / 1e3:.1f} ms wall = "
+          f"{busy_share:.3f}")
+
+    # (g) The steady state, a batch assembled alone, a step alone.
+    rate = steady_steps_per_sec(
+        torch, trainer, STEADY_STEPS,
+        lambda: trainer.fit(STEADY_STEPS, batch_size=DET_BATCH, log_every=STEADY_STEPS))
+    timer = StageTimer()
+    wire_batches = detector_dataset("train", 3).batches(DET_BATCH, HOST_BATCHES)
+    for _ in range(HOST_BATCHES):
+        with timer.stage("assemble"):
+            next(wire_batches)
+    trainer.train_step(*fixed)
+    torch.cuda.synchronize()
+    with timer.stage("steps"):
+        for _ in range(HOST_BATCHES):
+            trainer.train_step(*fixed)
+        torch.cuda.synchronize()
+    assemble_ms = 1e3 * timer.totals["assemble"] / HOST_BATCHES
+    step_ms = 1e3 * timer.totals["steps"] / HOST_BATCHES
+    final = trainer.evaluate(detector_dataset("validation", 4), num_images=DET_EVAL_IMAGES)
+    log(f"phase 12: steady state over steps 3-{STEADY_STEPS} of a fit of {STEADY_STEPS}: "
+        f"{rate:.3f} steps/s = {rate * DET_BATCH:.1f} images/s; a batch assembled alone on the "
+        f"host {assemble_ms:.2f} ms, a train step alone on a batch on the card {step_ms:.2f} ms "
+        f"(means of {HOST_BATCHES}); evaluate after {DET_FIT_STEPS + LEARN_STEPS + STEADY_STEPS} "
+        f"steps: {final}; K2 f32 at {tuple(x_nhwc.shape)}: call {k2['ms']:.4f} ms, plain "
+        f"{k2['plain_ms']:.4f} ms, cuDNN chain {k2['library_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms (3 x {k2['gflop']:.2f} GFLOP TF32); {card}")
+    return {"launches": eval_launches, "eval_launches": eval_launches,
+            "train_step_launches": fit_launches[1], "k1_launches": fit_launches[0],
+            "max_abs_err": k2_err, "shape": list(x_nhwc.shape), "ms": k2["ms"],
+            "device_ms": k2_dev_ms, "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+            "library_ms": k2["library_ms"], "steps_per_sec": rate, "images_per_sec": rate * DET_BATCH,
+            "busy_share": busy_share, "assemble_ms": assemble_ms, "step_ms": step_ms,
+            "evaluate": final, "cli_s": cli_s, "fit_s": fit_s}
+
+
 def main():
     import torch
 
@@ -2232,7 +2669,7 @@ def main():
         residual_block_ref,
     )
     from playaid_core_torch.infer.vod_pipeline import extract_windows
-    from playaid_core_torch.ops.crop_kernel import square_crop_resize, window_resize
+    from playaid_core_torch.ops.crop_kernel import bank_resize, square_crop_resize, window_resize
     from playaid_core_torch.ops.preprocess import (
         batched_square_crop_resize,
         batched_window_resize,
@@ -2692,6 +3129,12 @@ def main():
     synth = run_synth_phase(check) or {}
     log(f"phase 11: {json.dumps({k: v for k, v in synth.items() if k != 'failures'})}; {card}")
 
+    # ---- phase 12: character-detector training ----
+    detector = run_detector_phase(torch, dev, check, card,
+                                  [square_crop_resize, window_resize, bank_resize],
+                                  residual_block_packed)
+    log(f"phase 12: {json.dumps(detector)}; {card}")
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -2727,6 +3170,11 @@ def main():
         "bank_library_ms")})
     kernels[0]["bank_launches"] = synth_launches.get("bank_resize")
     kernels[1]["synth_launches"] = synth_launches.get("residual_block")
+    # Phase 12: no K1 on the detector-training path; K2 in evaluate's trunk.
+    kernels[0]["detector_train_launches"] = detector["k1_launches"]
+    kernels[1].update({f"detector_train_{k}": detector[k] for k in (
+        "launches", "train_step_launches", "max_abs_err", "shape", "ms", "device_ms",
+        "plain_ms", "bound_ms", "library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

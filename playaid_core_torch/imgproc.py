@@ -59,22 +59,35 @@ def _fixed(w):
     return np.rint(w * np.float32(1 << _COEF_BITS)).astype(np.int64)
 
 
-def resize_linear_u8(x: torch.Tensor, size, area_mode=False) -> torch.Tensor:
-    """``cv2.resize`` bilinear (or the area variant when enlarging) of uint8
-    images ``[..., H, W, C]`` to ``size = (height, width)``, on x's device."""
-    h, w = size
-    sh, sw = x.shape[-3], x.shape[-2]
-    dev = x.device
+def linear_u8_tables(src_hw, size, area_mode=False, device="cpu"):
+    """The taps and fixed-point weights of :func:`resize_linear_u8` from
+    ``src_hw = (height, width)`` to ``size = (height, width)``, as tensors
+    on ``device``: column indices (int64) and weights (int32) ``[w, 1]``,
+    row indices ``[h]`` and weights ``[h, 1, 1]``.  24 bytes per output
+    row and column; a caller that resizes many frames of one size builds
+    them once."""
+    (sh, sw), (h, w) = src_hw, size
     x0, x1, a0, a1 = _linear_taps(sw, w, area_mode, clamp=True)
     y0, y1, b0, b1 = _linear_taps(sh, h, area_mode, clamp=False)
-    t = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
+    t = lambda v: torch.from_numpy(v).to(device)  # noqa: E731
+    return (t(x0), t(x1), t(_fixed(a0).astype(np.int32))[:, None],
+            t(_fixed(a1).astype(np.int32))[:, None], t(y0), t(y1),
+            t(_fixed(b0).astype(np.int32))[:, None, None],
+            t(_fixed(b1).astype(np.int32))[:, None, None])
+
+
+def resize_linear_u8(x: torch.Tensor, size, area_mode=False, tables=None) -> torch.Tensor:
+    """``cv2.resize`` bilinear (or the area variant when enlarging) of uint8
+    images ``[..., H, W, C]`` to ``size = (height, width)``, on x's device.
+    ``tables``: :func:`linear_u8_tables` for x's size on x's device (built
+    here when not given)."""
+    if tables is None:
+        tables = linear_u8_tables(x.shape[-3:-1], size, area_mode, x.device)
+    x0, x1, a0, a1, y0, y1, b0, b1 = tables
     s = x.to(torch.int32)
-    a0, a1 = t(_fixed(a0).astype(np.int32))[:, None], t(_fixed(a1).astype(np.int32))[:, None]
-    hor = s.index_select(-2, t(x0)) * a0 + s.index_select(-2, t(x1)) * a1  # [..., sh, w, C]
-    r0 = hor.index_select(-3, t(y0)) >> 4
-    r1 = hor.index_select(-3, t(y1)) >> 4
-    b0 = t(_fixed(b0).astype(np.int32))[:, None, None]
-    b1 = t(_fixed(b1).astype(np.int32))[:, None, None]
+    hor = s.index_select(-2, x0) * a0 + s.index_select(-2, x1) * a1  # [..., sh, w, C]
+    r0 = hor.index_select(-3, y0) >> 4
+    r1 = hor.index_select(-3, y1) >> 4
     out = (((r0 * b0) >> 16) + ((r1 * b1) >> 16) + 2) >> 2
     return out.clamp_(0, 255).to(torch.uint8)
 

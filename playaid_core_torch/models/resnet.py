@@ -243,23 +243,31 @@ _TRUNC_STD = 0.87962566103423978
 
 
 @torch.no_grad()
-def lecun_normal_(weight, generator=None):
-    """Flax's ``lecun_normal()`` on a torch weight (OIHW conv or ``[out,
-    in]`` Linear; fan in is everything but the first axis)."""
-    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+def lecun_normal_(weight, generator=None, fan_in=None):
+    """Flax's ``lecun_normal()`` on a torch weight.  ``fan_in`` defaults to
+    everything but the first axis (OIHW conv, ``[out, in]`` Linear); a
+    ``ConvTranspose2d`` weight is ``[in, out, kh, kw]`` and its fan in, as
+    Flax's ``ConvTranspose`` kernel ``(kh, kw, in, out)`` counts it, is
+    ``in * kh * kw``."""
+    fan_in = weight[0].numel() if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 @torch.no_grad()
 def init_flax_(module, generator=None):
-    """Initialise ``module``'s convolutions, linear layers and norms in
-    place as the Flax modules do: lecun_normal kernels, zero biases, unit
-    norm scales, running mean 0 and variance 1, and a zero scale on each
-    residual block's last batch norm (``bn2`` of a BasicBlock, ``bn3`` of a
-    Bottleneck).  Draws in module order from ``generator``."""
+    """Initialise ``module``'s convolutions (transposed ones included),
+    linear layers and norms in place as the Flax modules do: lecun_normal
+    kernels, zero biases, unit norm scales, running mean 0 and variance 1,
+    and a zero scale on each residual block's last batch norm (``bn2`` of a
+    BasicBlock, ``bn3`` of a Bottleneck).  Draws in module order from
+    ``generator``."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, nn.ConvTranspose2d):
+            lecun_normal_(m.weight, generator, m.weight.shape[0] * m.weight[0, 0].numel())
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, generator)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):

@@ -16,7 +16,9 @@ ult_action_dataset.py:139-689) for the ground-truth splits:
   trainer's staging (uint8 is the wire format: the train step normalises
   on the device);
 * :func:`get_character_actions_animations_dict`, the walk of a clean-char
-  sprite tree that ``train/device_synth.py`` builds its sprite bank from.
+  sprite tree that ``train/device_synth.py`` builds its sprite bank from,
+  and :func:`get_stage_paths`, the stage screenshots that
+  ``datagen/gen_synth_char_detection.py`` composites onto.
 
 Every draw comes from the dataset's ``numpy.random.Generator`` (``seed``)
 in the JAX package's order, and images are read and resized with the same
@@ -57,6 +59,16 @@ def middle_out_sample(middle_frame, num_frames_per_sample, frame_delta, max_fram
         middle_out_frame_indices(middle_frame, num_frames_per_sample, frame_delta,
                                  max_frames, min_frame)
     )]
+
+
+def get_stage_paths(stages_dir=None):
+    """Every ``*.jpg`` under ``stages_dir`` (default
+    ``constants.ULT_STAGES_DIR``), recursively, in glob's order (reference:
+    dataset_utils.py:402-407)."""
+    import glob
+
+    stages_dir = stages_dir or constants.ULT_STAGES_DIR
+    return glob.glob(os.path.join(stages_dir, "**/*.jpg"), recursive=True)
 
 
 def get_character_actions_animations_dict(clean_char_dir=None):

@@ -136,23 +136,31 @@ class TrainState:
         return self.scheduler.last_epoch
 
 
-def create_train_state(model, learning_rate, warmup_steps=200, decay_steps=None):
-    """Adam (beta 0.9/0.999, eps 1e-8 outside the square root, as optax's)
-    over ``model``'s trainable parameters, on their device, with the JAX
-    trainer's schedule (:func:`make_schedule`)."""
-    params = [p for p in model.parameters() if p.requires_grad]
-    optimizer = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                                 fused=True)
+def bump_versions_after_step(optimizer):
+    """``optimizer``, with a hook that bumps the version counter of each
+    parameter it holds after every step, and returned.
 
-    # The fused step writes the parameters without bumping their version
-    # counters (the foreach and for-loop steps bump them); caches keyed on
-    # versions, such as the fused residual block's weight pack
-    # (BasicBlock.block_pack), would keep packs of the old weights.
+    A fused step writes the parameters without bumping their versions (the
+    foreach and for-loop steps bump them), so caches keyed on versions, such
+    as the fused residual block's weight pack (``BasicBlock.block_pack``),
+    would keep packs of the old weights."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
     def bump_versions(opt, args, kwargs):
         for p in params:
             increment_version(p)
 
     optimizer.register_step_post_hook(bump_versions)
+    return optimizer
+
+
+def create_train_state(model, learning_rate, warmup_steps=200, decay_steps=None):
+    """Adam (beta 0.9/0.999, eps 1e-8 outside the square root, as optax's)
+    over ``model``'s trainable parameters, on their device, with the JAX
+    trainer's schedule (:func:`make_schedule`)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer = bump_versions_after_step(torch.optim.Adam(
+        params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, fused=True))
     schedule = make_schedule(learning_rate, warmup_steps, decay_steps)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda count: schedule(count) / learning_rate)

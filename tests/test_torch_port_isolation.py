@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
 its card-path modules (the log-driven VOD path, the pixels-only path, the
-training path and device-side synthesis) import no cv2, PIL, yaml or click
+training path, device-side synthesis and detector training) import no cv2,
+PIL, yaml or click
 (the card's machine has none of them), and chip_smoke.py refuses to run
 without a CUDA device.
 
@@ -133,6 +134,49 @@ print("ok")
 """
 
 
+# Modules the detector-training path imports on the card, and a run on a
+# .npy tree there: a sample, the refusal of cv2's augmentation, a jpg read.
+DETECTOR_TRAIN_PATH = ("models.detector", "train.detector_train", "train.dataset",
+                       "datagen.gen_synth_char_detection")
+
+_DETECTOR_TRAIN_ON_NPY = f"""
+import importlib, os, sys, tempfile
+import numpy as np
+for name in {BANNED + HOST_ONLY!r}:
+    sys.modules[name] = None
+for name in {DETECTOR_TRAIN_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch.train.detector_train import DetectionDataset, DetectorTrainer, main
+root = tempfile.mkdtemp()
+for sub in ("images", "labels"):
+    os.makedirs(os.path.join(root, sub))
+rng = np.random.default_rng(0)
+np.save(os.path.join(root, "images", "a.npy"), rng.integers(0, 256, (72, 128, 3), dtype=np.uint8))
+with open(os.path.join(root, "labels", "a.txt"), "w") as f:
+    f.write("1 0.5 0.5 0.25 0.5\\n")
+img, (heat, size, offset, mask), _ = DetectionDataset(root, input_hw=(64, 96), num_classes=2,
+                                                      seed=0).sample(uint8=True)
+assert img.shape == (64, 96, 3) and heat.shape == (16, 24, 2) and mask.sum() == 1
+try:
+    DetectionDataset(root, sample_augment=True)
+except ImportError as e:
+    assert "cv2" in str(e)
+else:
+    raise AssertionError("sample_augment=True was taken without cv2")
+with open(os.path.join(root, "images", "b.jpg"), "wb") as f:
+    f.write(b"not read")
+ds = DetectionDataset(root, input_hw=(64, 96), num_classes=2)
+ds.images = [os.path.join(root, "images", "b.jpg")]
+try:
+    ds.sample()
+except ImportError as e:
+    assert "cv2" in str(e)
+else:
+    raise AssertionError("a jpg was read without cv2")
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -149,7 +193,8 @@ def test_port_imports_with_jax_blocked():
                  "models.resnet_transformer", "models.rnn_action_detector", "ops._build",
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
-                 "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH):
+                 "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH,
+                 *DETECTOR_TRAIN_PATH):
         assert f"playaid_core_torch.{name}" in imported
 
 
@@ -181,6 +226,15 @@ def test_synth_path_runs_on_npy_with_cv2_pil_yaml_click_blocked():
     sprite and stage banks from .npy files, a composited batch, and the
     sprite generator naming cv2."""
     proc = subprocess.run([sys.executable, "-c", _SYNTH_ON_NPY], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_detector_train_path_runs_on_npy_with_cv2_pil_yaml_click_blocked():
+    """Detector training on a machine without cv2, PIL, yaml or click (the
+    card's): the modules import, a .npy tree is sampled, and the constructor
+    refuses cv2's augmentation and a jpg read names cv2."""
+    proc = subprocess.run([sys.executable, "-c", _DETECTOR_TRAIN_ON_NPY], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
