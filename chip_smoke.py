@@ -118,6 +118,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    (5,275,648 B a step) and no weights, with the busy share and K2's device
    time; (g) the steady state of a 50-step fit, a batch assembled alone, a
    step alone, and evaluate's loc and loc_class.
+13. the multi-device path (parallel/mesh.py): (a) an NCCL process group of
+   world size 1 (a file store): the meshed Trainer's CNN-63 step (bench
+   weights, phase 10's first batch) against the plain Trainer step, loss
+   and grad norm within 2e-4 relative, and one meshed evaluate with K2 in layer4[1] held
+   against residual_block_ref; (b) two gloo ranks sharing the card
+   (python3 chip_smoke.py --mesh-rank 0|1, CUDA tensors): CNN-63 on a
+   (2, 1) mesh and the ResFormer at full width (ResNet-50, 63 classes, T 7,
+   128 px, batch 8) on a (1, 2) mesh, 3 steps each, against one process:
+   loss and grad norm within 2e-4 relative (CNN-63 in float32; the
+   ResFormer in float64, and its float32 grad norm no farther from
+   float64's than one process's is, plus 2e-4), batch-norm running
+   statistics within 1e-5, each rank's host-to-device bytes exactly its
+   rows of a batch, step times and the bytes of each collective; (c)
+   VodAnalyzer(mesh=make_mesh(devices=[cuda:0, cuda:0])) on phase 6's clip:
+   labels identical to mesh=None, confidences within 1e-4, K2 launches 2
+   a chunk and K2 held against its plain version in each replica,
+   frames/s beside phase 6's; (d) the (1, 2) ResFormer's checkpoint after
+   its first step, restored on one process: the next two losses within
+   2e-4 relative, and BatchedActionPipeline.load_checkpoint reads it.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -791,7 +810,7 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
             check(same.mean() >= LABEL_AGREEMENT_MIN, line + f" (min {LABEL_AGREEMENT_MIN})")
         else:
             log(line)
-    return launches
+    return launches, e2e_fps
 
 
 def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
@@ -2644,6 +2663,339 @@ def run_detector_phase(torch, dev, check, card, k1_wrappers, k2_wrapper):
             "evaluate": final, "cli_s": cli_s, "fit_s": fit_s}
 
 
+# ---- phase 13: the multi-device path ----
+MESH_STEPS = 2             # steps after the first in each meshed run (phase 13's depth)
+MESH_REL_TOL = 2e-4        # meshed against one process: the JAX dry run's bound
+MESH_STATS_REL_TOL = 1e-5  # batch-norm running statistics, of max|ref| per tensor
+MESH_CONF_TOL = 1e-4       # VodAnalyzer(mesh=) confidences against mesh=None, abs
+MESH_TIMEOUT_S = 420       # (b)'s two gloo ranks, together
+MESH_WORK = os.path.join(ROOT, "build", "smoke", "mesh")
+MESH_STORE_ENV = "CHIP_SMOKE_MESH_STORE"
+
+
+def mesh_cases(dev):
+    """Phase 13's training runs, as parallel/dryrun.run_train_case cases,
+    and phase 10's first batch (frames, chars, labels) that they train on:
+    CNN-63 from the bench weights, and the ResFormer at full width (63
+    classes, T 7, 128 px, batch 8) from seeded weights, checkpointed after
+    its first step; and the ResFormer's one step on dryrun_multichip's input
+    (uniform frames and labels from seed 0)."""
+    from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+
+    batch = next(train_dataset("train", seed=1).batches(TRAIN_BATCH, 1))
+    base = {"num_actions": len(train_actions()), "sequence_length": TRAIN_T, "crop_size": CROP,
+            "device": str(dev), "lr": TRAIN_LR, "frames": batch[0],
+            "labels": batch[2].astype(np.int64), "seed": FAMILY_SEED, "steps": 1 + MESH_STEPS}
+    cnn = dict(base, family="cnn", init=from_jax_cnn(load_npz_tree(ASSET)))
+    resformer = dict(base, family="resformer", save=os.path.join(MESH_WORK, "ckpt"), save_at=1)
+    gen = np.random.default_rng(0)
+    uniform = dict(base, family="resformer", steps=1,
+                   frames=gen.integers(0, 256, batch[0].shape, dtype=np.uint8),
+                   labels=gen.integers(0, len(train_actions()), batch[2].shape).astype(np.int64))
+    return cnn, resformer, uniform, batch
+
+
+def mesh_rank_main(rank):
+    """python3 chip_smoke.py --mesh-rank R: rank R of phase 13 (b)'s two gloo
+    ranks on cuda:0 (the file store in $CHIP_SMOKE_MESH_STORE).  CNN-63 on a
+    (2, 1) mesh, this rank's rows of a batch through device_prefetch under
+    torch.profiler, the ResFormer on a (1, 2) mesh; one JSON line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from playaid_core_torch.parallel.dryrun import run_train_case
+    from playaid_core_torch.parallel.mesh import batch_sharding, make_mesh
+    from playaid_core_torch.parallel.staging import device_prefetch
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=os.environ[MESH_STORE_ENV], world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        cnn, resformer, uniform, batch = mesh_cases(dev)
+        out = {"rank": rank}
+        out["cnn"] = run_train_case(dict(cnn, model_parallel=1,
+                                         out=os.path.join(MESH_WORK, "cnn_2x1.pt")))
+        mesh = make_mesh(device=dev)
+        # CNN-63's gradient all-reduce alone: one flat float32 buffer of its
+        # parameters' size over data, after a warm-up.
+        flat = torch.zeros(sum(v.numel() for part in cnn["init"].values()
+                               for k, v in part.items()
+                               if not k.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked"))), device=dev)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.all_reduce_(flat, "data")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["grad_all_reduce_ms"] = times[1:]
+        out["grad_all_reduce_bytes"] = flat.numel() * 4
+        rows = batch_sharding(mesh)
+        trace = os.path.join(MESH_WORK, f"h2d_rank{rank}.json")
+        prof = profile_h2d(torch, lambda: list(device_prefetch([batch], 1, dev, rows)), trace)
+        out["h2d"] = prof["h2d"]
+        out["row_bytes"] = [int(rows(a).nbytes) for a in batch]
+        out["resformer"] = run_train_case(dict(resformer, model_parallel=2))
+        out["resformer64"] = run_train_case(dict(resformer, model_parallel=2, double=True,
+                                                 save=None, steps=1))
+        out["uniform"] = run_train_case(dict(uniform, model_parallel=2))
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_gloo_ranks(check):
+    """Phase 13 (b): start both ranks, wait for both (MESH_TIMEOUT_S), and
+    return their JSON results (None where a rank failed)."""
+    store = os.path.join(MESH_WORK, "gloo_store")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ, **{MESH_STORE_ENV: "file://" + store})
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    results = []
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    for r, proc in enumerate(procs):
+        try:
+            stdout, stderr = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            check(False, f"phase 13: the gloo ranks did not finish within {MESH_TIMEOUT_S} s")
+            return [None, None]
+        ok = proc.returncode == 0
+        check(ok, f"phase 13: gloo rank {r} exited {proc.returncode}"
+              + ("" if ok else f":\n{stderr[-3000:]}"))
+        results.append(json.loads(stdout.strip().splitlines()[-1]) if ok else None)
+    return results
+
+
+def rel_err(a, b):
+    return abs(a - b) / abs(b)
+
+
+def stats_rel_err(got, ref):
+    """The worst batch-norm running statistic of two whole state files, as
+    max|got - ref| / max|ref| per tensor."""
+    worst = 0.0
+    for part in ("embed", "head"):
+        for k, v in ref[part].items():
+            if k.endswith(("running_mean", "running_var")):
+                worst = max(worst, float((got[part][k] - v).abs().max() / v.abs().max()))
+    return worst
+
+
+def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod_fps):
+    """Phase 13: the meshed Trainer over NCCL at world size 1, two gloo ranks
+    sharing the card, VodAnalyzer on a mesh of two replicas on the card, and
+    the checkpoint across meshes.  Returns K2's numbers of the phase."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.parallel.dryrun import run_train_case
+    from playaid_core_torch.parallel.mesh import make_mesh
+    from playaid_core_torch.train.train import Trainer
+
+    os.makedirs(MESH_WORK, exist_ok=True)
+    t_phase = time.perf_counter()
+    cnn, resformer, uniform, batch = mesh_cases(dev)
+    k2 = {}
+
+    def k2_against_plain(block, x):
+        with torch.inference_mode(), full_float32():
+            args = k2_ref_args(block, x)
+            out = residual_block_packed(args[0], block.block_pack(torch.float32))
+            ref = residual_block_ref(*args)
+        return float((out - ref).abs().max()), float(ref.abs().max()), tuple(args[0].shape)
+
+    # (a) One rank over NCCL: the meshed step against the plain one.
+    store = os.path.join(MESH_WORK, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method="file://" + store, world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        one = {"steps": 1}
+        meshed = run_train_case(dict(cnn, model_parallel=1, **one))
+        plain = run_train_case(dict(cnn, devices=[str(dev)], **one))
+        errs = [rel_err(meshed[k][0], plain[k][0]) for k in ("losses", "grad_norms")]
+        check(tuple(meshed["mesh"]) == (1, 1) and max(errs) <= MESH_REL_TOL,
+              f"phase 13 (a): CNN-63 step on a {tuple(meshed['mesh'])} NCCL mesh (world size 1, "
+              f"file store) vs the plain Trainer step: loss {meshed['losses'][0]:.6f} vs "
+              f"{plain['losses'][0]:.6f} (rel {errs[0]:.3e}), grad norm "
+              f"{meshed['grad_norms'][0]:.6f} vs {plain['grad_norms'][0]:.6f} (rel {errs[1]:.3e}); "
+              f"tol {MESH_REL_TOL}; step {meshed['seconds'][0] * 1e3:.1f} ms (plain "
+              f"{plain['seconds'][0] * 1e3:.1f} ms, first steps); collectives "
+              f"{json.dumps(meshed['bytes'])}; {card}")
+        trainer = Trainer(train_config("cnn", device=str(dev)), None)
+        trainer.init_state(FAMILY_SEED)
+        trainer.load_whole(cnn["init"])
+        block = trainer.model.embed.layer4[1]
+        seen = {}
+        hook = block.register_forward_hook(keep_input(seen))
+        k2_wrapper.launches = 0
+        result = trainer.evaluate(train_dataset("validation", seed=2), num_batches=1)
+        k2["evaluate_launches"] = k2_wrapper.launches
+        hook.remove()
+        err, scale, shape = k2_against_plain(block, seen["x"])
+        k2["evaluate_max_abs_err"] = err
+        check(trainer.mesh.distributed and k2["evaluate_launches"] == 1
+              and err <= K2_F32_REL_TOL * scale and np.isfinite(result["loss"]),
+              f"phase 13 (a): meshed evaluate on {trainer.mesh}: loss {result['loss']:.4f}, "
+              f"K2 launches {k2['evaluate_launches']}; K2 at layer4[1] {shape} vs "
+              f"residual_block_ref: max abs err {err:.3e} (tol {K2_F32_REL_TOL} x max|ref| "
+              f"{scale:.3f}); {card}")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) Two gloo ranks sharing the card: CNN-63 on (2, 1), the ResFormer on (1, 2).
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_gloo_ranks(check)
+    log(f"phase 13 (b): both gloo ranks (python3 chip_smoke.py --mesh-rank 0|1) took "
+        f"{time.perf_counter() - t0:.1f} s; gloo takes the CUDA tensors as they are "
+        f"(tools/torch_port_gloo_cuda_probe.py); {card}")
+    ref_cnn = run_train_case(dict(cnn, devices=[str(dev)],
+                                  out=os.path.join(MESH_WORK, "cnn_1x1.pt")))
+    ref_res = run_train_case(dict(resformer, devices=[str(dev)], save=None, steps=1))
+    ref_res64 = run_train_case(dict(resformer, devices=[str(dev)], save=None, steps=1,
+                                    double=True))
+    ref_uniform = run_train_case(dict(uniform, devices=[str(dev)]))
+    if None not in ranks:
+        for family, key, ref, shape, what in (
+                ("cnn", "cnn", ref_cnn, (2, 1), "phase 10's batch, float32"),
+                ("resformer", "uniform", ref_uniform, (1, 2),
+                 "dryrun_multichip's uniform frames, float32"),
+                ("resformer", "resformer64", ref_res64, (1, 2), "phase 10's batch, float64")):
+            for r, res in enumerate(ranks):
+                got = res[key]
+                errs = [rel_err(got[k][0], ref[k][0]) for k in ("losses", "grad_norms")]
+                check(tuple(got["mesh"]) == shape and max(errs) <= MESH_REL_TOL,
+                      f"phase 13 (b): rank {r} {family} on {shape} ({what}): first-step loss "
+                      f"{got['losses'][0]:.9f} vs one process {ref['losses'][0]:.9f} (rel "
+                      f"{errs[0]:.3e}), grad norm {got['grad_norms'][0]:.9f} vs "
+                      f"{ref['grad_norms'][0]:.9f} (rel {errs[1]:.3e}); tol {MESH_REL_TOL}; {card}")
+        # On phase 10's batch one float32 ReLU input of the last encoder
+        # layer lies within rounding of 0, and its sign follows the summation
+        # order (tools/torch_port_resformer_f32_probe.py): there the float32
+        # grad norms are read beside float64's, and the loss is held.
+        g64 = ref_res64["grad_norms"][0]
+        for r, res in enumerate(ranks):
+            got = res["resformer"]
+            loss_err = rel_err(got["losses"][0], ref_res["losses"][0])
+            check(tuple(got["mesh"]) == (1, 2) and loss_err <= MESH_REL_TOL,
+                  f"phase 13 (b): rank {r} resformer on (1, 2) (phase 10's batch, float32): "
+                  f"first-step loss rel {loss_err:.3e} to one process (tol {MESH_REL_TOL}); "
+                  f"grad norm {got['grad_norms'][0]:.9f}, one process "
+                  f"{ref_res['grad_norms'][0]:.9f}, float64 {g64:.9f}: rel to float64 "
+                  f"{rel_err(got['grad_norms'][0], g64):.3e} on the mesh, "
+                  f"{rel_err(ref_res['grad_norms'][0], g64):.3e} on one process; {card}")
+        log(f"phase 13 (b): CNN-63's gradient all-reduce alone over gloo (one flat float32 "
+            f"buffer of {ranks[0]['grad_all_reduce_bytes']} B, CUDA tensors): ms "
+            f"{[round(t, 1) for t in ranks[0]['grad_all_reduce_ms']]} on rank 0; {card}")
+        for family, ref, shape in (("cnn", ref_cnn, (2, 1)), ("resformer", ref_res, (1, 2))):
+            got = ranks[0][family]
+            log(f"phase 13 (b): {family} on {shape}: step ms "
+                f"{[round(s * 1e3, 1) for s in got['seconds']]} (one process "
+                f"{[round(s * 1e3, 1) for s in ref['seconds']]}); bytes each collective moved "
+                f"over {len(got['seconds'])} steps, rank 0: {json.dumps(got['bytes'])}; {card}")
+        stats = stats_rel_err(torch.load(os.path.join(MESH_WORK, "cnn_2x1.pt"), weights_only=True),
+                              torch.load(os.path.join(MESH_WORK, "cnn_1x1.pt"), weights_only=True))
+        check(stats <= MESH_STATS_REL_TOL,
+              f"phase 13 (b): CNN-63 on (2, 1) after {1 + MESH_STEPS} steps: batch-norm running "
+              f"statistics vs one process, worst max err / max|ref| {stats:.3e} (tol "
+              f"{MESH_STATS_REL_TOL}); {card}")
+        for r, res in enumerate(ranks):
+            check(sorted(res["h2d"]) == sorted(res["row_bytes"]),
+                  f"phase 13 (b): rank {r}: host-to-device copies of a batch through "
+                  f"device_prefetch(sharding=batch_sharding) under torch.profiler: "
+                  f"{sorted(res['h2d'])} B = its rows {sorted(res['row_bytes'])} B (the whole "
+                  f"batch: {sorted(int(a.nbytes) for a in batch)} B); {card}")
+
+        # (d) The (1, 2) ResFormer's checkpoint (after its first step) on one process.
+        path = ranks[0]["resformer"]["checkpoint"]
+        resumed = run_train_case(dict(resformer, devices=[str(dev)], save=None, restore=path,
+                                      steps=MESH_STEPS))
+        cont = ranks[0]["resformer"]["losses"][1:]
+        err = max(rel_err(a, b) for a, b in zip(resumed["losses"], cont))
+        check(err <= MESH_REL_TOL,
+              f"phase 13 (d): {os.path.relpath(path, ROOT)} written on (1, 2), restored on one "
+              f"process: continuation losses {[round(v, 6) for v in resumed['losses']]} vs "
+              f"{[round(v, 6) for v in cont]} on the mesh, worst rel {err:.3e} (tol "
+              f"{MESH_REL_TOL}); {card}")
+        pipe = BatchedActionPipeline("resformer", len(train_actions()), TRAIN_T,
+                                     device=dev).load_checkpoint(path)
+        whole = pipe.head.layers[0].linear1.weight.shape == (2048, 256)
+        check(whole, f"phase 13 (d): BatchedActionPipeline.load_checkpoint read it on {dev} "
+              f"(whole tensors: linear1 {tuple(pipe.head.layers[0].linear1.weight.shape)}); "
+              f"{card}")
+
+    # (c) VodAnalyzer on a single-process mesh of two replicas on the card.
+    from playaid_core_torch.convert import load_npz_tree
+
+    kw = dict(decode_backend="native", transfer_format="yuv420", stride=STRIDE, chunk=CHUNK,
+              switch_cost=SWITCH_COST, decode="viterbi")
+    pipe = BatchedActionPipeline(device=dev)
+    single = VodAnalyzer(pipe, variables=load_npz_tree(ASSET), **kw)
+    meshed = VodAnalyzer(pipe, mesh=make_mesh(devices=[dev, dev]), **kw)
+    single.analyze("disc_clip.mp4", boxes_all)  # warm-up: the stand-in's crops, cuDNN plans
+    meshed.analyze("disc_clip.mp4", boxes_all)
+    blocks = [p.embed.layer4[1] for p, _ in meshed._replicas]
+    seen = [{} for _ in blocks]
+    hooks = [b.register_forward_hook(keep_input(s)) for b, s in zip(blocks, seen)]
+    k2_wrapper.launches = 0
+    res_mesh = meshed.analyze("disc_clip.mp4", boxes_all)
+    k2["vod_launches"] = k2_wrapper.launches
+    for h in hooks:
+        h.remove()
+    res_single = single.analyze("disc_clip.mp4", boxes_all)
+    num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
+    same = bool(np.array_equal(res_mesh["labels"], res_single["labels"]))
+    conf = float(np.abs(res_mesh["confidences"] - res_single["confidences"]).max())
+    check(same and conf <= MESH_CONF_TOL and k2["vod_launches"] == 2 * num_chunks
+          and blocks[0] is not blocks[1],
+          f"phase 13 (c): VodAnalyzer(mesh=make_mesh(devices=[{dev}, {dev}])) over "
+          f"{NUM_FRAMES} frames: labels identical to mesh=None {same}, confidences max abs "
+          f"diff {conf:.3e} (tol {MESH_CONF_TOL}); K2 launches {k2['vod_launches']} = 2 "
+          f"replicas x {num_chunks} chunks; {card}")
+    errs = []
+    for r, (block, s) in enumerate(zip(blocks, seen)):
+        err, scale, shape = k2_against_plain(block, s["x"])
+        errs.append(err)
+        check(err <= K2_F32_REL_TOL * scale,
+              f"phase 13 (c): replica {r}: K2 at layer4[1] {shape} vs residual_block_ref: max "
+              f"abs err {err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {scale:.3f}); {card}")
+    k2["vod_max_abs_err"] = max(errs)
+    with torch.inference_mode(), full_float32():
+        args = k2_ref_args(blocks[0], seen[0]["x"])
+    yard = k2_yardsticks(torch, blocks[0], seen[0]["x"], args,
+                         blocks[0].block_pack(torch.float32))
+    k2.update({f"vod_{k}": v for k, v in yard.items() if k != "gflop"})
+    k2["vod_shape"] = list(args[0].shape)
+    log(f"phase 13 (c): K2 f32 at {tuple(args[0].shape)} (a replica's half of a chunk): call "
+        f"{yard['ms']:.4f} ms, plain {yard['plain_ms']:.4f} ms, cuDNN chain "
+        f"{yard['library_ms']:.4f} ms, bound {yard['bound_ms']:.4f} ms (3 x "
+        f"{yard['gflop']:.2f} GFLOP TF32); {card}")
+    log(f"phase 13 (c): frames/s with two replicas on the card {res_mesh['fps']:.1f}, one "
+        f"{res_single['fps']:.1f} in this phase, phase 6's {vod_fps:.1f} (Viterbi runs, decode "
+        f"stand-in); {card}")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return k2
+
+
 def main():
     import torch
 
@@ -2655,6 +3007,8 @@ def main():
         return profile_main(sys.argv[2])
     if sys.argv[1:2] == ["--synth"]:
         return synth_main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank_main(int(sys.argv[2]))
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
@@ -3112,8 +3466,8 @@ def main():
     # The choice of decoder, fixed from the probe of the card's machine.
     stand_in = DiscClipDecoder(NUM_FRAMES)
     install_stand_in(native_decoder, stand_in)
-    vod_launches = run_vod_phase(torch, dev, check, boxes_all, stand_in,
-                                 [square_crop_resize, residual_block_packed])
+    vod_launches, vod_fps = run_vod_phase(torch, dev, check, boxes_all, stand_in,
+                                          [square_crop_resize, residual_block_packed])
     run_family_phase(torch, dev, check, boxes_all, stand_in, residual_block_packed)
 
     # ---- phase 8: the log path, the window route and the command line ----
@@ -3134,6 +3488,12 @@ def main():
                                   [square_crop_resize, window_resize, bank_resize],
                                   residual_block_packed)
     log(f"phase 12: {json.dumps(detector)}; {card}")
+
+    # ---- phase 13: the multi-device path ----
+    square_crop_resize.launches = 0
+    mesh = run_mesh_phase(torch, dev, check, card, residual_block_packed, boxes_all, stand_in,
+                          vod_fps)
+    k1_mesh_launches = square_crop_resize.launches
 
     kernels = [
         {"name": "crop_resize", "route": "cuda",
@@ -3175,6 +3535,10 @@ def main():
     kernels[1].update({f"detector_train_{k}": detector[k] for k in (
         "launches", "train_step_launches", "max_abs_err", "shape", "ms", "device_ms",
         "plain_ms", "bound_ms", "library_ms")})
+    # Phase 13: K2 in the meshed evaluate and in each replica of
+    # VodAnalyzer(mesh=); K1 not on the path (host crops).
+    kernels[0]["mesh_launches"] = k1_mesh_launches
+    kernels[1].update({f"mesh_{k}": v for k, v in mesh.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -48,6 +48,7 @@ from playaid_core_torch.models.lightning_ckpt import (
 )
 from playaid_core_torch.ops.crop_kernel import square_crop_resize, window_resize
 from playaid_core_torch.ops.preprocess import middle_out_frame_indices
+from playaid_core_torch.parallel.mesh import parallel_linear
 
 FAMILIES = ("cnn", "resformer", "rnn")
 
@@ -65,7 +66,14 @@ class CNNEmbed(ResNet18):
 class CNNTemporalHead(nn.Module):
     """Dense head over a window of embeddings ``[B, T, D]`` -> log-probs
     ``[B, A]`` (float32), in full float32 whatever the caller's TF32
-    flags.  The window flattens t-major, ``[B, T * D]``."""
+    flags.  The window flattens t-major, ``[B, T * D]``.
+
+    On a mesh (``parallel.mesh.attach_mesh``) that splits ``model``,
+    ``temporal_dense`` (and ``classifier`` when the actions divide) hold
+    rows of their weights; their outputs are gathered over ``model``
+    before the whole-width layer that follows."""
+
+    mesh = None
 
     def __init__(self, num_actions, sequence_length, resnet_features=1000):
         super().__init__()
@@ -76,9 +84,9 @@ class CNNTemporalHead(nn.Module):
     def logits(self, window_feats):
         y = window_feats.reshape(window_feats.shape[0], -1)
         with full_float32():
-            y = torch.relu(self.temporal_dense(y))
+            y = torch.relu(parallel_linear(self.temporal_dense, y, self.mesh, gather=True))
             y = torch.relu(self.mlp_hidden(y))
-            return at_least_float32(self.classifier(y))
+            return at_least_float32(parallel_linear(self.classifier, y, self.mesh, gather=True))
 
     def forward(self, window_feats):
         return torch.log_softmax(self.logits(window_feats), dim=1)
@@ -100,7 +108,11 @@ class ResFormerEmbed(nn.Module):
 
 class ResFormerTemporalHead(nn.Module):
     """Time-encoding concat (9-d) + post-LN transformer (d_model 256, 8
-    heads) + per-step classifier: ``[B, T, 247]`` -> log-probs ``[B, T, A]``."""
+    heads) + per-step classifier: ``[B, T, 247]`` -> log-probs ``[B, T, A]``.
+    On a mesh that splits ``model``, the classifier holds rows of its
+    weight when the actions divide, and its output is gathered."""
+
+    mesh = None
 
     def __init__(self, num_actions, sequence_length=7, hidden_dim=247, num_heads=8,
                  num_layers=3, num_freq=4):
@@ -121,7 +133,7 @@ class ResFormerTemporalHead(nn.Module):
             y = torch.cat([window_feats, freq], dim=2)
             for layer in self.layers:
                 y = layer(y)
-            return at_least_float32(self.classifier(y))
+            return at_least_float32(parallel_linear(self.classifier, y, self.mesh, gather=True))
 
     def forward(self, window_feats):
         return torch.log_softmax(self.logits(window_feats), dim=2)

@@ -29,7 +29,12 @@ fighters' boxes from an ult_logger log.  Its layers:
   for.
 
 Weights are loaded into the pipeline's modules on its device once, when
-the analyzer is made.  Not ported yet: ``mesh=`` (ROADMAP.md, queue 1).
+the analyzer is made.  With ``mesh=`` (a single-process
+``parallel.mesh.make_mesh(devices=...)``), each device of the mesh's
+``data`` axis holds a replica of the embed, made there once; each chunk's
+rows are split over the replicas, each staged and embedded on its device,
+and the embeddings gathered into the buffer on the first device (the
+pipeline's), where the head and the label decode run.
 
 Command line (the card unless ``--device cpu``)::
 
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import os
 import queue
 import sys
@@ -429,22 +435,23 @@ class PinnedStager:
 
 
 class _ChunkDispatcher:
-    """The one thread of an analysis that touches the device: for each
-    chunk handed to :meth:`sink` it stages the chunk's arrays (``[rows, 2,
-    ...]`` each: the crops, or the windows and their origins), embeds them
-    (``embed(*arrays)``, two fighters to a row) and scatters the
-    embeddings into the buffer.  An error stops the decode at the next
-    chunk and is raised again by :meth:`finish`."""
+    """The one thread of an analysis that touches the devices: for each
+    chunk handed to :meth:`sink` it splits the chunk's arrays (``[rows, 2,
+    ...]`` each: the crops, or the windows and their origins), two
+    fighters to a row, over the ``replicas`` (``(embed, stager)`` pairs,
+    one per device), stages and embeds each part
+    (``embed(*arrays)``) on its device, and scatters the embeddings, in row
+    order, into the buffer.  An error stops the decode at the next chunk
+    and is raised again by :meth:`finish`."""
 
     QUEUE_CHUNKS = 8
     JOIN_TIMEOUT_S = 600.0
 
-    def __init__(self, pipeline, embed, buf, stride, stager):
+    def __init__(self, pipeline, replicas, buf, stride):
         self.pipeline = pipeline
-        self.embed = embed
+        self.replicas = replicas
         self.buf = buf
         self.stride = stride
-        self.stager = stager
         self.decoded = 0
         self.extent = 0  # highest sampled row written + 1, not a count
         self.error = None
@@ -479,12 +486,21 @@ class _ChunkDispatcher:
                     continue  # keep draining so producers never block
                 try:
                     flat = [a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:]) for a in arrays]
-                    emb = self.embed(*self.stager.to_device(*flat))
+                    emb = self._embed(flat)
                     self.pipeline.scatter_embeddings(self.buf, emb, (start // self.stride) * 2)
                     self.decoded += n
                     self.extent = max(self.extent, (start + n + self.stride - 1) // self.stride)
                 except BaseException as e:  # raised again on the analyzing thread
                     self.error = e
+
+    def _embed(self, flat):
+        if len(self.replicas) == 1:
+            embed, stager = self.replicas[0]
+            return embed(*stager.to_device(*flat))
+        parts = zip(*(np.array_split(a, len(self.replicas)) for a in flat))
+        embs = [embed(*stager.to_device(*part))
+                for (embed, stager), part in zip(self.replicas, parts)]
+        return torch.cat([e.to(self.buf.device) for e in embs])
 
     def finish(self):
         """Stop producers blocked in :meth:`sink`, let the dispatcher run
@@ -524,6 +540,9 @@ class VodAnalyzer:
     2 or "auto", see :func:`auto_lowres`) and ``fast_decode`` (True, False
     or "auto") set the native decode mode.  ``decode``, ``smooth_radius``
     and ``switch_cost`` set the label decode of ``classify_buffer``.
+    ``mesh``: a single-process mesh whose ``data`` axis lists the devices
+    of the embed's replicas, the first being the pipeline's (see the module
+    docstring); None embeds on the pipeline's device alone.
     """
 
     def __init__(self, pipeline: BatchedActionPipeline | None = None, variables=None,
@@ -535,10 +554,6 @@ class VodAnalyzer:
         if not host_resize and decode_backend == "native":
             raise ValueError("the native decoder makes crops on the host; host_resize=False "
                              "cuts windows from decoded frames (decode_backend 'auto' or 'cv2')")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (chunks split over several devices) is not ported yet; "
-                "see ROADMAP.md, queue 1 item 5")
         if decode_backend not in ("auto", "native", "cv2"):
             raise ValueError(f"decode_backend must be auto, native or cv2, got "
                              f"{decode_backend!r}")
@@ -568,7 +583,28 @@ class VodAnalyzer:
         self.label_decode = decode
         self.smooth_radius = smooth_radius
         self.switch_cost = switch_cost
-        self._stager = PinnedStager(self.pipeline.device)
+        self._replicas = self._make_replicas(mesh)
+
+    def _make_replicas(self, mesh):
+        """``(pipeline, stager)`` per device of the ``data`` axis: the
+        pipeline itself first, then copies that share its head and hold an
+        embed of their own on their device."""
+        if mesh is None:
+            return [(self.pipeline, PinnedStager(self.pipeline.device))]
+        if mesh.distributed:
+            raise ValueError("VodAnalyzer runs in one process: give it a single-process mesh "
+                             "(make_mesh(devices=[...]))")
+        devices = list(mesh.devices[:, 0])
+        if devices[0] != self.pipeline.device:
+            raise ValueError(f"the mesh's first device {devices[0]} must be the pipeline's "
+                             f"({self.pipeline.device}): its buffer and head live there")
+        replicas = [(self.pipeline, PinnedStager(devices[0]))]
+        for dev in devices[1:]:
+            replica = copy.copy(self.pipeline)
+            replica.embed = copy.deepcopy(self.pipeline.embed).to(dev)
+            replica.device = dev
+            replicas.append((replica, PinnedStager(dev)))
+        return replicas
 
     def analyze(self, video_path, boxes, num_frames=None):
         """boxes: ``[F, 2, 4]`` normalised yolo boxes per frame.
@@ -602,15 +638,16 @@ class VodAnalyzer:
                 lowres = min(self.lowres, info["max_lowres"])
 
         if not self.host_resize:
-            embed = self.pipeline.embed_windows
+            embed = "embed_windows"
         elif fmt == "yuv420":
-            embed = self.pipeline.embed_crops_yuv
+            embed = "embed_crops_yuv"
         else:
-            embed = self.pipeline.embed_crops_u8
+            embed = "embed_crops_u8"
         num_chunks = (f_total + chunk - 1) // chunk
         t0 = time.time()
         buf = self.pipeline.make_embedding_buffer(num_chunks * (chunk // stride))
-        dispatcher = _ChunkDispatcher(self.pipeline, embed, buf, stride, self._stager)
+        replicas = [(getattr(pipe, embed), stager) for pipe, stager in self._replicas]
+        dispatcher = _ChunkDispatcher(self.pipeline, replicas, buf, stride)
         try:
             if use_native:
                 self._decode_native(dispatcher, video_path, boxes, f_total, padding, lowres, fmt)

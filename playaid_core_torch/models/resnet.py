@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from playaid_core_torch.ops.conv_block import pack_block, residual_block_packed
+from playaid_core_torch.parallel.mesh import data_batch_norm
 
 BN_EPS = 1e-5
 FLAX_MOMENTUM = 0.1  # torch's convention: Flax's momentum 0.9
@@ -43,7 +44,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same parameters and buffers) whose training-mode
     update is Flax's ``BatchNorm(momentum=0.9)``: running mean and variance
     move by a tenth toward the batch mean and the biased batch variance.
-    In eval mode it is ``nn.BatchNorm2d`` on the running statistics."""
+    In eval mode it is ``nn.BatchNorm2d`` on the running statistics.
+
+    On a mesh (``parallel.mesh.attach_mesh``) whose ``data`` axis splits the
+    batch, the training-mode statistics span the whole batch
+    (``mesh.data_batch_norm``), as under the JAX package's ``pjit``."""
+
+    mesh = None
 
     def __init__(self, num_features, eps=BN_EPS):
         super().__init__(num_features, eps=eps, momentum=FLAX_MOMENTUM)
@@ -51,13 +58,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None and self.mesh.axis_size("data") > 1:
+            y, mean, var = data_batch_norm(x, self.weight, self.bias, self.mesh, self.eps)
+            self._update_running_stats(mean, var)
+            return y
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+        self._update_running_stats(mean, var)
         return y
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean, var):
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
 
 
 def at_least_float32(x):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from playaid_core_torch.models.resnet import init_flax_, lecun_normal_
+from playaid_core_torch.parallel.mesh import is_column_split, parallel_linear, to_model
 
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -52,7 +53,14 @@ def dropout(x, rate, generator=None, mask_shape=None):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention over ``[B, T, E]`` with torch's packed
-    ``in_proj`` (query, key, value rows) and ``out_proj``."""
+    ``in_proj`` (query, key, value rows) and ``out_proj``.
+
+    On a mesh (``parallel.mesh.attach_mesh``) that splits ``model``, the
+    module holds whole heads: the same rows of each of the q, k and v
+    blocks of ``in_proj`` and the matching columns of ``out_proj``; the
+    output projection's partial sums are summed over ``model``."""
+
+    mesh = None
 
     def __init__(self, d_model, num_heads):
         super().__init__()
@@ -69,40 +77,70 @@ class SelfAttention(nn.Module):
         with a mask shape, in training."""
         b, t, e = x.shape
         head_dim = e // self.num_heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        q, k, v = qkv.reshape(b, t, 3, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
+        qkv = F.linear(to_model(x, self.mesh), self.in_proj_weight, self.in_proj_bias)
+        heads = qkv.shape[-1] // (3 * head_dim)  # this rank's heads
+        q, k, v = qkv.reshape(b, t, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
         q = q / math.sqrt(head_dim)
         weights = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
         if drop is not None:
             weights = drop(weights, (1, 1, t, t))
-        out = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, e)
-        return self.out_proj(out)
+        out = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, heads * head_dim)
+        return parallel_linear(self.out_proj, out, self.mesh)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer: ``x = norm1(x + attn(x))``, then
-    ``norm2(x + linear2(relu(linear1(x))))``, with dropout in training."""
+    ``norm2(x + linear2(relu(linear1(x))))``, with dropout in training.
+
+    On a mesh that splits ``model`` the feed-forward is Megatron's:
+    ``linear1`` holds rows (this rank's hidden columns), ``linear2`` the
+    matching columns, and one sum over ``model`` ends it.  Dropout masks
+    are drawn at the whole batch's shape (and the whole hidden width) from
+    the layer's generator, the same on every rank, and each rank keeps its
+    ``batch_rows`` (and hidden columns): the meshed step draws what one
+    device draws."""
+
+    mesh = None
 
     def __init__(self, d_model, num_heads, dim_feedforward=2048, dropout_rate=0.1):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.generator = None
+        self.batch_rows = (0, 1)  # (this rank's index, count) of the batch's row blocks
         self.self_attn = SelfAttention(d_model, num_heads)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS)
 
-    def _drop(self, x, mask_shape=None):
-        return dropout(x, self.dropout_rate, self.generator, mask_shape)
+    def _drop(self, x, mask_shape=None, hidden=False):
+        """Dropout of ``x``; ``hidden``: ``x`` is the feed-forward's hidden
+        activation, of which this rank may hold columns."""
+        if mask_shape is not None:  # shared by the batch: nothing to split
+            return dropout(x, self.dropout_rate, self.generator, mask_shape)
+        index, count = self.batch_rows
+        b, w = x.shape[0], x.shape[-1]
+        col, width = 0, w
+        if hidden and is_column_split(self.linear1):
+            col, width = self.mesh.index("model"), self.linear1.out_features
+        keep = 1.0 - self.dropout_rate
+        mask = torch.rand((b * count,) + x.shape[1:-1] + (width,), generator=self.generator,
+                          device=x.device) < keep
+        mask = mask[index * b:(index + 1) * b, ..., col * w:(col + 1) * w]
+        return torch.where(mask, x / keep, 0.0)
+
+    def _feed_forward(self, x, drop):
+        y = torch.relu(parallel_linear(self.linear1, x, self.mesh))
+        if drop:
+            y = self._drop(y, hidden=True)
+        return parallel_linear(self.linear2, y, self.mesh)
 
     def forward(self, x):
         if not self.training or not self.dropout_rate:
             x = self.norm1(x + self.self_attn(x))
-            return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+            return self.norm2(x + self._feed_forward(x, False))
         x = self.norm1(x + self._drop(self.self_attn(x, self._drop)))
-        y = self._drop(torch.relu(self.linear1(x)))
-        return self.norm2(x + self._drop(self.linear2(y)))
+        return self.norm2(x + self._drop(self._feed_forward(x, True)))
 
 
 class ResFormer(nn.Module):

@@ -19,20 +19,24 @@ from playaid_core_torch.device import resolve_device
 from playaid_core_torch.infer.vod_pipeline import PinnedStager
 
 
-def device_prefetch(iterable: Iterable, size: int = 2, device=None) -> Iterator:
+def device_prefetch(iterable: Iterable, size: int = 2, device=None, sharding=None) -> Iterator:
     """Yield the items of ``iterable`` (tuples of numpy arrays) as tuples of
     tensors on ``device``, keeping ``size`` copies ahead of the consumer.
 
     ``device=None`` means the CUDA device (and raises without one).  On
     CUDA each array goes through a pinned slot of a ``PinnedStager`` and
     is copied on its copy stream; the compute stream waits for the copy.
-    On the CPU the arrays are wrapped without a copy.
+    On the CPU the arrays are wrapped without a copy.  ``sharding`` (e.g.
+    ``parallel.mesh.batch_sharding(mesh)``) picks what of each array this
+    rank takes, before the copy: only those bytes reach the device.
     """
     stager = PinnedStager(resolve_device(device))
     it = iter(iterable)
     buf = collections.deque()
 
     def put(item):
+        if sharding is not None:
+            item = [sharding(a) for a in item]
         return tuple(stager.to_device(*item))
 
     try:

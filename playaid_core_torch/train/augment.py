@@ -25,13 +25,15 @@ import numpy as np
 from playaid_core_torch import imgproc
 from playaid_core_torch.geometry import aspect_resize
 
+WAITS_ON = "ROADMAP queue 1, what is left of action-model training: the augment ops on cv2"
+
 
 def _cv2():
     try:
         import cv2
     except ImportError as e:
         raise ImportError("this augmentation op still runs on cv2, which is not installed "
-                          "(ROADMAP queue 1 item 2: the augment ops on cv2)") from e
+                          f"({WAITS_ON})") from e
     return cv2
 
 
@@ -44,7 +46,7 @@ def _letterbox_pad(img, size, fill):
         from PIL import Image, ImageOps
     except ImportError as e:
         raise ImportError("padding an RGBA sprite needs PIL, which is not installed "
-                          "(ROADMAP queue 1 item 2: the augment ops on cv2)") from e
+                          f"({WAITS_ON})") from e
     return np.array(ImageOps.pad(Image.fromarray(img), (size, size), color=fill))
 
 

@@ -137,7 +137,8 @@ class UltActionRecogDataset:
         if split in UNPORTED_SPLITS:
             raise NotImplementedError(
                 f"the {split!r} split composites sprites with PIL and cv2 and is not ported "
-                "(ROADMAP queue 1 item 2: the dataset's synth/simple/manual splits)")
+                "(ROADMAP queue 1, what is left of action-model training: the dataset's "
+                "synth/simple/manual splits)")
         self.split = split
         self.num_samples = num_samples
         self.crop_size = crop_size

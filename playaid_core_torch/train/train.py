@@ -13,7 +13,13 @@ models/*_detector.py training steps), as an explicit PyTorch loop:
   normalised on the device inside the step; the step returns the loss,
   the accuracy, and the global gradient and parameter L2 norms, as device
   tensors (no host synchronisation);
-* :class:`Trainer`: batches assembled in a background thread, shipped as
+* :class:`Trainer`: on a ``(data, model)`` mesh (``parallel/mesh.py``; one
+  device by default): the parameters placed by the tensor-parallel rules
+  (Adam's moments follow their shards), each rank's rows of every batch
+  (a batch that does not divide over ``data`` is replicated), batch norm
+  over the whole batch, gradients averaged over ``data``, norms that count
+  each shard once, dropout masks drawn at the whole batch's shape; batches
+  assembled in a background thread, shipped as
   uint8 through pinned slots and a copy stream two steps ahead
   (``parallel/staging.py``), or, from a dataset with ``device_batches``
   (``train/device_synth.py``), made on the device and taken straight into
@@ -24,22 +30,25 @@ models/*_detector.py training steps), as an explicit PyTorch loop:
   holds ``{"embed", "head"}`` state dicts, which
   ``BatchedActionPipeline.load_checkpoint`` reads, and
   ``step_<epoch>.trainer.pt`` beside it the optimizer, schedule and
-  dropout generator for :meth:`Trainer.restore_checkpoint`;
+  dropout generator for :meth:`Trainer.restore_checkpoint` (whole tensors,
+  gathered over ``model``: a checkpoint restores onto any mesh);
 * :func:`main`: the ``train`` command line (argparse),
-  ``python -m playaid_core_torch.train.train``.
+  ``python -m playaid_core_torch.train.train``; ``--model_parallel M``
+  needs a process group (under ``torchrun``, ``main`` starts one with
+  ``--backend``).
 
 Every entry point runs on the CUDA device unless given ``device="cpu"``
 (``--device cpu``), in float32 with TF32 off (``device.full_float32()``)
 around forward and backward alike.  Weights are drawn from a
 ``torch.Generator`` (``init_state(seed)``), and so are the ResFormer's
 dropout masks (a generator on the device, seeded ``seed + 1``).  The
-command line's ``--bf16`` and ``--model_parallel`` above 1 are not ported
-and raise.
+command line's ``--bf16`` is not ported and raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import os
@@ -50,6 +59,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd.graph import increment_version
 
 from playaid_core_torch import constants
@@ -60,6 +70,15 @@ from playaid_core_torch.models.losses import accuracy, center_frame_loss, per_fr
 from playaid_core_torch.models.resnet_transformer import ResnetTransformerDetector
 from playaid_core_torch.models.rnn_action_detector import RNNActionDetector
 from playaid_core_torch.ontology import MOVE_TO_CLASS_ID
+from playaid_core_torch.parallel.mesh import (
+    REPLICATED,
+    attach_mesh,
+    batch_sharding,
+    gather_params,
+    make_mesh,
+    replicated,
+    shard_slice,
+)
 from playaid_core_torch.parallel.staging import BackgroundIterator, device_prefetch
 from playaid_core_torch.train.dataset import UltActionRecogDataset
 
@@ -71,8 +90,6 @@ MODEL_FAMILIES = {
 
 NOT_BF16 = ("the port trains in float32 only: bfloat16 comes in with the label-agreement "
             "check of the ROADMAP's north star")
-NOT_MODEL_PARALLEL = ("the port trains on one device: a model-parallel mesh is ROADMAP "
-                      "queue 1 item 5 (parallel/mesh.py -> torch.distributed)")
 
 
 def build_model(family: str, num_actions: int, sequence_length: int):
@@ -123,12 +140,16 @@ def make_schedule(learning_rate, warmup_steps=200, decay_steps=None):
 @dataclass
 class TrainState:
     """The model, its optimizer and schedule, and the parameters they train
-    (those with ``requires_grad``)."""
+    (those with ``requires_grad``) with their names; on a mesh, the mesh
+    and which parameters are this rank's shards."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     params: list
+    names: list
+    mesh: Optional[object] = None
+    sharded: Optional[list] = None
 
     @property
     def step(self):
@@ -154,22 +175,36 @@ def bump_versions_after_step(optimizer):
     return optimizer
 
 
-def create_train_state(model, learning_rate, warmup_steps=200, decay_steps=None):
+def create_train_state(model, learning_rate, warmup_steps=200, decay_steps=None, mesh=None,
+                       specs=None):
     """Adam (beta 0.9/0.999, eps 1e-8 outside the square root, as optax's)
     over ``model``'s trainable parameters, on their device, with the JAX
-    trainer's schedule (:func:`make_schedule`)."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    trainer's schedule (:func:`make_schedule`).  On a ``mesh``, ``specs``
+    (``attach_mesh``'s) say which parameters are shards."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    names, params = [n for n, _ in named], [p for _, p in named]
     optimizer = bump_versions_after_step(torch.optim.Adam(
         params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, fused=True))
     schedule = make_schedule(learning_rate, warmup_steps, decay_steps)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda count: schedule(count) / learning_rate)
-    return TrainState(model, optimizer, scheduler, params)
+    sharded = [bool(specs and specs[n].sharded and mesh.axis_size("model") > 1) for n in names]
+    return TrainState(model, optimizer, scheduler, params, names, mesh, sharded)
 
 
-def global_norm(tensors):
-    """L2 norm of all the tensors' entries together (``optax.global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+def global_norm(tensors, sharded=None, mesh=None):
+    """L2 norm of all the tensors' entries together (``optax.global_norm``).
+    On a mesh, the tensors flagged ``sharded`` are this rank's shards: their
+    squares are summed over ``model`` once, and whole tensors count once."""
+    sharded = sharded or [False] * len(tensors)
+    parts = []
+    for shard in (True, False):
+        norms = [torch.linalg.vector_norm(t) for t, s in zip(tensors, sharded) if s == shard]
+        parts.append(torch.stack(norms).square().sum() if norms else tensors[0].new_zeros(()))
+    parts = torch.stack(parts)
+    if mesh is not None:
+        mesh.all_reduce_(parts[:1], "model")
+    return parts.sum().sqrt()
 
 
 def _normalise(frames):
@@ -190,7 +225,9 @@ def make_train_step(model, loss_fn):
     """``train_step(state, frames, labels) -> (loss, acc, grad_norm,
     param_norm)``: one update of ``state`` in place, in training mode.
     ``frames`` ``[B, T, H, W, 3]`` uint8 or float in [0, 1]; the results
-    are 0-d tensors on the device."""
+    are 0-d tensors on the device.  On ``state.mesh`` the batch is this
+    rank's rows: the gradients are averaged over ``data`` before the
+    update, and the loss and accuracy are the whole batch's."""
     def train_step(state, frames, labels):
         if not model.training:
             model.train()
@@ -200,13 +237,21 @@ def make_train_step(model, loss_fn):
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         with torch.no_grad():
-            grad_norm = global_norm([p.grad for p in state.params if p.grad is not None])
+            held = [(p.grad, s) for p, s in zip(state.params, state.sharded)
+                    if p.grad is not None]
+            grads = [g for g, _ in held]
+            if state.mesh is not None:
+                state.mesh.average_gradients(grads)
+            grad_norm = global_norm(grads, [s for _, s in held], state.mesh)
         state.optimizer.step()
         state.scheduler.step()
         with torch.no_grad():
             acc = accuracy(log_probs, _match_labels(log_probs, labels))
-            param_norm = global_norm(state.params)
-        return loss.detach(), acc, grad_norm, param_norm
+            param_norm = global_norm(state.params, state.sharded, state.mesh)
+            loss = loss.detach()
+            if state.mesh is not None:
+                loss, acc = state.mesh.mean_over("data", loss, acc)
+        return loss, acc, grad_norm, param_norm
 
     return train_step
 
@@ -214,7 +259,8 @@ def make_train_step(model, loss_fn):
 def make_eval_step(model, loss_fn):
     """``eval_step(state, frames, labels) -> (loss, acc)`` in eval mode (batch
     norm on its running statistics, no dropout; on CUDA, ResNet-18's
-    ``layer4[1]`` runs the fused residual-block kernel)."""
+    ``layer4[1]`` runs the fused residual-block kernel).  On ``state.mesh``
+    the loss and accuracy are the whole batch's."""
     @torch.no_grad()
     def eval_step(state, frames, labels):
         if model.training:
@@ -222,7 +268,10 @@ def make_eval_step(model, loss_fn):
         with full_float32():
             log_probs = model(_normalise(frames))
             loss = loss_fn(log_probs, labels)
-        return loss, accuracy(log_probs, _match_labels(log_probs, labels))
+        acc = accuracy(log_probs, _match_labels(log_probs, labels))
+        if state.mesh is not None:
+            loss, acc = state.mesh.mean_over("data", loss, acc)
+        return loss, acc
 
     return eval_step
 
@@ -237,6 +286,7 @@ class TrainerConfig:
     num_epochs: int = 1000
     num_samples: int = 1024
     crop_size: int = 128
+    model_parallel: int = 1
     curriculum_threshold: float = 0.85
     checkpoint_dir: Optional[str] = None
     log_path: Optional[str] = None
@@ -272,11 +322,31 @@ def _device_key(device):
 
 class Trainer:
     """Training loop with staging, curriculum, validation and checkpoints,
-    on one device."""
+    on a mesh.
 
-    def __init__(self, config: TrainerConfig, train_dataset, val_dataset=None):
+    ``mesh=None`` means ``make_mesh(model_parallel=config.model_parallel)``
+    on this trainer's device: with ``torch.distributed`` initialised, one
+    rank per position of the world (every rank builds its trainer in the
+    same order, and every rank calls ``fit``, ``evaluate`` and the
+    checkpoint methods, which hold collectives); otherwise this device
+    alone.  Every rank assembles the same batches (the datasets are seeded
+    alike) and copies only its rows to its device."""
+
+    def __init__(self, config: TrainerConfig, train_dataset, val_dataset=None, mesh=None):
         self.config = config
         self.device = resolve_device(config.device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            model_parallel=config.model_parallel, device=self.device)
+        if self.mesh.size > 1 and not self.mesh.distributed:
+            raise ValueError(f"the Trainer runs one rank per mesh position; {self.mesh} lives in "
+                             "one process (initialise torch.distributed, e.g. under torchrun)")
+        if _device_key(self.mesh.device) != _device_key(self.device):
+            raise ValueError(f"the mesh puts this rank on {self.mesh.device} and the trainer on "
+                             f"{self.device}")
+        # A batch that does not split over data is replicated, as in the JAX trainer.
+        self.split_batch = config.batch_size % self.mesh.axis_size("data") == 0
+        self._rows = batch_sharding(self.mesh) if self.split_batch else replicated(self.mesh)
+        self.specs = None
         if hasattr(train_dataset, "device_batches") and (
                 _device_key(getattr(train_dataset, "device", None)) != _device_key(self.device)):
             raise ValueError(
@@ -302,12 +372,13 @@ class Trainer:
 
     def init_state(self, seed=0):
         """Draw the weights as Flax initialises them, from a CPU
-        ``torch.Generator`` seeded ``seed`` (the same weights on any
-        device), move the model to the device and build the optimizer.
-        The dropout masks come from a generator on the device seeded
-        ``seed + 1``."""
+        ``torch.Generator`` seeded ``seed`` (the same weights on any device
+        and rank), move the model to the device, keep this rank's shards
+        (``attach_mesh``) and build the optimizer over them.  The dropout
+        masks come from a generator on the device seeded ``seed + 1``."""
         self.model.init_weights(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        self.specs = attach_mesh(self.model, self.mesh, self.split_batch)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         if hasattr(self.model, "set_dropout_generator"):
             self.model.set_dropout_generator(self.generator)
@@ -315,11 +386,19 @@ class Trainer:
             self.model, self.config.learning_rate,
             warmup_steps=self.config.warmup_steps,
             decay_steps=self.config.lr_decay_steps,
+            mesh=self.mesh, specs=self.specs,
         )
         return self.state
 
+    @property
+    def is_writer(self):
+        """True on the rank that writes logs and checkpoints (rank 0)."""
+        return not self.mesh.distributed or self.mesh.rank == 0
+
     def _log(self, record):
         self.metrics_log.append(record)
+        if not self.is_writer:
+            return
         if self.config.verbose:
             parts = [f"epoch {record.get('epoch', len(self.metrics_log) - 1)}"]
             for key in ("train_loss", "train_acc", "val_loss", "val_acc"):
@@ -345,13 +424,15 @@ class Trainer:
         thread and ``device_prefetch`` copies them two steps ahead."""
         cfg = self.config
         device_gen = getattr(self.train_dataset, "device_batches", None)
+        rows = self._rows
         if device_gen is not None:
             for frames, chars, labels in device_gen(cfg.batch_size, steps):
-                yield frames, chars, torch.from_numpy(labels).to(self.device, non_blocking=True)
+                yield (rows(frames), rows(chars),
+                       torch.from_numpy(rows(labels)).to(self.device, non_blocking=True))
             return
         with BackgroundIterator(self.train_dataset.batches(cfg.batch_size, steps),
                                 maxsize=4) as batches:
-            yield from device_prefetch(batches, 2, self.device)
+            yield from device_prefetch(batches, 2, self.device, rows)
 
     def fit(self, num_epochs=None, steps_per_epoch=None, seed=0):
         if self.state is None:
@@ -414,6 +495,7 @@ class Trainer:
                 val_losses, val_accs = [], []
                 for frames, chars, labels in device_prefetch(
                     self.val_dataset.batches(cfg.batch_size, max(steps // 4, 1)), 2, self.device,
+                    self._rows,
                 ):
                     loss, acc = self.eval_step(self.state, frames, labels)
                     val_losses.append(loss)
@@ -429,7 +511,7 @@ class Trainer:
     def evaluate(self, dataset, num_batches=8):
         losses, accs = [], []
         for frames, chars, labels in device_prefetch(
-            dataset.batches(self.config.batch_size, num_batches), 2, self.device,
+            dataset.batches(self.config.batch_size, num_batches), 2, self.device, self._rows,
         ):
             loss, acc = self.eval_step(self.state, frames, labels)
             losses.append(float(loss))
@@ -438,21 +520,52 @@ class Trainer:
 
     # ---------------- checkpoints ----------------
 
+    def whole_state(self):
+        """``{"embed", "head"}`` state dicts of whole tensors on the CPU (on a
+        mesh, the shards gathered over ``model``: a collective)."""
+        whole = {}
+        for part in ("embed", "head"):
+            local = {k: v.detach() for k, v in getattr(self.model, part).state_dict().items()}
+            specs = {k: self.specs.get(f"{part}.{k}", REPLICATED) for k in local}
+            whole[part] = {k: v.cpu() for k, v in gather_params(self.mesh, local, specs).items()}
+        return whole
+
+    def load_whole(self, state):
+        """Load ``{"embed", "head"}`` state dicts of whole tensors: on a mesh,
+        this rank's slices."""
+        for part in ("embed", "head"):
+            getattr(self.model, part).load_state_dict(
+                {k: self._local(f"{part}.{k}", v) for k, v in state[part].items()})
+
+    def _local(self, name, tensor):
+        return shard_slice(tensor, self.specs.get(name, REPLICATED), self.mesh.index("model"),
+                           self.mesh.axis_size("model"))
+
     def save_checkpoint(self, step):
-        """Write ``step_<step>.pt`` (``{"embed", "head"}`` state dicts on the
-        CPU) and ``step_<step>.trainer.pt`` (optimizer, schedule,
-        generator) into ``checkpoint_dir``; return the first's path."""
-        os.makedirs(self.config.checkpoint_dir, exist_ok=True)
+        """Write ``step_<step>.pt`` (``{"embed", "head"}`` state dicts of
+        whole tensors on the CPU, which ``BatchedActionPipeline.load_checkpoint``
+        reads) and ``step_<step>.trainer.pt`` (optimizer with whole moments,
+        schedule, generator) into ``checkpoint_dir``; return the first's
+        path.  On a mesh the shards are gathered over ``model`` and rank 0
+        writes; every rank returns once the files exist."""
         path = os.path.abspath(os.path.join(self.config.checkpoint_dir, f"step_{step}.pt"))
-
-        def cpu(module):
-            return {k: v.detach().cpu() for k, v in module.state_dict().items()}
-
-        torch.save({"embed": cpu(self.model.embed), "head": cpu(self.model.head)}, path)
-        torch.save({"optimizer": self.state.optimizer.state_dict(),
-                    "scheduler": self.state.scheduler.state_dict(),
-                    "generator": self.generator.get_state()},
-                   _training_state_path(path))
+        whole = self.whole_state()
+        optimizer = self.state.optimizer.state_dict()
+        # state_dict() hands out the optimizer's own per-parameter dicts.
+        optimizer["state"] = {i: dict(m) for i, m in optimizer["state"].items()}
+        for i, moments in optimizer["state"].items():
+            spec = self.specs[self.state.names[i]]
+            for key in ("exp_avg", "exp_avg_sq"):
+                moments[key] = gather_params(self.mesh, {key: moments[key]},
+                                             {key: spec})[key].cpu()
+        if self.is_writer:
+            os.makedirs(self.config.checkpoint_dir, exist_ok=True)
+            torch.save(whole, path)
+            torch.save({"optimizer": optimizer,
+                        "scheduler": self.state.scheduler.state_dict(),
+                        "generator": self.generator.get_state()},
+                       _training_state_path(path))
+        self.mesh.barrier()
         return path
 
     def restore_checkpoint(self, path):
@@ -460,17 +573,20 @@ class Trainer:
         ``BatchedActionPipeline.load_checkpoint`` reads: a file of
         :meth:`save_checkpoint` or a reference Lightning ``.ckpt``), and the
         optimizer, schedule and generator from the file beside it when
-        there is one."""
+        there is one; on a mesh, this rank's slices of the whole tensors,
+        so a checkpoint written on one mesh restores onto any other."""
         if self.state is None:
             self.init_state()
         cfg = self.config
         pipe = BatchedActionPipeline(cfg.family, cfg.num_actions, cfg.sequence_length,
                                      crop_size=cfg.crop_size, device="cpu").load_checkpoint(path)
-        self.model.embed.load_state_dict(pipe.embed.state_dict())
-        self.model.head.load_state_dict(pipe.head.state_dict())
+        self.load_whole({"embed": pipe.embed.state_dict(), "head": pipe.head.state_dict()})
         side = _training_state_path(path)
         if os.path.exists(side):
             saved = torch.load(side, map_location="cpu", weights_only=True)
+            for i, moments in saved["optimizer"]["state"].items():
+                for key in ("exp_avg", "exp_avg_sq"):
+                    moments[key] = self._local(self.state.names[i], moments[key]).contiguous()
             self.state.optimizer.load_state_dict(saved["optimizer"])
             self.state.scheduler.load_state_dict(saved["scheduler"])
             self.generator.set_state(saved["generator"])
@@ -495,7 +611,10 @@ def _parser():
     p.add_argument("--frame_delta", action="append", type=int, default=None,
                    help="frame delta (repeatable; default 1 2 3 4 5 6)")
     p.add_argument("--model_parallel", default=1, type=int,
-                   help="model-parallel mesh axis size (above 1 is not ported)")
+                   help="model-parallel mesh axis size (above 1: one rank per position, "
+                        "e.g. under torchrun)")
+    p.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                   help="process-group backend when main starts the group (under torchrun)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (not ported)")
     p.add_argument("--tensorboard", action="store_true",
                    help="also write TensorBoard events next to the JSONL log")
@@ -504,17 +623,50 @@ def _parser():
     return p
 
 
+def _start_group_from_env(backend, device):
+    """Under torchrun (``WORLD_SIZE`` and ``LOCAL_RANK`` in the environment)
+    with no process group yet, start one with ``backend``.  Returns whether
+    it did, and this rank's device (``cuda:<LOCAL_RANK>`` unless
+    ``device`` is given)."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False, device
+    if device is None:
+        device = f"cuda:{os.environ['LOCAL_RANK']}"
+        torch.cuda.set_device(resolve_device(device))
+    dist.init_process_group(backend, timeout=datetime.timedelta(seconds=600))
+    return True, device
+
+
 def main(argv=None):
     """The train command line: ground-truth train/validation splits of every
     move, a trainer with checkpoints under ``SAVED_ACTION_MODELS/<name>``
     and the JSONL log under ``ACTION_RECOG_OUTPUT_DIR/<name>``, then the
-    test split's loss and accuracy."""
+    test split's loss and accuracy.  In a process group (started by the
+    caller, or here under torchrun) every rank runs it: the mesh spans the
+    world (``--model_parallel`` of it on ``model``), the datasets share a
+    seed that rank 0 draws afresh (one process draws unseeded), rank 0
+    writes and prints."""
     args = _parser().parse_args(argv)
     if args.bf16:
         raise NotImplementedError(NOT_BF16)
-    if args.model_parallel > 1:
-        raise NotImplementedError(NOT_MODEL_PARALLEL)
-    device = resolve_device(args.device)
+    started, device = _start_group_from_env(args.backend, args.device)
+    try:
+        return _main(args, resolve_device(device))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _shared_seed():
+    """A seed that rank 0 draws afresh and every rank receives, so that the
+    ranks draw the same batches while runs still differ."""
+    box = [int(np.random.SeedSequence().entropy % 2**63)] if dist.get_rank() == 0 else [None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _main(args, device):
+    seed = _shared_seed() if dist.is_initialized() else None
     actions = list(MOVE_TO_CLASS_ID.keys())
     char_subset = list(args.fighters)
     name = args.name or f"{args.family}-{'-'.join(char_subset) or 'all'}"
@@ -529,6 +681,7 @@ def main(argv=None):
         char_subset=char_subset,
         # No model family consumes the preceding-action context.
         num_preceding_actions=0,
+        seed=seed,
     )
     train_ds = UltActionRecogDataset(split="train", **dataset_args)
     val_args = dict(dataset_args, num_samples=args.num_samples // 4)
@@ -542,6 +695,7 @@ def main(argv=None):
         learning_rate=3e-4,
         num_epochs=args.num_epochs,
         num_samples=args.num_samples,
+        model_parallel=args.model_parallel,
         checkpoint_dir=os.path.join(constants.SAVED_ACTION_MODELS, name),
         log_path=os.path.join(constants.ACTION_RECOG_OUTPUT_DIR, name, "metrics.jsonl"),
         tensorboard_dir=(
@@ -555,7 +709,9 @@ def main(argv=None):
     if args.ckpt:
         trainer.restore_checkpoint(args.ckpt)
     trainer.fit()
-    print(trainer.evaluate(UltActionRecogDataset(split="test", **val_args)))
+    result = trainer.evaluate(UltActionRecogDataset(split="test", **val_args))
+    if trainer.is_writer:
+        print(result)
     return 0
 
 

@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
 its card-path modules (the log-driven VOD path, the pixels-only path, the
-training path, device-side synthesis and detector training) import no cv2,
+training path and its mesh, device-side synthesis and detector training) import no cv2,
 PIL, yaml or click
 (the card's machine has none of them), and chip_smoke.py refuses to run
 without a CUDA device.
@@ -78,7 +78,7 @@ print("ok")
 TRAIN_PATH = ("models.losses", "models.cnn_action_detector", "models.rnn_action_detector",
               "models.resnet_transformer", "parallel.staging", "profiling", "timeline",
               "train.augment", "train.dataset", "train.train", "datagen.skeletal_sprites",
-              "train.device_synth")
+              "train.device_synth", "parallel.mesh", "parallel.dryrun")
 
 _IMPORT_TRAIN_PATH = f"""
 import importlib, sys

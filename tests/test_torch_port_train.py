@@ -46,6 +46,7 @@ from playaid_core_torch.models.resnet import (
 )
 from playaid_core_torch.models.resnet_transformer import ResnetTransformerDetector, time_encoding
 from playaid_core_torch.models.rnn_action_detector import RNNActionDetector
+from playaid_core_torch.parallel import dryrun
 from playaid_core_torch.parallel.staging import BackgroundIterator, device_prefetch
 from playaid_core_torch.train import train as port_train
 from playaid_core_torch.train.dataset import UltActionRecogDataset
@@ -785,8 +786,17 @@ def test_train_cli(tiny_gt_tree, tmp_path, monkeypatch, capsys):
     assert port_train.main(argv + ["--ckpt", str(tmp_path / "models" / "tiny" / "step_0.pt")]) == 0
     with pytest.raises(NotImplementedError, match="north star"):
         port_train.main(argv + ["--bf16"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        port_train.main(argv + ["--model_parallel", "2"])
+    # --model_parallel 2 runs on a mesh of two gloo ranks (128-px crops: the
+    # spawned ranks see the command line's own dataset, not the patch above).
+    tree = tmp_path / "data" / "ult_dataset" / "gt_action_detection"
+    tree.mkdir(parents=True)
+    for split, source in (("train", "train"), ("validation", "validation"),
+                          ("test", "validation")):
+        os.symlink(tiny_gt_tree / source, tree / split)
+    monkeypatch.setenv("PLAYAID_DATA_ROOT", str(tmp_path / "data"))
+    mp_argv = argv + ["--model_parallel", "2", "--num_samples", "2"]
+    assert dryrun.spawn_ranks(port_train.main, 2, (mp_argv,), timeout_s=300) == [0, 0]
+    assert os.path.exists(tmp_path / "data" / "models" / "action" / "tiny" / "step_0.pt")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_train.main(argv[:-2])

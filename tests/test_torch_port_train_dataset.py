@@ -191,7 +191,8 @@ def test_batches_iterator(gt_tree):
 
 @pytest.mark.parametrize("split", ["synth", "simple", "manual"])
 def test_sprite_splits_are_not_ported(gt_tree, split):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, what is left of action-model training"):
         _port(gt_tree, split)
 
 

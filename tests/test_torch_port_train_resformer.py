@@ -157,8 +157,8 @@ def test_dropout_places_and_attention_mask():
     calls = []
     drop = layer._drop
 
-    def spy(x, mask_shape=None):
-        out = drop(x, mask_shape)
+    def spy(x, mask_shape=None, **kw):
+        out = drop(x, mask_shape, **kw)
         calls.append((x, mask_shape, out))
         return out
 

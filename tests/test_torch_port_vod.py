@@ -274,13 +274,22 @@ def test_analyzer_defaults_to_cuda(monkeypatch):
         VodAnalyzer()
 
 
-@pytest.mark.parametrize("kwargs", [{"host_resize": False, "stride": 2}, {"mesh": object()},
+@pytest.mark.parametrize("kwargs", [{"host_resize": False, "stride": 2}, {"mesh": "cpu"},
                                     {"host_resize": False, "decode_backend": "native"}])
-def test_unported_routes_raise(port, kwargs):
-    """mesh= is not ported; the window route (host_resize=False) is, at
-    stride 1 only and with frames from a capture, as in the JAX package."""
+def test_unported_routes_raise(port, clip, kwargs):
+    """The window route (host_resize=False) runs at stride 1 only and with
+    frames from a capture, as in the JAX package.  mesh= runs: two replicas
+    of the embed on a single-process mesh of two CPU positions give the
+    labels of one (tests/test_torch_port_mesh.py holds it further)."""
+    if "mesh" in kwargs:
+        from playaid_core_torch.parallel.mesh import make_mesh
+
+        kw = {"decode_backend": "cv2", "stride": 2}
+        meshed = VodAnalyzer(port, mesh=make_mesh(devices=["cpu"] * 2), **kw).analyze(*clip)
+        single = VodAnalyzer(port, **kw).analyze(*clip)
+        np.testing.assert_array_equal(meshed["labels"], single["labels"])
+        return
     expected = {"stride": (ValueError, "stride>1 requires host_resize"),
-                "mesh": (NotImplementedError, "mesh= .* not ported"),
                 "decode_backend": (ValueError, "native decoder makes")}
     error, match = next(expected[k] for k in kwargs if k in expected)
     with pytest.raises(error, match=match):

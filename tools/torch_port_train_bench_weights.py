@@ -23,7 +23,7 @@ bfloat16.
 
 The JAX tool's fixture self-check (label agreement on bench.py's
 make_sprite_video clip) needs JAX and cv2; it is not here and waits for
-the port's bench (ROADMAP queue 1 item 1).
+the port's bench (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def main(argv=None):
         prog="python3 tools/torch_port_train_bench_weights.py",
         description=__doc__.split("\n\n")[0],
         epilog="The JAX tool's fixture self-check is not ported: it waits for the port's "
-               "bench (ROADMAP queue 1 item 1).")
+               "bench (ROADMAP queue 1).")
     p.add_argument("workdir")
     p.add_argument("--epochs", default=40, type=int)
     p.add_argument("--steps", default=75, type=int, help="steps per epoch")
