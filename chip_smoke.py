@@ -136,7 +136,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    a chunk and K2 held against its plain version in each replica,
    frames/s beside phase 6's; (d) the (1, 2) ResFormer's checkpoint after
    its first step, restored on one process: the next two losses within
-   2e-4 relative, and BatchedActionPipeline.load_checkpoint reads it.
+   2e-4 relative, and BatchedActionPipeline.load_checkpoint reads it;
+14. OCR training and the evaluation dashboards: (a) the port's OCR train
+   step (DigitNet at PATCH 48, batch 128, fused Adam under optax's cosine
+   decay, Flax's init from a seeded generator) on the committed fixture
+   playaid_core_torch/assets/ocr_synth_batches.npz (8 batches rendered by
+   tools/torch_port_ocr_fixture.py, as the card's machine cannot render):
+   one step against the CPU in float64 (loss, every gradient), 50 steps
+   whose float32 loss falls (steps 3-50 timed), each profiled step's
+   host-to-device copies exactly its batch (python3 chip_smoke.py
+   --profile ocr, which also times K2's device ms at 7x4x4x512 and at phase
+   13's 24x4x4x512), save_params -> ConvDigitOCR(params=load_params(...))
+   on the card against the trained model; (b) evaluate_samples with the
+   CNN-63 from the bench weights in eval mode over 16 samples of phase
+   10's validation tree: K2 one launch a sample at 7x4x4x512, held against
+   its plain version and timed, card vs CPU predictions, log-probs and
+   accuracy; (c) write_vis_ai_report on phase 9's runner, its own labels as
+   the first fighter's ground truth: the strip count, that fighter's
+   agreement 1.0, and every inline PNG decoded with zlib to its crop
+   file's RGB pixels.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -1142,7 +1160,8 @@ def seeded_detector(trainer):
 
 def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     """Phase 9: the pixels-only path, AIRunner on frames with no log.
-    Returns K2's numbers at the detector's shape and its launches."""
+    Returns K2's numbers at the detector's shape and its launches, and the
+    completed AIRunner (phase 14 reports on it)."""
     import shutil
 
     from playaid_core_torch import constants
@@ -1348,7 +1367,7 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
             "shape": list(x_nhwc.shape), "ms": k2["ms"], "device_ms": k2_dev_ms,
             "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "library_ms": k2["library_ms"],
-            "embed_shapes": [list(s) for s in embed_shapes], "embed_rel_err": embed_err}
+            "embed_shapes": [list(s) for s in embed_shapes], "embed_rel_err": embed_err}, runner
 
 
 # Phase 10: training on the card.  A ground-truth tree of .npy crops (the
@@ -1423,11 +1442,12 @@ def profile_h2d(torch, run, trace):
 
 
 def profile_main(kind):
-    """python3 chip_smoke.py --profile detect|train|synth|detector: profile
-    two detect() batches of phase 9 (after one at another frame size), or an
-    epoch of WIRE_STEPS train steps of phase 10 (CNN-63 from the bench
-    weights on the tree at TRAIN_ROOT), of phase 11 (profile_synth) or of
-    phase 12 (profile_detector), after one unprofiled run, in this fresh
+    """python3 chip_smoke.py --profile detect|train|synth|detector|ocr:
+    profile two detect() batches of phase 9 (after one at another frame
+    size), or an epoch of WIRE_STEPS train steps of phase 10 (CNN-63 from
+    the bench weights on the tree at TRAIN_ROOT), of phase 11
+    (profile_synth) or of phase 12 (profile_detector), or OCR steps of phase
+    14 (profile_ocr), after one unprofiled run, in this fresh
     process; print profile_h2d's result as JSON, for train and detector
     with K2's device time at the path's eval shape (k2_device_ms,
     k2_records_per_call).  Late in this
@@ -1470,8 +1490,11 @@ def profile_main(kind):
     elif kind == "detector":
         print(json.dumps(profile_detector(torch, dev, work)))
         return 0
+    elif kind == "ocr":
+        print(json.dumps(profile_ocr(torch, dev)))
+        return 0
     else:
-        raise ValueError(f"--profile takes detect, train, synth or detector, not {kind!r}")
+        raise ValueError(f"--profile takes detect, train, synth, detector or ocr, not {kind!r}")
     run()
     result = profile_h2d(torch, run, os.path.join(work, f"{kind}_trace.json"))
     if kind == "train":
@@ -2996,6 +3019,300 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
     return k2
 
 
+# ---- phase 14: OCR training and the evaluation dashboards ----
+# The card's machine has no PIL, cv2 or matplotlib: the OCR batches are the
+# committed fixture that tools/torch_port_ocr_fixture.py renders with the
+# port's synth_batch on a machine that has them.
+OCR_FIXTURE = os.path.join(ROOT, "playaid_core_torch", "assets", "ocr_synth_batches.npz")
+OCR_STEPS = 50            # cycling the fixture's 8 batches of 128
+OCR_LR = 2e-3             # ocr_conv.train's default
+OCR_SEED = 0
+OCR_WIRE_STEPS = 5        # steps of the profiled run (--profile ocr)
+OCR_LOGIT_TOL = 1e-4      # the saved weights through ConvDigitOCR vs the model, abs
+DASH_SAMPLES = 16         # evaluate_samples over phase 10's validation tree
+DASH_SEED = 3
+VIS_EVERY = 10            # write_vis_ai_report's sample_every on phase 9's runner
+MESH_ROWS = 24            # a VOD replica's rows (phase 13 (c)): K2's device ms there
+
+
+def ocr_fixture():
+    """The fixture's patches [8, 128, 48, 48, 1] float32, labels [8, 128]
+    int32 and provenance."""
+    with np.load(OCR_FIXTURE) as z:
+        return z["x"], z["y"], json.loads(str(z["provenance"]))
+
+
+def cnn63(torch, where):
+    """The CNN-63 from the bench weights, in eval mode on ``where``."""
+    from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+    from playaid_core_torch.train.train import build_model
+
+    model, _ = build_model("cnn", len(train_actions()), TRAIN_T)
+    load_bench(model, from_jax_cnn(load_npz_tree(ASSET)))
+    return model.to(where).eval()
+
+
+def cnn63_apply(torch, model, where, outputs=None):
+    """evaluate_samples' model_apply for ``model``: the uint8 sample to
+    ``where``, /255 there, log-probs in full float32 (kept in ``outputs``)."""
+    from playaid_core_torch.device import full_float32
+
+    def apply(frames):
+        with full_float32():
+            out = model(frames.to(where).float() / 255.0)
+        if outputs is not None:
+            outputs.append(out.cpu())
+        return out
+    return apply
+
+
+def png_pixels(b64):
+    """An inline PNG of the port's writer (8-bit grey, RGB or RGBA, unfiltered
+    rows) decoded with zlib alone: the pixels as a uint8 array."""
+    import base64
+    import struct
+    import zlib
+
+    data, pos, idat, header = base64.b64decode(b64), 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, colour = header[:4]
+    channels = {0: 1, 2: 3, 6: 4}[colour]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    if depth != 8 or rows[:, 0].any():
+        raise ValueError("not a PNG of unfiltered 8-bit rows")
+    return rows[:, 1:].reshape((h, w) if channels == 1 else (h, w, channels))
+
+
+def k2_dashboard_input(torch, model, dataset, samples=1):
+    """layer4[1] of the CNN-63 ``model`` and its input on ``samples`` samples
+    of ``dataset`` (T rows each)."""
+    block = model.embed.layer4[1]
+    seen = {}
+    hook = block.register_forward_hook(keep_input(seen))
+    frames = np.stack([dataset[i][0] for i in range(samples)])
+    with torch.no_grad():
+        cnn63_apply(torch, model, block.conv1.weight.device)(torch.from_numpy(frames))
+    hook.remove()
+    return block, seen["x"]
+
+
+def profile_ocr(torch, dev):
+    """profile_main's ocr kind: OCR_WIRE_STEPS of the port's OCR train steps
+    on the fixture, once unprofiled and once under profile_h2d; then K2's
+    device time at the dashboard's 7x4x4x512 (one sample of phase 10's
+    validation tree) and at a VOD replica's 24x4x4x512 (the first 24 rows
+    of four samples), on the bench weights' layer4[1]."""
+    from playaid_core_torch.infer.ocr_conv import init_model, make_optimizer, train_step
+    from playaid_core_torch.ops.conv_block import residual_block_packed
+
+    xs, ys, _ = ocr_fixture()
+    model = init_model(OCR_SEED, dev)
+    optimizer, scheduler = make_optimizer(model, OCR_LR, OCR_STEPS)
+
+    def run():
+        for i in range(OCR_WIRE_STEPS):
+            train_step(model, optimizer, scheduler, xs[i], ys[i])
+
+    run()
+    result = profile_h2d(torch, run, os.path.join(ROOT, "build", "smoke", "ocr_trace.json"))
+    net = cnn63(torch, dev)
+    for key, samples, rows in (("dashboard", 1, TRAIN_T), ("mesh", 4, MESH_ROWS)):
+        block, x = k2_dashboard_input(torch, net, train_dataset("validation", seed=DASH_SEED),
+                                      samples)
+        with torch.inference_mode():
+            x_nhwc = k2_ref_args(block, x[:rows])[0]
+            pack = block.block_pack(torch.float32)
+            ms, traced = device_ms(torch, lambda _: residual_block_packed(x_nhwc, pack), 40,
+                                   "conv3x3_wgmma_kernel", 2)
+        result.update({f"k2_{key}_device_ms": ms, f"k2_{key}_records_per_call": traced,
+                       f"k2_{key}_shape": list(x_nhwc.shape)})
+    return result
+
+
+def run_ocr_viz_phase(torch, dev, check, card, k2_wrapper, runner):
+    """Phase 14: OCR training (the port's step, schedule and optimizer on the
+    fixture's batches), evaluate_samples with the CNN-63 on the card, and
+    write_vis_ai_report on phase 9's runner.  Returns K2's numbers at the
+    dashboard's shape and its launches."""
+    import re
+
+    from playaid_core_torch import imgcodec
+    from playaid_core_torch.convert import to_jax_digits
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.infer.ocr_conv import (
+        ConvDigitOCR,
+        init_model,
+        load_params,
+        make_optimizer,
+        save_params,
+        train_step,
+    )
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.viz.eval_dashboard import evaluate_samples
+    from playaid_core_torch.viz.vis_ai import collect_vis_records, write_vis_ai_report
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "smoke", "ocr")
+    os.makedirs(work, exist_ok=True)
+    xs, ys, prov = ocr_fixture()
+    log(f"phase 14: not run on this machine, which has no PIL, cv2 or matplotlib: rendering "
+        f"(render_hud_text, synth_batch), train()'s loop over it, the template reader's "
+        f"templates and the matplotlib figures (confusion matrix, training report); the OCR "
+        f"batches are {os.path.relpath(OCR_FIXTURE, ROOT)}, {xs.shape[0]} x {xs.shape[1]} "
+        f"patches rendered by {prov['tool']} (seed {prov['seed']}, {len(prov['fonts'])} fonts, "
+        f"PIL {prov['PIL']}, cv2 {prov['cv2']})")
+
+    # (a) One step on the card against the CPU in float64, from one init.
+    runs = {}
+    for key, where, dtype in (("card", dev, torch.float32), ("float64", "cpu", torch.float64)):
+        model = init_model(OCR_SEED, where).to(dtype)
+        optimizer, scheduler = make_optimizer(model, OCR_LR, OCR_STEPS)
+        loss, _ = train_step(model, optimizer, scheduler, xs[0], ys[0])
+        runs[key] = (float(loss), {n: p.grad.detach().cpu().double()
+                                   for n, p in model.named_parameters()})
+    ref_loss, ref_grads = runs["float64"]
+    errs = {n: float((runs["card"][1][n] - g).abs().max() / g.abs().max())
+            for n, g in ref_grads.items()}
+    loss_rel = abs(runs["card"][0] - ref_loss) / abs(ref_loss)
+    worst = max(errs, key=errs.get)
+    check(loss_rel <= LOSS_REL_TOL and errs[worst] <= GRAD_REL_TOL,
+          f"phase 14 (a): one OCR step (DigitNet, batch {xs.shape[1]}, {OCR_LR} lr) on the card "
+          f"vs the CPU in float64: loss {runs['card'][0]:.6f} vs {ref_loss:.6f}, rel err "
+          f"{loss_rel:.3e} (tol {LOSS_REL_TOL}); gradients max err / max|g| worst "
+          f"{errs[worst]:.3e} on {worst} (tol {GRAD_REL_TOL})")
+
+    # OCR_STEPS steps cycling the fixture; steps 3-OCR_STEPS timed on the card.
+    model = init_model(OCR_SEED, dev)
+    optimizer, scheduler = make_optimizer(model, OCR_LR, OCR_STEPS)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    for i in range(OCR_STEPS):
+        if i == 2:
+            start.record()
+        losses.append(train_step(model, optimizer, scheduler, xs[i % len(xs)],
+                                 ys[i % len(xs)])[0])
+    stop.record()
+    torch.cuda.synchronize()
+    steps_per_s = (OCR_STEPS - 2) / (start.elapsed_time(stop) / 1e3)
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()) and losses[-10:].mean() < losses[:10].mean()
+          and scheduler.last_epoch == OCR_STEPS,
+          f"phase 14 (a): {OCR_STEPS} OCR steps on the card: float32 loss of the first 10 "
+          f"{losses[:10].mean():.4f}, of the last 10 {losses[-10:].mean():.4f} (must fall); "
+          f"steady {steps_per_s:.1f} steps/s = {steps_per_s * xs.shape[1]:.0f} patches/s "
+          f"(steps 3-{OCR_STEPS}, CUDA events); {card}")
+
+    audit = profile_in_fresh_process("ocr")
+    want = [xs[0].nbytes, ys[0].nbytes] * OCR_WIRE_STEPS
+    check(audit["h2d"] == want,
+          f"phase 14 (a): host-to-device copies of {OCR_WIRE_STEPS} profiled OCR steps (python3 "
+          f"chip_smoke.py --profile ocr): {audit['h2d'][:6]}... ({len(audit['h2d'])} copies, "
+          f"{sum(b or 0 for b in audit['h2d'])} B); each step's batch is {xs[0].nbytes} B of "
+          f"patches and {ys[0].nbytes} B of labels; busy {audit['busy_us'] / audit['wall_us']:.3f}")
+
+    path = os.path.join(work, "ocr_digits.npz")
+    save_params(to_jax_digits(model.state_dict()), path)
+    reader = ConvDigitOCR(params=load_params(path), device=dev)
+    model.eval()
+    with torch.no_grad(), full_float32():
+        ref = model(torch.from_numpy(xs[0]).to(dev)).cpu().numpy()
+    logit_err = float(np.abs(reader.logits(xs[0]) - ref).max())
+    check(logit_err <= OCR_LOGIT_TOL and reader.model.c1.weight.is_cuda,
+          f"phase 14 (a): save_params -> {os.path.relpath(path, ROOT)} -> ConvDigitOCR("
+          f"params=load_params(...)) on {dev}: logits of batch 0 max abs err {logit_err:.3e} "
+          f"against the trained model (tol {OCR_LOGIT_TOL})")
+
+    # (b) evaluate_samples: the CNN-63 from the bench weights, eval mode.
+    card_model, cpu_model = cnn63(torch, dev), cnn63(torch, "cpu")
+    evaluate_samples(cnn63_apply(torch, card_model, dev),
+                     train_dataset("validation", seed=DASH_SEED + 1), 2)  # warm-up
+    block = card_model.embed.layer4[1]
+    seen = {}
+    hook = block.register_forward_hook(keep_input(seen))
+    outputs = {"card": [], "cpu": []}
+    k2_wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records, agg = evaluate_samples(cnn63_apply(torch, card_model, dev, outputs["card"]),
+                                    train_dataset("validation", seed=DASH_SEED), DASH_SAMPLES)
+    dash_s = time.perf_counter() - t0
+    launches = k2_wrapper.launches
+    hook.remove()
+    _, cpu_agg = evaluate_samples(cnn63_apply(torch, cpu_model, "cpu", outputs["cpu"]),
+                                  train_dataset("validation", seed=DASH_SEED), DASH_SAMPLES)
+    lp_err = float(max((a - b).abs().max() for a, b in zip(outputs["card"], outputs["cpu"])))
+    check(launches == DASH_SAMPLES and agg["preds"] == cpu_agg["preds"]
+          and agg["accuracy"] == cpu_agg["accuracy"] and lp_err <= LOG_PROB_TOL
+          and len(records) == DASH_SAMPLES,
+          f"phase 14 (b): evaluate_samples with the CNN-63 (bench weights) on {DASH_SAMPLES} "
+          f"samples of phase 10's validation tree (T {TRAIN_T}, {CROP} px): "
+          f"{DASH_SAMPLES / dash_s:.1f} samples/s; K2 launches {launches} (one a sample); card "
+          f"vs CPU predicted ids identical {agg['preds'] == cpu_agg['preds']}, accuracy "
+          f"{agg['accuracy']:.4f} vs {cpu_agg['accuracy']:.4f}, log-probs max abs err "
+          f"{lp_err:.3e} (tol {LOG_PROB_TOL}); {card}")
+    with torch.inference_mode(), full_float32():
+        args = k2_ref_args(block, seen["x"])
+        pack = block.block_pack(torch.float32)
+        k2_out = residual_block_packed(args[0], pack)
+        k2_ref = residual_block_ref(*args)
+    k2_err = float((k2_out - k2_ref).abs().max())
+    k2_scale = float(k2_ref.abs().max())
+    check(tuple(args[0].shape) == (TRAIN_T, 4, 4, 512) and k2_err <= K2_F32_REL_TOL * k2_scale,
+          f"phase 14 (b): K2 residual_block f32 at the dashboard's layer4[1] "
+          f"{tuple(args[0].shape)}: max abs err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| "
+          f"{k2_scale:.3f})")
+    k2 = k2_yardsticks(torch, block, seen["x"], args, pack)
+    k2["cuda_core_bound_ms"] = k2["gflop"] * 1e9 / PEAK_FP32_FLOPS * 1e3
+    dev_ms = audit["k2_dashboard_device_ms"]
+    log(f"phase 14 (b): K2 f32 at {tuple(args[0].shape)}: call {k2['ms']:.4f} ms, device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (--profile ocr, "
+        f"{audit['k2_dashboard_records_per_call']:g} of 2 records a call), plain "
+        f"{k2['plain_ms']:.4f} ms, cuDNN chain {k2['library_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms (3 x {k2['gflop']:.3f} GFLOP TF32; CUDA-core f32 bound "
+        f"{k2['cuda_core_bound_ms']:.4f} ms); at {tuple(audit['k2_mesh_shape'])} (phase 13 "
+        f"(c)'s shape) device {audit['k2_mesh_device_ms']} ms; {card}")
+
+    # (c) write_vis_ai_report on phase 9's runner: ground truth is its own
+    # labels for the first fighter, a move no model predicts for the second.
+    f0, f1 = runner.fighters
+    n = runner.max_frames - 1
+    gt = {f0: [runner.ai_output_data[f0][i].action for i in range(n)], f1: ["__none__"] * n}
+    t0 = time.perf_counter()
+    path, vis_agg = write_vis_ai_report(os.path.join(work, "vis_ai.html"), runner, gt,
+                                        sample_every=VIS_EVERY)
+    vis_s = time.perf_counter() - t0
+    records, _ = collect_vis_records(runner, gt, sample_every=VIS_EVERY)
+    frames = list(range(1, runner.max_frames, VIS_EVERY))[:40]
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    pngs = re.findall(r"data:image/png;base64,([A-Za-z0-9+/=]+)", text)
+    want = [imgcodec.read_crop(runner.get_crop_path(f, i))[:, :, ::-1]
+            for i in frames for f in runner.fighters]
+    decoded = len(pngs) == len(want) and all(np.array_equal(png_pixels(b), w)
+                                             for b, w in zip(pngs, want))
+    f0_agree = all(r["fighters"][0]["correct"] for r in records)
+    check(text.count("<div class='strip'>") == len(frames) == vis_agg["sampled"]
+          and f0_agree and vis_agg["full_agreement"] == 0.5 and decoded,
+          f"phase 14 (c): write_vis_ai_report on phase 9's runner ({n} frames, every "
+          f"{VIS_EVERY}th) in {vis_s * 1e3:.1f} ms: {vis_agg['sampled']} strips (expected "
+          f"{len(frames)}); {f0} agreement 1.0 {f0_agree}, all frames {vis_agg['full_agreement']} "
+          f"(the other fighter's labels are a move no model predicts); {len(pngs)} inline PNGs "
+          f"decode with zlib to their crop files' RGB pixels {decoded}")
+    rates = {"ocr_steps_per_s": steps_per_s, "dashboard_samples_per_s": DASH_SAMPLES / dash_s}
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s; {json.dumps(rates)}; {card}")
+    return {"launches": launches, "max_abs_err": k2_err, "shape": list(args[0].shape),
+            "ms": k2["ms"], "device_ms": dev_ms, "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"], "cuda_core_bound_ms": k2["cuda_core_bound_ms"],
+            "library_ms": k2["library_ms"], "mesh_device_ms": audit["k2_mesh_device_ms"]}
+
+
 def main():
     import torch
 
@@ -3474,7 +3791,7 @@ def main():
     log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed])
 
     # ---- phase 9: the pixels-only path, AIRunner ----
-    pixels = run_pixels_phase(torch, dev, check, card, residual_block_packed)
+    pixels, pixels_runner = run_pixels_phase(torch, dev, check, card, residual_block_packed)
 
     # ---- phase 10: training on the card ----
     training = run_train_phase(torch, dev, check, card, residual_block_packed)
@@ -3494,6 +3811,13 @@ def main():
     mesh = run_mesh_phase(torch, dev, check, card, residual_block_packed, boxes_all, stand_in,
                           vod_fps)
     k1_mesh_launches = square_crop_resize.launches
+
+    # ---- phase 14: OCR training and the evaluation dashboards ----
+    k1_wrappers = (square_crop_resize, window_resize, bank_resize)
+    for wrapper in k1_wrappers:
+        wrapper.launches = 0
+    dashboards = run_ocr_viz_phase(torch, dev, check, card, residual_block_packed, pixels_runner)
+    k1_dashboard_launches = sum(wrapper.launches for wrapper in k1_wrappers)
 
     kernels = [
         {"name": "crop_resize", "route": "cuda",
@@ -3539,6 +3863,12 @@ def main():
     # VodAnalyzer(mesh=); K1 not on the path (host crops).
     kernels[0]["mesh_launches"] = k1_mesh_launches
     kernels[1].update({f"mesh_{k}": v for k, v in mesh.items()})
+    # Phase 14: K2 in evaluate_samples at 7x4x4x512 (one a sample); K1 (any
+    # entry) not on the path (cut crops); K2's device ms at phase 13's
+    # replica shape.
+    kernels[0]["dashboard_launches"] = k1_dashboard_launches
+    kernels[1]["mesh_vod_device_ms"] = dashboards.pop("mesh_device_ms")
+    kernels[1].update({f"dashboard_{k}": v for k, v in dashboards.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -332,6 +332,23 @@ def from_jax_digits(params):
     return state
 
 
+def to_jax_digits(state_dict):
+    """The inverse of :func:`from_jax_digits`: a ``DigitNet`` state dict ->
+    ``{"params": {c1, c2, c3, d1, out: {kernel, bias}}}`` of float32 numpy
+    arrays (HWIO conv kernels, ``[in, out]`` dense kernels), the tree that
+    ``ocr_digits.npz`` stores."""
+    node = {}
+    for name in ("c1", "c2", "c3", "d1", "out"):
+        weight = state_dict[f"{name}.weight"].detach().cpu().numpy().astype(np.float32)
+        kernel = weight.transpose(2, 3, 1, 0) if weight.ndim == 4 else weight.T
+        node[name] = {"kernel": np.ascontiguousarray(kernel),
+                      "bias": state_dict[f"{name}.bias"].detach().cpu().numpy().astype(np.float32)}
+    extra = set(state_dict) - {f"{n}.{f}" for n in node for f in ("weight", "bias")}
+    if extra:
+        raise KeyError(f"no digit-net parameter for {sorted(extra)}")
+    return {"params": node}
+
+
 def to_state_dicts(family, variables):
     """Weights as the port's ``{"embed", "head"}`` state dicts: a JAX-layout
     tree of the family is converted, state dicts (tensor leaves) pass

@@ -1,13 +1,16 @@
-"""HUD damage OCR: the segmentation and reading shared by the digit readers.
+"""HUD damage OCR: the segmentation and reading shared by the digit readers,
+the template reader and the default reader.
 
 Counterpart of ``playaid_core_tpu/infer/ocr.py`` without cv2: the HUD
 crop's value channel is resized to 256 wide with OpenCV's bilinear rule
 (``imgproc.resize``, bit for bit), thresholded, closed with a 3x3 square
 (the border neutral, as OpenCV's ``morphologyEx``), labelled into
 8-connected components (``scipy.ndimage``), filtered by area, sorted left
-to right and merged where x-extents overlap (fragments of one glyph).
-The reader is the conv digit classifier of :mod:`.ocr_conv`; the template
-reader, which renders its templates with PIL, is not ported (ROADMAP.md).
+to right and merged where x-extents overlap (fragments of one glyph).  The
+learned reader is the conv digit classifier of :mod:`.ocr_conv`; the
+template reader matches each component against digit glyphs rendered with
+PIL (imported inside :func:`render_digit_templates`, so the module imports
+on the card's machine, which has no PIL).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 from scipy import ndimage
 
 from playaid_core_torch import imgproc
+from playaid_core_torch.constants import TEXT_FONT_PATH
 
 # Fixed HUD damage locations for a 1280x720 canvas
 # (reference: ai_runner.py:553-569).
@@ -33,6 +37,29 @@ _SQUARE = np.ones((3, 3), bool)
 
 def extract_numbers(text: str) -> str:
     return "".join(re.findall(r"\d+", text))
+
+
+def render_digit_templates(height=40, font_path=TEXT_FONT_PATH):
+    """Glyph templates of 0-9 rendered with PIL: ``{digit: float32 0/1
+    array}``, each cut to its ink's bounding box.  PIL's default font
+    stands in when ``font_path`` cannot be opened."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    try:
+        font = ImageFont.truetype(font_path, height)
+    except OSError:
+        font = ImageFont.load_default()
+    templates = {}
+    for d in "0123456789":
+        img = Image.new("L", (height, int(height * 1.4)), 0)
+        ImageDraw.Draw(img).text((2, 2), d, font=font, fill=255)
+        arr = np.array(img)
+        ys, xs = np.nonzero(arr > 32)
+        if len(ys) == 0:
+            continue
+        tight = arr[ys.min():ys.max() + 1, xs.min():xs.max() + 1]
+        templates[d] = (tight > 32).astype(np.float32)
+    return templates
 
 
 def segment_digit_components(bgr_crop, threshold=128, min_area=12):
@@ -107,3 +134,53 @@ def assemble_reading(comps, digits, scores):
             return False, (-1, raw, confidence, {"components": len(comps)})
         value = float(cleaned)
     return True, (value, raw, confidence, {"components": len(comps)})
+
+
+class TemplateDigitOCR:
+    """Digit reader over the thresholded components: each component's mask
+    is resized to each template's size (``INTER_AREA``) and read as the
+    template of the highest normalised correlation."""
+
+    def __init__(self, templates=None, threshold=128, min_area=12):
+        self.templates = templates or render_digit_templates()
+        self.threshold = threshold
+        self.min_area = min_area
+
+    def _classify_component(self, comp):
+        best_digit, best_score = None, -1.0
+        for digit, tmpl in self.templates.items():
+            resized = imgproc.resize(comp.astype(np.float32), (tmpl.shape[1], tmpl.shape[0]),
+                                     "area")
+            denom = np.linalg.norm(resized) * np.linalg.norm(tmpl)
+            score = float((resized * tmpl).sum() / denom) if denom else 0.0
+            if score > best_score:
+                best_digit, best_score = digit, score
+        return best_digit, best_score
+
+    def __call__(self, bgr_crop):
+        """``(ok, (value, raw_string, confidence, details))``, the shape of the
+        reference's damage_crop_to_percent (ai_runner.py:109-133)."""
+        comps, _ = segment_digit_components(bgr_crop, self.threshold, self.min_area)
+        if not comps:
+            return False, (-1, "", 0.0, {"components": 0})
+        digits, scores = zip(*(self._classify_component(c["mask"]) for c in comps))
+        return assemble_reading(comps, list(digits), list(scores))
+
+
+def damage_crop_to_percent(damage_crop, reader):
+    """Reference-shaped wrapper (reference: ai_runner.py:109-133)."""
+    return reader(damage_crop)
+
+
+def default_reader(device=None):
+    """The default damage reader: the conv digit classifier on ``device``
+    (``None``: the CUDA device) with the committed weights, or the template
+    reader when the weights file is missing.  Nothing else falls back: no
+    CUDA device, or a broken weights file, raises (the JAX package falls
+    back to the template reader on any error)."""
+    from playaid_core_torch.infer.ocr_conv import ConvDigitOCR
+
+    try:
+        return ConvDigitOCR(device=device)
+    except FileNotFoundError:
+        return TemplateDigitOCR()

@@ -50,7 +50,6 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
-import math
 import os
 import sys
 import time
@@ -81,6 +80,7 @@ from playaid_core_torch.parallel.mesh import (
 )
 from playaid_core_torch.parallel.staging import BackgroundIterator, device_prefetch
 from playaid_core_torch.train.dataset import UltActionRecogDataset
+from playaid_core_torch.train.schedules import make_schedule
 
 MODEL_FAMILIES = {
     "cnn": (CNNActionDetector, center_frame_loss),
@@ -98,43 +98,6 @@ def build_model(family: str, num_actions: int, sequence_length: int):
     if family == "rnn":
         return cls(num_actions), loss_fn
     return cls(num_actions, sequence_length), loss_fn
-
-
-def _linear_schedule(init_value, end_value, transition_steps):
-    """``optax.linear_schedule``."""
-    def schedule(count):
-        if transition_steps <= 0:
-            return init_value
-        frac = 1.0 - min(max(count, 0), transition_steps) / transition_steps
-        return (init_value - end_value) * frac + end_value
-    return schedule
-
-
-def make_schedule(learning_rate, warmup_steps=200, decay_steps=None):
-    """The JAX trainer's learning rate at update count ``count`` (from 0):
-    ``optax.warmup_cosine_decay_schedule(0.05 lr, lr, warmup_steps or 1,
-    decay_steps, 0.1 lr)`` when ``decay_steps``, else
-    ``optax.linear_schedule(0.05 lr, lr, warmup_steps)`` when
-    ``warmup_steps``, else ``lr``."""
-    init_value = learning_rate * 0.05
-    if decay_steps:
-        warmup = warmup_steps or 1
-        if not decay_steps - warmup > 0:
-            raise ValueError(f"decay_steps {decay_steps} must exceed the warmup {warmup}")
-        end_value = learning_rate * 0.1
-        alpha = 0.0 if learning_rate == 0.0 else end_value / learning_rate
-        ramp = _linear_schedule(init_value, learning_rate, warmup)
-
-        def schedule(count):
-            if count < warmup:
-                return ramp(count)
-            t = min(count - warmup, decay_steps - warmup)
-            cosine = 0.5 * (1 + math.cos(math.pi * t / (decay_steps - warmup)))
-            return learning_rate * ((1 - alpha) * cosine + alpha)
-        return schedule
-    if warmup_steps:
-        return _linear_schedule(init_value, learning_rate, warmup_steps)
-    return lambda count: learning_rate
 
 
 @dataclass

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
 its card-path modules (the log-driven VOD path, the pixels-only path, the
 training path and its mesh, device-side synthesis and detector training) import no cv2,
-PIL, yaml or click
+PIL, yaml or click, the OCR and dashboard modules not matplotlib either
 (the card's machine has none of them), and chip_smoke.py refuses to run
 without a CUDA device.
 
@@ -14,6 +14,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "playaid_core_tpu")
@@ -177,6 +179,52 @@ print("ok")
 """
 
 
+# The OCR and dashboard modules on the card: they import with matplotlib
+# blocked too; a vis_ai-style PNG is written and read back with zlib, and
+# evaluate_samples runs; rendering and the template reader name their
+# package.
+OCR_VIZ_PATH = ("infer.ocr", "infer.ocr_conv", "viz.eval_dashboard", "viz.vis_ai")
+
+_OCR_VIZ_WITHOUT_HOST_PACKAGES = f"""
+import base64, importlib, struct, sys, zlib
+import numpy as np
+import torch
+for name in {BANNED + HOST_ONLY + ("matplotlib",)!r}:
+    sys.modules[name] = None
+for name in {OCR_VIZ_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch.infer import ocr, ocr_conv
+from playaid_core_torch.viz import vis_ai
+from playaid_core_torch.viz.eval_dashboard import _png_b64, evaluate_samples
+crop = np.random.default_rng(0).integers(0, 256, (37, 23, 3), dtype=np.uint8)
+png = base64.b64decode(_png_b64(crop[:, :, ::-1].copy()))
+w, h, depth, colour = struct.unpack(">IIBB", png[16:26])
+(n,) = struct.unpack(">I", png[33:37])  # the IDAT chunk after the IHDR
+rows = np.frombuffer(zlib.decompress(png[41:41 + n]), np.uint8).reshape(h, 1 + 3 * w)
+assert (w, h, depth, colour) == (23, 37, 8, 2) and not rows[:, 0].any()
+assert np.array_equal(rows[:, 1:].reshape(h, w, 3), crop[:, :, ::-1])
+
+class Dataset:
+    animations = ["A", "B"]
+    def __getitem__(self, i):
+        return np.full((3, 8, 8, 3), i, np.uint8), 0, np.array([i % 2] * 3), {{}}
+
+records, agg = evaluate_samples(lambda x: torch.log_softmax(x.float().mean((2, 3, 4))[:, :2], -1),
+                                Dataset(), total=4)
+assert agg["total"] == 4 and records[1]["frames"].dtype == np.uint8
+for call, package in ((lambda: ocr_conv.train_fonts(), "matplotlib"),
+                      (lambda: ocr.TemplateDigitOCR(), "PIL"),
+                      (lambda: ocr_conv.synth_batch(np.random.default_rng(0), ["f.ttf"]), "cv2")):
+    try:
+        call()
+    except ImportError as e:
+        assert package in str(e), e
+    else:
+        raise AssertionError(package + " was not asked for")
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -194,7 +242,7 @@ def test_port_imports_with_jax_blocked():
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
                  "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH,
-                 *DETECTOR_TRAIN_PATH):
+                 *DETECTOR_TRAIN_PATH, *OCR_VIZ_PATH):
         assert f"playaid_core_torch.{name}" in imported
 
 
@@ -237,6 +285,28 @@ def test_detector_train_path_runs_on_npy_with_cv2_pil_yaml_click_blocked():
     proc = subprocess.run([sys.executable, "-c", _DETECTOR_TRAIN_ON_NPY], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_ocr_and_viz_run_with_cv2_pil_yaml_click_matplotlib_blocked():
+    """OCR and the dashboards on a machine without cv2, PIL, yaml, click or
+    matplotlib (the card's): the modules import, an inline PNG decodes with
+    zlib to its crop, evaluate_samples runs, and the font pools, the
+    template reader and synth_batch name the package they need."""
+    proc = subprocess.run([sys.executable, "-c", _OCR_VIZ_WITHOUT_HOST_PACKAGES], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.parametrize("module", ["infer.ocr_conv", "infer.runner"])
+def test_inference_modules_import_without_the_trainer(module):
+    """The digit reader and the runner that holds it sit below the training
+    layer: importing them loads no trainer (the OCR schedule lives in
+    train/schedules.py)."""
+    code = (f"import importlib, sys\nimportlib.import_module('playaid_core_torch.{module}')\n"
+            "print('playaid_core_torch.train.train' in sys.modules)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "False", proc.stderr
 
 
 def _imported_roots(path):
