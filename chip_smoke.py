@@ -154,7 +154,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    accuracy; (c) write_vis_ai_report on phase 9's runner, its own labels as
    the first fighter's ground truth: the strip count, that fighter's
    agreement 1.0, and every inline PNG decoded with zlib to its crop
-   file's RGB pixels.
+   file's RGB pixels;
+15. the synthetic-training path on skeletal sprites drawn on the card's
+   host, in a fresh process (python3 chip_smoke.py --sprites): (a) the
+   sprite tree of playaid_core_torch/assets/sprite_digests.json's settings
+   (6 fighters x 8 moves x 8 frames x variants 0-1 x 2 facings, 1,536
+   sprites) drawn under build/smoke/sprites/ by the port's
+   generate_sprite_set(fmt="npy") in one process a CPU, without cv2: the
+   sprites/s, and the SHA-256 of 48 of them equal to those the JAX
+   package's cv2 renderer gives (tools/torch_port_sprite_digests.py); the
+   bench tool's four stage textures as .npy; (b) UltActionRecogDataset(
+   split="synth") over them with the bench tool's arguments (fill
+   0.70-0.98, jitter 10, middle-out, cycle repeats 1-2, difficulty 1, one
+   batch at 2, no JPEG degrade): uint8 [16, 7, 128, 128, 3] frames, labels
+   in [0, 63), a batch's assembly alone in crops/s; (c) Trainer.fit of
+   CNN-63 from the bench weights (batch 16, T 7, 128 px, float32, TF32
+   off) for 30 steps through BackgroundIterator, timed from its third step:
+   no K1 or K2 launch in it; the busy share of a profiled 4-step epoch; the
+   loss on one fixed batch falls over 20 steps; (d) Trainer.evaluate on the
+   split: K2 one launch a batch at 112x4x4x512, held against
+   residual_block_ref on the input it ran, timed (call, device, plain,
+   cuDNN chain, bound); (e) DeviceSynthDataset over the drawn tree, 10
+   steps: K1's bank entry 2 launches a step, held against
+   batched_bank_resize.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -1414,9 +1436,10 @@ def train_dataset(split, seed=0):
 def train_config(family, **kw):
     from playaid_core_torch.train.train import TrainerConfig
 
-    return TrainerConfig(family=family, num_actions=len(train_actions()),
-                         sequence_length=TRAIN_T, batch_size=TRAIN_BATCH,
-                         learning_rate=TRAIN_LR, crop_size=CROP, warmup_steps=0, **kw)
+    args = dict(family=family, num_actions=len(train_actions()), sequence_length=TRAIN_T,
+                batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, crop_size=CROP, warmup_steps=0)
+    args.update(kw)
+    return TrainerConfig(**args)
 
 
 def load_bench(model, bench):
@@ -2063,23 +2086,14 @@ def synth_main():
     def on_card(p):
         return (torch.from_numpy(p["ints"]).to(dev), torch.from_numpy(p["floats"]).to(dev))
 
-    def bank_args(ints, floats, mirror=False):
-        """The two launches' arguments of a batch: sprite rows (flipped as
-        their clip, or every other row when mirror) and stage rows."""
-        flip = ints[:, t + 1, None].expand(b, t).reshape(-1)
-        if mirror:
-            flip = (torch.arange(b * t, device=ints.device) % 2).int()
-        sp = (sprites.bank, ints[:, :t].reshape(-1),
-              torch.stack([floats[:, :t].reshape(-1), floats[:, t:2 * t].reshape(-1),
-                           floats[:, 2 * t:3 * t].reshape(-1)], 1), s, flip)
-        st = (stage_bank.bank, ints[:, t], floats[:, 3 * t:3 * t + 3], s, None)
-        return sp, st
+    def batch_bank_args(ints, floats, mirror=False):
+        return bank_args(sprites, stage_bank, ints, floats, b, t, s, mirror)
 
     # (a) K1's bank entry against its plain version on the card.
     errs = {}
     with torch.inference_mode(), full_float32():
         for key, mirror in (("sprites", False), ("sprites, every other row mirrored", True)):
-            sp, st = bank_args(*on_card(params[0]), mirror)
+            sp, st = batch_bank_args(*on_card(params[0]), mirror)
             errs[key] = float((bank_resize(*sp) - batched_bank_resize(*sp)).abs().max())
         errs["stages"] = float((bank_resize(*st) - batched_bank_resize(*st)).abs().max())
         rng = np.random.default_rng(2)
@@ -2177,7 +2191,7 @@ def synth_main():
           f"{busy_share:.3f}")
 
     # Timings of the bank entry: a batch's two launches (sprites, stages).
-    sets = [bank_args(*on_card(p)) for p in params]
+    sets = [batch_bank_args(*on_card(p)) for p in params]
 
     def bank_call(it):
         sp, st = sets[it % BANK_SETS]
@@ -2294,6 +2308,284 @@ def run_synth_phase(check):
         log(line)
     if proc.returncode != 0 or not lines:
         check(False, f"phase 11: chip_smoke.py --synth exited {proc.returncode}:\n"
+                     f"{proc.stderr[-4000:]}")
+        return None
+    res = json.loads(lines[-1])
+    for what in res["failures"]:
+        check(False, what)
+    return res
+
+
+# ---- phase 15: the synth split on skeletal sprites drawn on the card's host ----
+SPRITE_ROOT = os.path.join(ROOT, "build", "smoke", "sprites")
+SPRITE_DIGESTS = os.path.join(ROOT, "playaid_core_torch", "assets", "sprite_digests.json")
+SPRITE_SERIAL = 24        # sprites drawn again in this process alone: the one-core rate
+HOST_EPOCH_STEPS = 30     # steps of the epoch that gives the host split's steady state
+HOST_PROFILE_STEPS = 4    # steps of the profiled epoch (the busy share)
+HOST_TIMED_BATCHES = 2    # batches assembled alone, after a warm one
+DEVICE_SYNTH_STEPS = 10   # DeviceSynthDataset steps on the drawn tree
+
+
+def bank_args(sprites, stage_bank, ints, floats, b, t, s, mirror=False):
+    """The two bank_resize launches' arguments of a DeviceSynthDataset batch:
+    its sprite rows (flipped as their clip, or every other row when mirror)
+    and its stage rows."""
+    import torch
+
+    flip = ints[:, t + 1, None].expand(b, t).reshape(-1)
+    if mirror:
+        flip = (torch.arange(b * t, device=ints.device) % 2).int()
+    sp = (sprites.bank, ints[:, :t].reshape(-1),
+          torch.stack([floats[:, :t].reshape(-1), floats[:, t:2 * t].reshape(-1),
+                       floats[:, 2 * t:3 * t].reshape(-1)], 1), s, flip)
+    st = (stage_bank.bank, ints[:, t], floats[:, 3 * t:3 * t + 3], s, None)
+    return sp, st
+
+
+def sprite_split(clean, stages, difficulty, seed, num_batches):
+    """The synth split with the bench tool's arguments (fill 0.70-0.98,
+    jitter 10, middle-out windows, cycle repeats 1-2) over the drawn tree,
+    no JPEG degrade: batch SYNTH_BATCH, T SYNTH_T, 128 px, the 63 classes."""
+    from playaid_core_torch.train.dataset import UltActionRecogDataset
+
+    none = os.path.join(SPRITE_ROOT, "none")
+    return UltActionRecogDataset(
+        split="synth", num_samples=num_batches * SYNTH_BATCH, img_dimension=CROP,
+        anim_subset=train_actions(), num_frames_per_sample=SYNTH_T, frame_delta=[3],
+        num_preceding_actions=0, crop_size=CROP, seed=seed, gt_root_train=none,
+        gt_root_val=none, gt_root_test=none, stages_dir=stages, clean_char_dir=clean,
+        synth_sprite_fill=(0.70, 0.98), synth_center_jitter=10, synth_frame_degrade=0.0,
+        synth_window="middleout", synth_cycle_repeats=(1, 2), synth_difficulty=difficulty)
+
+
+def sprites_main():
+    """python3 chip_smoke.py --sprites: phase 15 in a fresh process.  Prints
+    its lines, then one JSON line: the failed checks and the numbers."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+    from playaid_core_torch.datagen import skeletal_sprites as sk
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.ops.crop_kernel import bank_resize, square_crop_resize, window_resize
+    from playaid_core_torch.ops.preprocess import batched_bank_resize
+    from playaid_core_torch.train.train import Trainer
+
+    failures = []
+
+    def check(ok, what):
+        log(f"{'ok  ' if ok else 'FAIL'} {what}")
+        if not ok:
+            failures.append(what)
+
+    card = nvidia_smi_line()
+    dev = torch.device("cuda", 0)
+    work = os.path.join(ROOT, "build", "smoke")
+    b, t, s = SYNTH_BATCH, SYNTH_T, CROP
+    wrappers = {"crop_resize": square_crop_resize, "window_resize": window_resize,
+                "bank_resize": bank_resize, "residual_block": residual_block_packed}
+
+    # (a) The sprite tree of sprite_digests.json's settings, drawn with the
+    # port's generate_sprite_set(fmt="npy") in one process a CPU, and its
+    # digests against those cv2 gave.
+    with open(SPRITE_DIGESTS) as f:
+        spec = json.load(f)
+    cfg = spec["settings"]
+    clean, stages = os.path.join(SPRITE_ROOT, "clean"), os.path.join(SPRITE_ROOT, "stages")
+    shutil.rmtree(SPRITE_ROOT, ignore_errors=True)
+    workers = min(os.cpu_count() or 1, spec["sprites"] // sk.SPRITES_A_PROCESS)
+    t0 = time.perf_counter()
+    n = sk.generate_sprite_set(clean, fighters=cfg["fighters"], moves=cfg["moves"],
+                               frames_per_move=cfg["frames_per_move"],
+                               variant_seeds=tuple(cfg["variant_seeds"]), seed=cfg["seed"],
+                               fmt="npy")
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in range(SPRITE_SERIAL):
+        sk.render_sprite(cfg["fighters"][k % 6], cfg["moves"][k % 8], k / SPRITE_SERIAL,
+                         facing=1 - 2 * (k % 2), variant_seed=k % 2)
+    serial_rate = SPRITE_SERIAL / (time.perf_counter() - t0)
+    differ = [name for name, digest in spec["digests"].items()
+              if sk.sprite_digest(np.load(os.path.join(clean, name + ".npy"))) != digest]
+    check(n == spec["sprites"] and len(spec["digests"]) >= 48 and not differ,
+          f"phase 15 (a): {n} skeletal sprites ({len(cfg['fighters'])} fighters x "
+          f"{len(cfg['moves'])} moves x {cfg['frames_per_move']} frames x variants "
+          f"{cfg['variant_seeds']} x 2 facings) drawn as .npy in {draw_s:.2f} s with {workers} "
+          f"processes = {n / draw_s:.1f} sprites/s ({serial_rate:.1f} sprites/s in one); "
+          f"SHA-256 of {len(spec['digests'])} against cv2's "
+          f"(playaid_core_torch/assets/sprite_digests.json): {len(differ)} differ {differ[:4]}; "
+          f"{card}")
+    os.makedirs(stages)
+    rng = np.random.default_rng(0)
+    for name, draw_stage in bench_tool().STAGE_SPECS:
+        np.save(os.path.join(stages, f"{name}.npy"), draw_stage(rng).astype(np.uint8))
+
+    # (b) The synth split over the tree: batch assembly alone.
+    data = sprite_split(clean, stages, 1, 0, HOST_EPOCH_STEPS)
+    t0 = time.perf_counter()
+    first = next(data.batches(b, 1))
+    first_s = time.perf_counter() - t0
+    wire = sprite_split(clean, stages, 1, 1, HOST_TIMED_BATCHES).batches(b, HOST_TIMED_BATCHES)
+    t0 = time.perf_counter()
+    batches = list(wire)
+    assemble_s = (time.perf_counter() - t0) / HOST_TIMED_BATCHES
+    hard = next(sprite_split(clean, stages, 2, 2, 1).batches(b, 1))
+    shapes_ok = all(f.dtype == np.uint8 and f.shape == (b, t, s, s, 3)
+                    and lab.min() >= 0 and lab.max() < len(train_actions())
+                    and f.std() > 1.0
+                    for f, _, lab in [first, hard] + batches)
+    crops_per_s = b * t / assemble_s
+    check(shapes_ok,
+          f"phase 15 (b): the synth split (difficulty 1, one batch at 2) gives uint8 "
+          f"[{b}, {t}, {s}, {s}, 3] frames and labels in [0, {len(train_actions())}); a batch "
+          f"assembled alone in {assemble_s * 1e3:.1f} ms = {crops_per_s:.1f} crops/s (mean of "
+          f"{HOST_TIMED_BATCHES}; the first, reading the sprites, {first_s * 1e3:.1f} ms); {card}")
+
+    # (c) Trainer.fit, CNN-63 from the bench weights, through
+    # BackgroundIterator, timed from its third step: no K1 or K2 launch in
+    # a train step.
+    log_path = os.path.join(work, "train_sprites.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    trainer = Trainer(train_config("cnn", batch_size=b, log_path=log_path), data)
+    trainer.init_state(0)
+    load_bench(trainer.model, from_jax_cnn(load_npz_tree(ASSET)))
+    launches = {"train": {}, "eval": {}}
+
+    def counted(fn, key):
+        def run(*args):
+            before = {k: w.launches for k, w in wrappers.items()}
+            out = fn(*args)
+            for k, w in wrappers.items():
+                launches[key][k] = launches[key].get(k, 0) + w.launches - before[k]
+            return out
+        return run
+
+    trainer.train_step = counted(trainer.train_step, "train")
+    trainer.eval_step = counted(trainer.eval_step, "eval")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rate = steady_steps_per_sec(
+        torch, trainer, HOST_EPOCH_STEPS,
+        lambda: trainer.fit(num_epochs=1, steps_per_epoch=HOST_EPOCH_STEPS))
+    fit_s = time.perf_counter() - t0
+    fit_launches = {k: w.launches for k, w in wrappers.items()}
+    rec = trainer.metrics_log[-1]
+    log(f"phase 15: JSONL {json.dumps(rec)}")
+    check(all(v == 0 for v in launches["train"].values()) and launches["eval"] == {}
+          and all(v == 0 for v in fit_launches.values())
+          and all(np.isfinite(rec[k]) for k in ("train_loss", "grad_norm", "param_norm")),
+          f"phase 15 (c): Trainer.fit on the synth split, 1 epoch x {HOST_EPOCH_STEPS} steps "
+          f"(CNN-63 from the bench weights, batch {b}, T {t}, {s} px, float32, TF32 off) in "
+          f"{fit_s:.2f} s: launches in train steps {json.dumps(launches['train'])} and over "
+          f"the fit {json.dumps(fit_launches)} (all must be 0); losses finite")
+    audit = profile_h2d(torch, lambda: epoch_without_validation(trainer, HOST_PROFILE_STEPS),
+                        os.path.join(work, "sprites_trace.json"))
+    busy_share = audit["busy_us"] / audit["wall_us"]
+    log(f"phase 15: steady state over steps 3-{HOST_EPOCH_STEPS} of an epoch of "
+        f"{HOST_EPOCH_STEPS}: {rate:.3f} steps/s = {rate * b * t:.1f} crops/s; a profiled epoch "
+        f"of {HOST_PROFILE_STEPS}: device busy {audit['busy_us'] / 1e3:.1f} ms of "
+        f"{audit['wall_us'] / 1e3:.1f} ms wall = {busy_share:.3f} ({len(audit['h2d'])} "
+        f"host-to-device copies traced); {card}")
+    frames, _, labels = first
+    fixed = (torch.from_numpy(frames).to(dev), torch.from_numpy(labels).to(dev))
+    losses = [float(trainer.train_step(trainer.state, *fixed)[0]) for _ in range(LEARN_STEPS)]
+    check(losses[-1] < losses[0],
+          f"phase 15 (c): loss on one fixed synth batch over {LEARN_STEPS} steps: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # (d) Trainer.evaluate on the split: K2 once an eval batch at 112x4x4x512,
+    # held against residual_block_ref on the input it ran.
+    model = trainer.model
+    block = model.embed.layer4[1]
+    seen = {}
+    hook = block.register_forward_hook(keep_input(seen))
+    for w in wrappers.values():
+        w.launches = 0
+    ev = trainer.evaluate(sprite_split(clean, stages, 1, 4, 2), num_batches=2)
+    eval_counts = {k: w.launches for k, w in wrappers.items()}
+    eval_launches = eval_counts["residual_block"]
+    hook.remove()
+    with torch.inference_mode(), full_float32():
+        k2_args = k2_ref_args(block, seen["x"])
+        x_nhwc = k2_args[0]
+        pack = block.block_pack(torch.float32)
+        k2_out = residual_block_packed(x_nhwc, pack)
+        k2_ref = residual_block_ref(*k2_args)
+    k2_err = float((k2_out - k2_ref).abs().max())
+    k2_scale = float(k2_ref.abs().max())
+    check(eval_counts == {"crop_resize": 0, "window_resize": 0, "bank_resize": 0,
+                          "residual_block": 2}
+          and tuple(x_nhwc.shape) == (b * t, 4, 4, 512)
+          and k2_err <= K2_F32_REL_TOL * k2_scale and np.isfinite(ev["loss"]),
+          f"phase 15 (d): Trainer.evaluate, 2 batches: launches {json.dumps(eval_counts)} (K2 "
+          f"one a batch) at layer4[1] {tuple(x_nhwc.shape)}; K2 vs residual_block_ref there: max abs "
+          f"err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {k2_scale:.3f}); loss "
+          f"{ev['loss']:.4f}, acc {ev['acc']:.3f}")
+    k2 = k2_yardsticks(torch, block, seen["x"], k2_args, pack)
+    with torch.inference_mode():
+        k2_dev_ms, k2_traced = device_ms(torch, lambda _: residual_block_packed(x_nhwc, pack),
+                                         40, "conv3x3_wgmma_kernel", 2)
+    log(f"phase 15: K2 f32 at {tuple(x_nhwc.shape)}: call {k2['ms']:.4f} ms, device "
+        f"{'not measured' if k2_dev_ms is None else f'{k2_dev_ms:.4f} ms'} ({k2_traced:g} of 2 "
+        f"kernel records a call traced), plain {k2['plain_ms']:.4f} ms, cuDNN chain "
+        f"{k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms (3 x {k2['gflop']:.2f} "
+        f"GFLOP TF32); {card}")
+
+    # (e) DeviceSynthDataset on the drawn tree: K1's bank entry, 2 launches a
+    # step, held against batched_bank_resize on a batch's arguments.
+    ds = bench_tool().bench_dataset(clean, stages, DEVICE_SYNTH_STEPS, b, device=dev)
+    p = ds._sample_batch_params(b)
+    ints, floats = torch.from_numpy(p["ints"]).to(dev), torch.from_numpy(p["floats"]).to(dev)
+    ds.rng = np.random.default_rng(0)
+    with torch.inference_mode(), full_float32():
+        bank_err = max(float((bank_resize(*a) - batched_bank_resize(*a)).abs().max())
+                       for a in bank_args(ds.sprites, ds.stages, ints, floats, b, t, s))
+    dtrainer = Trainer(train_config("cnn", batch_size=b), ds)
+    dtrainer.init_state(0)
+    load_bench(dtrainer.model, from_jax_cnn(load_npz_tree(ASSET)))
+    for w in wrappers.values():
+        w.launches = 0
+    dtrainer.fit(num_epochs=1, steps_per_epoch=DEVICE_SYNTH_STEPS)
+    torch.cuda.synchronize()
+    dev_launches = {k: w.launches for k, w in wrappers.items()}
+    check(bank_err <= BANK_TOL and dev_launches == {
+        "crop_resize": 0, "window_resize": 0, "bank_resize": 2 * DEVICE_SYNTH_STEPS,
+        "residual_block": 0},
+          f"phase 15 (e): DeviceSynthDataset on the drawn tree ({ds.sprites.num_sprites} "
+          f"sprites in the bank): K1 bank_resize vs batched_bank_resize on a batch's sprite and "
+          f"stage rows, max abs err {bank_err:.3e} (tol {BANK_TOL}); Trainer.fit "
+          f"{DEVICE_SYNTH_STEPS} steps: launches {json.dumps(dev_launches)} (bank_resize 2 a "
+          f"step)")
+    print(json.dumps({
+        "failures": failures, "sprites": n, "draw_s": draw_s, "sprites_per_sec": n / draw_s,
+        "draw_workers": workers, "sprites_per_sec_one_process": serial_rate,
+        "digests_checked": len(spec["digests"]), "digests_differ": len(differ),
+        "assemble_ms": assemble_s * 1e3, "crops_per_sec": crops_per_s, "fit_s": fit_s,
+        "train_launches": launches["train"], "steps_per_sec": rate, "fit_crops_per_sec": rate * b * t, "busy_share": busy_share,
+        "k2_launches": eval_launches,
+        "k2_max_abs_err": k2_err, "k2_shape": list(x_nhwc.shape), "k2_ms": k2["ms"],
+        "k2_device_ms": k2_dev_ms, "k2_plain_ms": k2["plain_ms"],
+        "k2_bound_ms": k2["bound_ms"], "k2_library_ms": k2["library_ms"],
+        "bank_launches": dev_launches["bank_resize"], "bank_max_abs_err": bank_err}),
+        flush=True)
+    return 0
+
+
+def run_sprites_phase(check):
+    """Phase 15 through sprites_main in a child process: its lines are shown
+    here and each of its failed checks fails here too.  Returns its numbers."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sprites"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0 or not lines:
+        check(False, f"phase 15: chip_smoke.py --sprites exited {proc.returncode}:\n"
                      f"{proc.stderr[-4000:]}")
         return None
     res = json.loads(lines[-1])
@@ -3324,6 +3616,8 @@ def main():
         return profile_main(sys.argv[2])
     if sys.argv[1:2] == ["--synth"]:
         return synth_main()
+    if sys.argv[1:2] == ["--sprites"]:
+        return sprites_main()
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank_main(int(sys.argv[2]))
     sys.path.insert(0, ROOT)
@@ -3819,6 +4113,12 @@ def main():
     dashboards = run_ocr_viz_phase(torch, dev, check, card, residual_block_packed, pixels_runner)
     k1_dashboard_launches = sum(wrapper.launches for wrapper in k1_wrappers)
 
+    # ---- phase 15: the synth split on drawn skeletal sprites, in a fresh process ----
+    t0 = time.perf_counter()
+    sprites = run_sprites_phase(check) or {}
+    log(f"phase 15 in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps({k: v for k, v in sprites.items() if k != 'failures'})}; {card}")
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -3869,6 +4169,18 @@ def main():
     kernels[0]["dashboard_launches"] = k1_dashboard_launches
     kernels[1]["mesh_vod_device_ms"] = dashboards.pop("mesh_device_ms")
     kernels[1].update({f"dashboard_{k}": v for k, v in dashboards.items()})
+    # Phase 15: K1's bank entry in DeviceSynthDataset's steps on the drawn
+    # tree; K2 in the host split's evaluation (none in its train steps).
+    kernels[0].update({"sprites_bank_launches": sprites.get("bank_launches"),
+                       "sprites_bank_max_abs_err": sprites.get("bank_max_abs_err"),
+                       "sprites_train_step_launches": sum(
+                           v for k, v in sprites.get("train_launches", {}).items()
+                           if k != "residual_block")})
+    kernels[1].update({f"sprites_{k[3:]}": sprites.get(k) for k in (
+        "k2_launches", "k2_max_abs_err", "k2_shape", "k2_ms", "k2_device_ms", "k2_plain_ms",
+        "k2_bound_ms", "k2_library_ms")})
+    kernels[1]["sprites_train_step_launches"] = sprites.get("train_launches", {}).get(
+        "residual_block")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

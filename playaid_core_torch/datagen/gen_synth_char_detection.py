@@ -24,7 +24,7 @@ import numpy as np
 from playaid_core_torch import constants
 from playaid_core_torch.ontology import MOVE_TO_CLASS_ID
 from playaid_core_torch.train.augment import augment_synth_char_crop
-from playaid_core_torch.train.dataset import get_stage_paths
+from playaid_core_torch.train.dataset import get_stage_paths, load_stage
 
 MAX_NUM_CHAR = 4
 
@@ -181,7 +181,7 @@ def composite_chars_onto_stage(stage_path, char_paths, output_path, class_type="
 
     rng = rng or np.random.default_rng()
     char_list = char_list or constants.CHAR_LIST
-    stage = Image.open(stage_path).convert("RGB")
+    stage = Image.fromarray(load_stage(stage_path))
 
     yolo_output = []
     pixel_bbox_data = []

@@ -1,11 +1,13 @@
 """Procedural articulated fighter sprites: >=26 moves x 6 fighters.
 
 The port's copy of ``playaid_core_tpu/datagen/skeletal_sprites.py``.  It
-draws with OpenCV, which is imported when a sprite is drawn, so the module
-imports on a machine without cv2 (the card's); there :func:`render_sprite`,
-:func:`style_variant` with a non-zero seed and :func:`generate_sprite_set`
-raise an ``ImportError`` that names cv2.  Sprites are BGRA, as cv2 draws
-and writes them.
+draws through ``playaid_core_torch.draw`` (OpenCV's antialiased lines,
+circles, arcs and polygons, pixel for pixel) and ``imgproc``'s HSV
+conversions, so a machine without cv2 (the card's) draws what the JAX
+module draws with cv2.  Sprites are BGRA, as cv2 draws and writes them;
+:func:`generate_sprite_set` writes them as PNG files (through cv2) or as
+``.npy`` arrays, the BGRA that ``cv2.imread(..., IMREAD_UNCHANGED)`` gives
+for the PNG.
 
 The round-2 capstone proved the pixels-only stack on a 3-move / 2-shape
 toy; the reference's deployed operating point is a 46-move trained subset
@@ -30,6 +32,7 @@ generalization across appearance, not memorization of exact sprites.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import zlib
@@ -37,15 +40,9 @@ from dataclasses import dataclass, field, replace
 
 import numpy as np
 
+from playaid_core_torch import draw, imgproc
+
 TAU = 2 * math.pi
-
-
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("drawing a sprite needs cv2, which is not installed") from e
-    return cv2
 
 
 # The reference's FULL 46-move trained subset
@@ -149,15 +146,14 @@ def style_variant(style: FighterStyle, seed: int) -> FighterStyle:
     # cached by another.
     name_hash = zlib.crc32(style.name.encode()) % 10007
     rng = np.random.default_rng(seed * 7919 + name_hash)
-    cv2 = _cv2()
 
     def shift(c):
-        hsv = cv2.cvtColor(np.uint8([[list(c)]]), cv2.COLOR_BGR2HSV).astype(int)
+        hsv = imgproc.rgb_to_hsv(np.uint8([[list(c)]]), bgr=True).astype(int)
         hsv[0, 0, 0] = (hsv[0, 0, 0] + rng.integers(-14, 15)) % 180
         hsv[0, 0, 1] = np.clip(hsv[0, 0, 1] + rng.integers(-25, 26), 40, 255)
         hsv[0, 0, 2] = np.clip(hsv[0, 0, 2] + rng.integers(-25, 26), 50, 255)
         return tuple(int(v) for v in
-                     cv2.cvtColor(hsv.astype(np.uint8), cv2.COLOR_HSV2BGR)[0, 0])
+                     imgproc.hsv_to_rgb(hsv.astype(np.uint8), bgr=True)[0, 0])
 
     j = lambda v: float(v * rng.uniform(0.93, 1.07))  # noqa: E731
     return replace(
@@ -708,7 +704,6 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
     selects a deterministic appearance variant (0 = canonical).
     """
     st = style or FIGHTER_STYLES[fighter]
-    cv2 = _cv2()
     if variant_seed:
         st = style_variant(st, variant_seed)
     pose = POSE_FUNCS[move](phase % 1.0)
@@ -738,12 +733,11 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
     for eff in pose.effects:
         if eff[0] == "bubble":
             _, ex, ey, er = eff
-            cv2.circle(layer, to_img((ex, ey + 10)), int(er * s),
-                       (*EFFECT_COLOR, 70), -1, cv2.LINE_AA)
+            draw.circle(layer, to_img((ex, ey + 10)), int(er * s),
+                        (*EFFECT_COLOR, 70), -1)
 
     def line(a, b, color, t=None):
-        cv2.line(layer, to_img(a), to_img(b), (*color, 255),
-                 t or th, cv2.LINE_AA)
+        draw.line(layer, to_img(a), to_img(b), (*color, 255), t or th)
 
     # legs (back first so the front leg overdraws it)
     for i, (angle, bend, ext) in list(enumerate(pose.legs))[::-1]:
@@ -758,8 +752,8 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
 
     # torso
     neck = _up((0.0, 0.0), pose.lean, st.torso_len)
-    cv2.line(layer, to_img((0.0, 0.0)), to_img(neck), (*st.body_color, 255),
-             int(th * 1.6), cv2.LINE_AA)
+    draw.line(layer, to_img((0.0, 0.0)), to_img(neck), (*st.body_color, 255),
+              int(th * 1.6))
 
     # back arm behind torso? draw back arm now, front arm after head
     def draw_arm(i):
@@ -772,8 +766,8 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
         if i == 0 and pose.weapon is not None and st.weapon_len > 0:
             tip = _p(hand, pose.weapon, st.weapon_len)
             line(hand, tip, (200, 220, 230), max(2, th // 2))
-            cv2.circle(layer, to_img(hand), max(2, th // 2 + 1),
-                       (60, 70, 80, 255), -1, cv2.LINE_AA)
+            draw.circle(layer, to_img(hand), max(2, th // 2 + 1),
+                        (60, 70, 80, 255), -1)
         return hand
 
     draw_arm(1)
@@ -784,23 +778,23 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
     hc = to_img(head_c)
     hr = max(3, int(round(st.head_r * s)))
     if st.head_shape == "circle":
-        cv2.circle(layer, hc, hr, (*st.head_color, 255), -1, cv2.LINE_AA)
+        draw.circle(layer, hc, hr, (*st.head_color, 255), -1)
     elif st.head_shape == "square":
-        cv2.rectangle(layer, (hc[0] - hr, hc[1] - hr), (hc[0] + hr, hc[1] + hr),
-                      (*st.head_color, 255), -1, cv2.LINE_AA)
+        draw.rectangle(layer, (hc[0] - hr, hc[1] - hr), (hc[0] + hr, hc[1] + hr),
+                       (*st.head_color, 255))
     elif st.head_shape == "triangle":
         pts = np.array([(hc[0], hc[1] - hr), (hc[0] - hr, hc[1] + hr),
                         (hc[0] + hr, hc[1] + hr)])
-        cv2.fillPoly(layer, [pts], (*st.head_color, 255), cv2.LINE_AA)
+        draw.fill_poly(layer, [pts], (*st.head_color, 255))
     else:  # hex
         ang = np.arange(6) * TAU / 6
         pts = np.stack([hc[0] + hr * np.cos(ang), hc[1] + hr * np.sin(ang)],
                        1).astype(np.int32)
-        cv2.fillPoly(layer, [pts], (*st.head_color, 255), cv2.LINE_AA)
+        draw.fill_poly(layer, [pts], (*st.head_color, 255))
 
     # eye dot marks facing
     eye = (hc[0] + int(facing * hr * 0.45), hc[1] - int(hr * 0.2))
-    cv2.circle(layer, eye, max(1, hr // 5), (30, 30, 30, 255), -1, cv2.LINE_AA)
+    draw.circle(layer, eye, max(1, hr // 5), (30, 30, 30, 255), -1)
 
     # fighter markers
     if st.marker == "ears":
@@ -808,24 +802,20 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
             base = (hc[0] + sx * int(hr * 0.55), hc[1] - int(hr * 0.75))
             tip = (hc[0] + sx * int(hr * 0.95), hc[1] - int(hr * 1.9))
             pts = np.array([base, tip, (base[0] + sx * int(hr * 0.45), base[1])])
-            cv2.fillPoly(layer, [pts], (*st.head_color, 255), cv2.LINE_AA)
-            cv2.circle(layer, tip, max(1, hr // 4), (*st.marker_color, 255), -1,
-                       cv2.LINE_AA)
+            draw.fill_poly(layer, [pts], (*st.head_color, 255))
+            draw.circle(layer, tip, max(1, hr // 4), (*st.marker_color, 255), -1)
     elif st.marker == "dot":
-        cv2.circle(layer, (hc[0] - int(facing * hr * 0.5), hc[1] + int(hr * 0.35)),
-                   max(2, hr // 3), (*st.marker_color, 255), -1, cv2.LINE_AA)
+        draw.circle(layer, (hc[0] - int(facing * hr * 0.5), hc[1] + int(hr * 0.35)),
+                    max(2, hr // 3), (*st.marker_color, 255), -1)
     elif st.marker == "stripe":
         mid = to_img(_up((0.0, 0.0), pose.lean, st.torso_len * 0.55))
-        cv2.circle(layer, mid, int(th * 0.8), (*st.marker_color, 255), -1,
-                   cv2.LINE_AA)
+        draw.circle(layer, mid, int(th * 0.8), (*st.marker_color, 255), -1)
     elif st.marker == "tail":
         t0 = to_img((-3.0, 2.0))
         t1 = to_img((-st.torso_len * 0.85, st.torso_len * 0.35))
         t2 = to_img((-st.torso_len * 1.0, st.torso_len * 1.05))
-        cv2.line(layer, t0, t1, (*st.limb_color, 255), max(2, int(th * 0.6)),
-                 cv2.LINE_AA)
-        cv2.line(layer, t1, t2, (*st.limb_color, 255), max(2, int(th * 0.6)),
-                 cv2.LINE_AA)
+        draw.line(layer, t0, t1, (*st.limb_color, 255), max(2, int(th * 0.6)))
+        draw.line(layer, t1, t2, (*st.limb_color, 255), max(2, int(th * 0.6)))
 
     hand_front = draw_arm(0)
 
@@ -837,38 +827,37 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
             center = to_img((ex, ey))
             if facing < 0:
                 a0, a1 = 180 - a1, 180 - a0
-            cv2.ellipse(layer, center, (int(er * s), int(er * s)), 0, a0, a1,
-                        (*EFFECT_COLOR, 230), max(2, th // 2), cv2.LINE_AA)
+            draw.ellipse(layer, center, (int(er * s), int(er * s)), 0, a0, a1,
+                         (*EFFECT_COLOR, 230), max(2, th // 2))
         elif kind == "ring":
             _, ex, ey, er = eff
-            cv2.circle(layer, to_img((ex, ey)), int(er * s),
-                       (*EFFECT_COLOR, 180), max(2, th // 3), cv2.LINE_AA)
+            draw.circle(layer, to_img((ex, ey)), int(er * s),
+                        (*EFFECT_COLOR, 180), max(2, th // 3))
         elif kind == "bubble":
             _, ex, ey, er = eff
-            cv2.circle(layer, to_img((ex, ey + 10)), int(er * s),
-                       (*EFFECT_COLOR, 220), max(2, th // 3), cv2.LINE_AA)
+            draw.circle(layer, to_img((ex, ey + 10)), int(er * s),
+                        (*EFFECT_COLOR, 220), max(2, th // 3))
         elif kind == "proj":
             _, ex, ey, er = eff
-            cv2.circle(layer, to_img((ex, ey)), int(er * s),
-                       (*EFFECT_COLOR, 255), -1, cv2.LINE_AA)
+            draw.circle(layer, to_img((ex, ey)), int(er * s),
+                        (*EFFECT_COLOR, 255), -1)
         elif kind == "burst":
             _, ex, ey, er = eff
             c = to_img((ex, ey))
             for a in np.arange(0, TAU, TAU / 6):
-                cv2.line(layer, c,
-                         (c[0] + int(er * s * 1.8 * math.cos(a)),
-                          c[1] + int(er * s * 1.8 * math.sin(a))),
-                         (*EFFECT_COLOR, 220), max(1, th // 3), cv2.LINE_AA)
+                draw.line(layer, c,
+                          (c[0] + int(er * s * 1.8 * math.cos(a)),
+                           c[1] + int(er * s * 1.8 * math.sin(a))),
+                          (*EFFECT_COLOR, 220), max(1, th // 3))
         elif kind == "speed":
             for dy in (-12, 0, 12):
                 a = to_img((-28, 26 + dy))
                 b = to_img((-58, 26 + dy))
-                cv2.line(layer, a, b, (*EFFECT_COLOR, 150), max(1, th // 3),
-                         cv2.LINE_AA)
+                draw.line(layer, a, b, (*EFFECT_COLOR, 150), max(1, th // 3))
         elif kind == "dust":
             base = to_img((-14, -leg_reach * 0.95))
-            cv2.ellipse(layer, base, (int(16 * s), int(7 * s)), 0, 0, 360,
-                        (*EFFECT_COLOR, 130), -1, cv2.LINE_AA)
+            draw.ellipse(layer, base, (int(16 * s), int(7 * s)), 0, 0, 360,
+                         (*EFFECT_COLOR, 130), -1)
         elif kind == "ghost":
             pass  # handled below (offset copy)
 
@@ -891,14 +880,21 @@ def render_sprite(fighter, move, phase, size=176, facing=1, style=None,
     img[:, :, 3] = np.maximum(img[:, :, 3], layer[:, :, 3])
 
     if noise_rng is not None:
-        vis = img[:, :, 3] > 0
-        noise = noise_rng.integers(-12, 13, (size, size, 3))
-        img[:, :, :3] = np.where(
-            vis[:, :, None],
-            np.clip(img[:, :, :3].astype(int) + noise, 0, 255),
-            img[:, :, :3],
-        ).astype(np.uint8)
+        _add_noise(img, noise_rng)
     return img
+
+
+def _add_noise(img, noise_rng):
+    """The per-pixel colour noise on the visible pixels, in place: one
+    ``integers(-12, 13, (size, size, 3))`` draw from ``noise_rng``."""
+    size = img.shape[0]
+    vis = img[:, :, 3] > 0
+    noise = noise_rng.integers(-12, 13, (size, size, 3))
+    img[:, :, :3] = np.where(
+        vis[:, :, None],
+        np.clip(img[:, :, :3].astype(int) + noise, 0, 255),
+        img[:, :, :3],
+    ).astype(np.uint8)
 
 
 def tight_crop(img, margin=3, min_size=104):
@@ -919,16 +915,39 @@ def tight_crop(img, margin=3, min_size=104):
     return canvas
 
 
+# The fewest sprites a drawing process is started for: a spawned process
+# starts by importing numpy and this module, which takes about as long as
+# drawing a few dozen sprites.
+SPRITES_A_PROCESS = 64
+
+
+def _render_clean(args):
+    """A pool worker's sprite: :func:`render_sprite` without the noise."""
+    return render_sprite(*args)
+
+
 def generate_sprite_set(root, fighters=None, moves=None, frames_per_move=16,
                         variant_seeds=(0,), size=176, seed=0, facing_both=True,
-                        phase_offsets=None):
+                        phase_offsets=None, *, fmt):
     """Write clean-char sprite sets consumable by the synth dataset and
     the composite generator.
 
     Layout: ``{root}/{fighter}/{move}/{fighter_lower}_c{variant:02d}_
-    {move_lower}_frame_{90|270}_{i}.png`` — the cam field encodes facing
+    {move_lower}_frame_{90|270}_{i}.{fmt}`` — the cam field encodes facing
     (90 = right, 270 = left) so each (variant, facing) pair forms its own
     coherent animation sequence in ``char_anim_dict``.
+
+    ``fmt``: ``"png"`` writes PNG files through cv2, as the JAX module does
+    (an ``ImportError`` naming cv2 where it is not installed); ``"npy"``
+    writes the BGRA array that ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``
+    gives for that PNG, and needs no cv2.
+
+    A set of ``2 * SPRITES_A_PROCESS`` sprites or more is drawn in up to one
+    spawned process a CPU, each given at least ``SPRITES_A_PROCESS``
+    sprites (what pays for a process's start); a smaller set is drawn
+    here.  The noise, one draw a sprite from ``default_rng(seed)``, is
+    added here in the same order, so the files are the same for any
+    process count.
 
     ``phase_offsets`` maps variant seed -> sub-frame phase offset in
     fractional frames (frame i renders at phase ``(i + off) /
@@ -937,11 +956,17 @@ def generate_sprite_set(root, fighters=None, moves=None, frames_per_move=16,
     the continuous phases an eval renderer produces — each (variant,
     facing) sequence stays internally coherent.
     """
+    if fmt not in ("png", "npy"):
+        raise ValueError(f"fmt must be 'png' or 'npy', got {fmt!r}")
+    if fmt == "png":
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError("writing PNG sprites needs cv2, which is not installed; "
+                              "fmt='npy' needs none") from e
     fighters = fighters or list(FIGHTER_STYLES)
-    cv2 = _cv2()
     moves = moves or MOVES
-    rng = np.random.default_rng(seed)
-    count = 0
+    jobs, names = [], []
     for fighter in fighters:
         for move in moves:
             d = os.path.join(root, fighter, move)
@@ -950,13 +975,35 @@ def generate_sprite_set(root, fighters=None, moves=None, frames_per_move=16,
                 off = (phase_offsets or {}).get(v, 0.0)
                 for facing, cam in ((1, 90), (-1, 270)) if facing_both else ((1, 90),):
                     for i in range(frames_per_move):
-                        img = render_sprite(
-                            fighter, move, (i + off) / frames_per_move, size=size,
-                            facing=facing, variant_seed=v, noise_rng=rng,
-                        )
-                        img = tight_crop(img)
-                        name = (f"{fighter.lower().replace(' ', '-')}_c{v:02d}_"
-                                f"{move.lower()}_frame_{cam}_{i}.png")
-                        cv2.imwrite(os.path.join(d, name), img)
-                        count += 1
-    return count
+                        jobs.append((fighter, move, (i + off) / frames_per_move, size, facing,
+                                     None, v))
+                        names.append(os.path.join(
+                            d, f"{fighter.lower().replace(' ', '-')}_c{v:02d}_"
+                               f"{move.lower()}_frame_{cam}_{i}.{fmt}"))
+    rng = np.random.default_rng(seed)
+
+    def write(images):
+        for name, img in zip(names, images):
+            _add_noise(img, rng)
+            img = tight_crop(img)
+            if fmt == "png":
+                cv2.imwrite(name, img)
+            else:
+                np.save(name, img)
+
+    processes = min(os.cpu_count() or 1, len(jobs) // SPRITES_A_PROCESS)
+    if processes > 1:
+        import multiprocessing
+
+        with multiprocessing.get_context("spawn").Pool(processes) as pool:
+            write(pool.imap(_render_clean, jobs, chunksize=8))
+    else:
+        write(map(_render_clean, jobs))
+    return len(jobs)
+
+
+def sprite_digest(img):
+    """SHA-256 (hex) of a sprite array's shape and bytes: the digest that
+    ``assets/sprite_digests.json`` holds for sprites drawn with cv2."""
+    img = np.ascontiguousarray(img)
+    return hashlib.sha256(repr((img.shape, img.dtype.str)).encode() + img.tobytes()).hexdigest()

@@ -16,17 +16,33 @@ neither library, computes the same pixels.
 * :func:`pad` is ``PIL.ImageOps.pad(image, size, color="black")``: PIL's
   antialiased bicubic resize (a = -0.5, 22-bit fixed point, horizontal
   pass first, uint8 in between) to fit the size, pasted centred at
-  ``round((size - w) / 2)`` (Python's rounding, half to even).
+  ``round((size - w) / 2)`` (Python's rounding, half to even).  A
+  4-channel image is RGBA to PIL, which resizes it premultiplied by its
+  alpha (:func:`resize_bicubic`).
+* :func:`resize_nearest` is ``cv2.resize`` with ``INTER_NEAREST``.
+* :func:`blur` is ``cv2.blur``: the normalised box filter with
+  ``BORDER_REFLECT_101``, rounded as OpenCV rounds 8-bit sums.
+* :func:`rgb_to_hsv` and :func:`hsv_to_rgb` are ``cv2.cvtColor`` with
+  ``COLOR_RGB2HSV``/``COLOR_HSV2RGB`` (or the BGR orders) on uint8: H in
+  [0, 180), OpenCV's fixed-point division tables one way and its float32
+  sectors (with its fused multiply-adds, truncated in its vector loop and
+  rounded in its scalar tail) the other.
+* :func:`crop` is ``Image.crop``: a window that may hang off the image,
+  filled with zeros there.
+* :func:`paste` is ``Image.paste(im, box, mask)`` of an RGBA image by its
+  own alpha: Pillow's ``BLEND`` with ``DIV255`` rounding, clipped at the
+  edges.
 
-The CPU tests hold each against OpenCV and PIL on random images.
+The CPU tests hold each against OpenCV and PIL on random images (the
+colour conversions and the blend on every input value).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
-import torch
 
 _COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
 _PIL_BITS = 22   # PIL's PRECISION_BITS for 8-bit images
@@ -66,6 +82,8 @@ def linear_u8_tables(src_hw, size, area_mode=False, device="cpu"):
     row indices ``[h]`` and weights ``[h, 1, 1]``.  24 bytes per output
     row and column; a caller that resizes many frames of one size builds
     them once."""
+    import torch
+
     (sh, sw), (h, w) = src_hw, size
     x0, x1, a0, a1 = _linear_taps(sw, w, area_mode, clamp=True)
     y0, y1, b0, b1 = _linear_taps(sh, h, area_mode, clamp=False)
@@ -76,11 +94,13 @@ def linear_u8_tables(src_hw, size, area_mode=False, device="cpu"):
             t(_fixed(b1).astype(np.int32))[:, None, None])
 
 
-def resize_linear_u8(x: torch.Tensor, size, area_mode=False, tables=None) -> torch.Tensor:
+def resize_linear_u8(x: "torch.Tensor", size, area_mode=False, tables=None) -> "torch.Tensor":
     """``cv2.resize`` bilinear (or the area variant when enlarging) of uint8
     images ``[..., H, W, C]`` to ``size = (height, width)``, on x's device.
     ``tables``: :func:`linear_u8_tables` for x's size on x's device (built
     here when not given)."""
+    import torch
+
     if tables is None:
         tables = linear_u8_tables(x.shape[-3:-1], size, area_mode, x.device)
     x0, x1, a0, a1, y0, y1, b0, b1 = tables
@@ -191,6 +211,8 @@ def resize(img, dsize, interpolation="linear"):
     area_mode = interpolation == "area"
     if img.dtype == np.float32:
         return _linear_f32(img, h, w, area_mode)
+    import torch
+
     x = torch.from_numpy(np.ascontiguousarray(img).reshape(sh, sw, -1))
     return resize_linear_u8(x, (h, w), area_mode).numpy().reshape((h, w) + img.shape[2:])
 
@@ -230,15 +252,35 @@ def _pil_pass(img, out_size, axis):
     return np.moveaxis(np.clip(acc >> _PIL_BITS, 0, 255).astype(np.uint8), 0, axis)
 
 
+def _muldiv255(a, b):
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
 def resize_bicubic(img, dsize):
-    """``Image.fromarray(img).resize(dsize, BICUBIC)`` for uint8 images."""
+    """``Image.fromarray(img).resize(dsize, BICUBIC)`` for uint8 images.  A
+    4-channel image is RGBA: PIL resizes it premultiplied (``RGBa``) and
+    divides the colour by the new alpha after."""
     w, h = dsize
+    if (h, w) == img.shape[:2]:
+        return img.copy()
+    rgba = img.ndim == 3 and img.shape[2] == 4
     out = img
+    if rgba:
+        src = img.astype(np.int64)
+        out = np.concatenate([_muldiv255(src[..., :3], src[..., 3:]), src[..., 3:]], 2)
+        out = out.astype(np.uint8)
     if w != img.shape[1]:
         out = _pil_pass(out, w, 1)
     if h != img.shape[0]:
         out = _pil_pass(out, h, 0)
-    return out if out is not img else img.copy()
+    if rgba:
+        a = out[..., 3:].astype(np.int64)
+        c = out[..., :3].astype(np.int64)
+        div = np.minimum(255 * c // np.maximum(a, 1), 255)
+        c = np.where((a == 0) | (a == 255), c, div)
+        out = np.concatenate([c, a], 2).astype(np.uint8)
+    return out
 
 
 def pad(img, size):
@@ -271,3 +313,156 @@ def pad(img, size):
         y = round((th - fit[1]) * 0.5)
         out[y:y + fit[1]] = resized
     return out
+
+
+def resize_nearest(img, dsize):
+    """``cv2.resize(img, dsize, interpolation=cv2.INTER_NEAREST)``: source
+    index ``floor(x / (dw / sw))``, clamped to the last pixel."""
+    w, h = dsize
+    sh, sw = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64), sh - 1)
+    return np.ascontiguousarray(img[ys[:, None], xs[None, :]])
+
+
+def _reflect101(n, lo, hi):
+    """Indices ``lo..hi-1`` of an axis of length ``n``, reflected at the
+    edges without repeating them (``BORDER_REFLECT_101``)."""
+    i = np.arange(lo, hi)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.mod(i, period)
+    return np.where(i < n, i, period - i)
+
+
+def blur(img, ksize):
+    """``cv2.blur(img, ksize)`` for uint8 images: the mean over a
+    ``ksize = (kw, kh)`` window anchored at its centre (``k // 2``), the
+    border reflected (101), the integer sum scaled in 16-bit fixed point
+    as OpenCV does for small 8-bit windows."""
+    kw, kh = ksize
+    h, w = img.shape[:2]
+    src = img.astype(np.int64)
+    cols = _reflect101(w, -(kw // 2), w + kw - 1 - kw // 2)
+    rows = _reflect101(h, -(kh // 2), h + kh - 1 - kh // 2)
+    padded = src[rows][:, cols]
+    acc = np.zeros((h + kh - 1, w) + img.shape[2:], np.int64)
+    for k in range(kw):
+        acc += padded[:, k:k + w]
+    total = np.zeros((h, w) + img.shape[2:], np.int64)
+    for k in range(kh):
+        total += acc[k:k + h]
+    d = kw * kh
+    if d == 1:
+        return img.copy()
+    scale = float(1 << 16) / d
+    div_scale = math.floor(scale)
+    div_delta = d // 2
+    if scale - div_scale < 0.5:
+        div_delta += 1
+    else:
+        div_scale += 1
+    return ((total + div_delta) * div_scale >> 16).astype(np.uint8)
+
+
+_HSV_SHIFT = 12
+
+
+@functools.lru_cache(maxsize=1)
+def _hsv_tables():
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / i)]).astype(np.int64)
+    hdiv = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * i))]).astype(np.int64)
+    return sdiv, hdiv
+
+
+def rgb_to_hsv(img, bgr=False):
+    """``cv2.cvtColor(img, COLOR_RGB2HSV)`` (``COLOR_BGR2HSV`` when
+    ``bgr``) for uint8 ``[..., 3]``: H in [0, 180), S and V in [0, 255]."""
+    sdiv, hdiv = _hsv_tables()
+    src = img.astype(np.int64)
+    r, g, b = (src[..., 2], src[..., 1], src[..., 0]) if bgr else (
+        src[..., 0], src[..., 1], src[..., 2])
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_rgb(img, bgr=False):
+    """``cv2.cvtColor(img, COLOR_HSV2RGB)`` (``COLOR_HSV2BGR`` when
+    ``bgr``) for uint8 ``[H, W, 3]`` with H in [0, 180): float32 sectors of
+    V / 255 and S / 255, with OpenCV's fused multiply-adds, times 255.
+    The rounding is that of the AVX2 code (with FMA3) of OpenCV 5.0.0's
+    x86-64 ``opencv-python`` build, which dispatches it on any CPU with
+    AVX2 (AVX512-SKX gives the same pixels): each row 32 pixels at a time
+    with vector code, which truncates, and the last ``W % 32`` pixels of a
+    row one by one, which round half to even (``saturate_cast``).  The
+    32-pixel block is that code's, not OpenCV's contract: the same build
+    with its dispatch cut below AVX2 (``OPENCV_CPU_DISABLE=AVX512-SKX,
+    AVX2``) rounds other pixels, rows of one pixel included, and so may a
+    build for another vector width."""
+    f32, f64 = np.float32, np.float64
+    src = img.astype(f32)
+    h = src[..., 0] * f32(6.0 / 180)
+    s = src[..., 1] * f32(1.0 / 255)
+    v = src[..., 2] * f32(1.0 / 255)
+    h = np.fmod(h, f32(6.0))
+    sector = np.floor(h).astype(np.int64)
+    h = (h - sector.astype(f32)).astype(f32)
+    bad = (sector < 0) | (sector >= 6)
+    sector = np.where(bad, 0, sector)
+    h = np.where(bad, f32(0), h)
+    one = f32(1.0)
+    # 1 - s * x as one multiply-add, rounded once: the product of two
+    # float32 values is exact in float64.
+    fused = lambda x: (1.0 - s.astype(f64) * x.astype(f64)).astype(f32)  # noqa: E731
+    tab = np.stack([v, v * (one - s), v * fused(h), v * fused(one - h)], -1)
+    bgr_f = np.take_along_axis(tab, _SECTORS[sector], -1)
+    bgr_f = np.where((s == 0)[..., None], v[..., None], bgr_f).astype(f32) * f32(255.0)
+    width = img.shape[-2]
+    vector = (np.arange(width) < width // 32 * 32)[:, None]
+    out = np.clip(np.where(vector, np.trunc(bgr_f), np.rint(bgr_f)), 0, 255).astype(np.uint8)
+    return out if bgr else out[..., ::-1].copy()
+
+
+def crop(img, box):
+    """``Image.crop(box)`` of an array: ``box = (x0, y0, x1, y1)``; the part
+    of the window off the image is zeros."""
+    x0, y0, x1, y1 = (int(v) for v in box)
+    out = np.zeros((max(y1 - y0, 0), max(x1 - x0, 0)) + img.shape[2:], img.dtype)
+    h, w = img.shape[:2]
+    sy0, sy1, sx0, sx1 = max(y0, 0), min(y1, h), max(x0, 0), min(x1, w)
+    if sy1 > sy0 and sx1 > sx0:
+        out[sy0 - y0:sy1 - y0, sx0 - x0:sx1 - x0] = img[sy0:sy1, sx0:sx1]
+    return out
+
+
+def paste(dst, src, box):
+    """``Image.paste(src, box, src)`` in place: an RGBA ``src`` blended into
+    a 3- or 4-channel ``dst`` at ``box = (x, y)`` by its alpha,
+    ``(d * (255 - a) + s * a + 128)`` divided by 255 as Pillow's ``DIV255``;
+    every channel of ``dst`` takes the blend (its 4th channel with the
+    source's 4th)."""
+    x, y = int(box[0]), int(box[1])
+    sh, sw = src.shape[:2]
+    h, w = dst.shape[:2]
+    sx0, sy0 = max(-x, 0), max(-y, 0)
+    dx0, dy0 = max(x, 0), max(y, 0)
+    cw, ch = min(sw - sx0, w - dx0), min(sh - sy0, h - dy0)
+    if cw <= 0 or ch <= 0:
+        return dst
+    region = dst[dy0:dy0 + ch, dx0:dx0 + cw]
+    patch = src[sy0:sy0 + ch, sx0:sx0 + cw].astype(np.int64)
+    a = patch[..., 3:]
+    t = region.astype(np.int64) * (255 - a) + patch[..., :region.shape[2]] * a + 128
+    region[...] = ((t >> 8) + t) >> 8
+    return dst

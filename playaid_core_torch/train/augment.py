@@ -8,14 +8,12 @@ crop, plus the RGBA (alpha-aware) variant used on synthetic sprites.  All
 randomness flows through an explicit ``numpy.random.Generator``, in the
 JAX package's order, so the same seed gives the same pixels.
 
-The resizes and PIL's letterbox pad of RGB crops run through ``imgproc``,
-which reproduces OpenCV's ``INTER_AREA`` and ``INTER_LINEAR`` and PIL's
-``ImageOps.pad`` bit for bit.  The ops still on OpenCV or PIL import them
-when called, and raise an ``ImportError`` that names the library on a
-machine without it (the card's): ``cv2.blur`` (:func:`blur`), the HSV
-jitter (:func:`hue_saturation_value`, which :func:`augment_char_crop`
-always runs), ``INTER_NEAREST`` (:func:`downscale`,
-:func:`random_sized_crop`) and PIL's RGBA pad (:func:`augment_synth_char_crop`).
+Every image op runs through ``imgproc``, which reproduces the OpenCV and
+PIL calls of the JAX module bit for bit (``INTER_AREA``, ``INTER_LINEAR``
+and ``INTER_NEAREST`` resizes, ``cv2.blur``, the HSV conversions, and
+``ImageOps.pad`` of RGB crops and of premultiplied RGBA sprites), so the
+augmentation runs at every difficulty on a machine without cv2 or PIL
+(the card's).
 """
 
 from __future__ import annotations
@@ -24,30 +22,6 @@ import numpy as np
 
 from playaid_core_torch import imgproc
 from playaid_core_torch.geometry import aspect_resize
-
-WAITS_ON = "ROADMAP queue 1, what is left of action-model training: the augment ops on cv2"
-
-
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("this augmentation op still runs on cv2, which is not installed "
-                          f"({WAITS_ON})") from e
-    return cv2
-
-
-def _letterbox_pad(img, size, fill):
-    """``ImageOps.pad`` onto black: ``imgproc.pad`` for RGB; PIL itself
-    for RGBA, which it resamples premultiplied."""
-    if img.ndim == 3 and img.shape[2] == 3 and not any(fill):
-        return imgproc.pad(img, (size, size))
-    try:
-        from PIL import Image, ImageOps
-    except ImportError as e:
-        raise ImportError("padding an RGBA sprite needs PIL, which is not installed "
-                          f"({WAITS_ON})") from e
-    return np.array(ImageOps.pad(Image.fromarray(img), (size, size), color=fill))
 
 
 def hflip(img):
@@ -63,17 +37,16 @@ def brightness_contrast(img, rng, brightness_limit=(-0.2, 0.4), contrast_limit=(
 
 def blur(img, rng, limit=(2, 3)):
     k = int(rng.integers(limit[0], limit[1] + 1))
-    return _cv2().blur(img, (k, k))
+    return imgproc.blur(img, (k, k))
 
 
 def hue_saturation_value(img, rng, hue_limit=(-256, 256), sat_limit=(-67, 67),
                          val_limit=(-5, 5)):
-    cv2 = _cv2()
-    hsv = cv2.cvtColor(img, cv2.COLOR_RGB2HSV).astype(np.int32)
+    hsv = imgproc.rgb_to_hsv(img).astype(np.int32)
     hsv[..., 0] = (hsv[..., 0] + int(rng.uniform(*hue_limit))) % 180
     hsv[..., 1] = np.clip(hsv[..., 1] + int(rng.uniform(*sat_limit)), 0, 255)
     hsv[..., 2] = np.clip(hsv[..., 2] + int(rng.uniform(*val_limit)), 0, 255)
-    return cv2.cvtColor(hsv.astype(np.uint8), cv2.COLOR_HSV2RGB)
+    return imgproc.hsv_to_rgb(hsv.astype(np.uint8))
 
 
 def gauss_noise(img, rng, var_limit=(10.0, 200.0)):
@@ -112,8 +85,7 @@ def channel_dropout(img, rng, channel_drop_range=(1, 2), fill_value=0):
 
 
 def _nearest(img, size):
-    cv2 = _cv2()
-    return cv2.resize(img, size, interpolation=cv2.INTER_NEAREST)
+    return imgproc.resize_nearest(img, size)
 
 
 def downscale(img, rng, scale_min=0.7, scale_max=0.9):
@@ -150,7 +122,7 @@ def augment_char_crop(
     rng = rng or np.random.default_rng()
     if output_size:
         char_crop = aspect_resize(char_crop, width=output_size)
-        char_crop = _letterbox_pad(char_crop, output_size, (0, 0, 0))
+        char_crop = imgproc.pad(char_crop, (output_size, output_size))
 
     img = char_crop[..., :3]
 
@@ -197,7 +169,7 @@ def augment_synth_char_crop(
     rng = rng or np.random.default_rng()
     if output_size:
         char_crop = aspect_resize(char_crop, width=output_size)
-        char_crop = _letterbox_pad(char_crop, output_size, (0, 0, 0, 0))
+        char_crop = imgproc.pad(char_crop, (output_size, output_size))
 
     if resize and output_size and rng.random() > 0.6:
         # Shrink the sprite inside the canvas to simulate a loose crop

@@ -40,21 +40,9 @@ import torch
 
 from playaid_core_torch import imgproc
 from playaid_core_torch.device import full_float32, resolve_device
+from playaid_core_torch.imgcodec import read_crop, read_sprite
 from playaid_core_torch.ops.crop_kernel import bank_resize
 from playaid_core_torch.train.dataset import get_character_actions_animations_dict
-
-
-def _read_image(path, unchanged):
-    """``.npy`` as stored; an image file through cv2 (``IMREAD_UNCHANGED``
-    when ``unchanged``, else BGR).  None when cv2 cannot read it."""
-    if path.endswith(".npy"):
-        return np.load(path)
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"reading the image file {path} needs cv2, which is not installed; "
-                          "give the tree as .npy files") from e
-    return cv2.imread(path, cv2.IMREAD_UNCHANGED if unchanged else cv2.IMREAD_COLOR)
 
 
 # ---------------------------------------------------------------------------
@@ -101,12 +89,9 @@ class SpriteBank:
                         for cam, paths in sorted(cams.items()):
                             row_ids = []
                             for p in paths:
-                                img = _read_image(p, unchanged=True)
+                                img = read_sprite(p)
                                 if img is None:
                                     continue
-                                if img.shape[2] == 3:  # cv2.COLOR_BGR2BGRA: opaque
-                                    img = np.concatenate(
-                                        [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], 2)
                                 rows.append(_normalize_sprite(img, sprite_size))
                                 row_ids.append(len(rows) - 1)
                             if not row_ids:
@@ -150,7 +135,7 @@ class StageBank:
         rng = np.random.default_rng(seed)
         out = []
         for p in paths:
-            img = np.ascontiguousarray(_read_image(p, unchanged=False)[..., ::-1])  # BGR -> RGB
+            img = np.ascontiguousarray(read_crop(p)[..., ::-1])  # BGR -> RGB
             h, w = img.shape[:2]
             for _ in range(patches_per_stage):
                 if h <= patch or w <= patch:

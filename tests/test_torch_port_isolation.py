@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of playaid_core_tpu,
 its card-path modules (the log-driven VOD path, the pixels-only path, the
-training path and its mesh, device-side synthesis and detector training) import no cv2,
+training path and its mesh, the sprite drawer and splits, device-side
+synthesis and detector training) import no cv2,
 PIL, yaml or click, the OCR and dashboard modules not matplotlib either
 (the card's machine has none of them), and chip_smoke.py refuses to run
 without a CUDA device.
@@ -80,8 +81,11 @@ print("ok")
 TRAIN_PATH = ("models.losses", "models.cnn_action_detector", "models.rnn_action_detector",
               "models.resnet_transformer", "parallel.staging", "profiling", "timeline",
               "train.augment", "train.dataset", "train.train", "datagen.skeletal_sprites",
-              "train.device_synth", "parallel.mesh", "parallel.dryrun")
+              "train.device_synth", "parallel.mesh", "parallel.dryrun", "draw",
+              "datagen.gen_synth_video_actions")
 
+# The augment ops run without cv2 or PIL; the synth split's JPEG degrade and
+# the video generator's jpg frames name cv2.
 _IMPORT_TRAIN_PATH = f"""
 import importlib, sys
 import numpy as np
@@ -89,21 +93,34 @@ for name in {BANNED + HOST_ONLY!r}:
     sys.modules[name] = None
 for name in {TRAIN_PATH!r}:
     importlib.import_module("playaid_core_torch." + name)
-from playaid_core_torch.train import augment
+from playaid_core_torch.datagen import gen_synth_video_actions
+from playaid_core_torch.train import augment, dataset
 from playaid_core_torch.train.train import Trainer, main
-try:
-    augment.blur(np.zeros((8, 8, 3), np.uint8), np.random.default_rng(0))
-except ImportError as e:
-    assert "cv2" in str(e)
-else:
-    raise AssertionError("cv2.blur ran without cv2")
+rng = np.random.default_rng(0)
+img = rng.integers(0, 256, (40, 30, 3), dtype=np.uint8)
+sprite = rng.integers(0, 256, (50, 30, 4), dtype=np.uint8)
+for level in (1, 2):
+    out = augment.augment_char_crop(img, rng=rng, output_size=32,
+                                    **augment.SYNTH_DIFFICULTY_REAL[level])
+    assert out.shape == (32, 32, 3)
+    out = augment.augment_synth_char_crop(sprite, rng=rng, output_size=32,
+                                          **augment.SYNTH_DIFFICULTY_SPRITE[level])
+    assert out.shape == (32, 32, 4)
+for call in (lambda: dataset.jpeg_degrade(img, 50),
+             lambda: gen_synth_video_actions._write_jpg("f.jpg", img)):
+    try:
+        call()
+    except ImportError as e:
+        assert "cv2" in str(e)
+    else:
+        raise AssertionError("a jpg was encoded without cv2")
 print("ok")
 """
 
 
 # Device-side synthesis on a .npy tree (BGRA sprites, BGR stages), as the
-# card's machine runs it: banks, one composited batch, and the sprite
-# generator's refusal without cv2.
+# card's machine runs it: banks, one composited batch; a sprite drawn and a
+# tree written as .npy without cv2, the PNG writer's refusal.
 _SYNTH_ON_NPY = f"""
 import os, sys, tempfile
 import numpy as np
@@ -126,12 +143,17 @@ ds = DeviceSynthDataset(["Wait", "Jab", "Unknown"], ["Byleth"], os.path.join(roo
                         stage_patch=64, device="cpu")
 frames, chars, labels = next(ds.device_batches(2))
 assert tuple(frames.shape) == (2, 3, 32, 32, 3) and ds.sprites.num_sprites == 6
+sprite = skeletal_sprites.render_sprite("Byleth", "Jab", 0.5, variant_seed=3)
+assert sprite.shape == (176, 176, 4) and sprite[..., 3].any()
+assert skeletal_sprites.generate_sprite_set(os.path.join(root, "drawn"), fighters=["Joker"],
+                                            moves=["Jab"], frames_per_move=1, fmt="npy") == 2
 try:
-    skeletal_sprites.render_sprite("Byleth", "Jab", 0.5)
+    skeletal_sprites.generate_sprite_set(os.path.join(root, "png"), fighters=["Joker"],
+                                         moves=["Jab"], frames_per_move=1, fmt="png")
 except ImportError as e:
     assert "cv2" in str(e)
 else:
-    raise AssertionError("a sprite was drawn without cv2")
+    raise AssertionError("a PNG sprite was written without cv2")
 print("ok")
 """
 
@@ -263,7 +285,9 @@ def test_pixels_path_imports_with_cv2_pil_yaml_click_blocked():
 
 def test_train_path_imports_with_cv2_pil_yaml_click_blocked():
     """The training path on a machine without cv2, PIL, yaml or click: it
-    imports, and the augmentation ops still on cv2 name it."""
+    imports, the augmentation runs at both difficulties, and the JPEG
+    encoders (the synth split's degrade, the video generator's frames)
+    name cv2."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN_PATH], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
@@ -271,8 +295,8 @@ def test_train_path_imports_with_cv2_pil_yaml_click_blocked():
 
 def test_synth_path_runs_on_npy_with_cv2_pil_yaml_click_blocked():
     """Device-side synthesis on a machine without cv2 (the card's): the
-    sprite and stage banks from .npy files, a composited batch, and the
-    sprite generator naming cv2."""
+    sprite and stage banks from .npy files, a composited batch, a sprite
+    drawn and a .npy sprite tree written, and the PNG writer naming cv2."""
     proc = subprocess.run([sys.executable, "-c", _SYNTH_ON_NPY], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -120,7 +120,7 @@ def test_render_sprite_matches_jax(fighter):
 
 def test_generate_sprite_set_is_byte_identical(assets, tmp_path):
     n = sk.generate_sprite_set(str(tmp_path), fighters=FIGHTERS, moves=MOVES,
-                               frames_per_move=4, variant_seeds=(0,))
+                               frames_per_move=4, variant_seeds=(0,), fmt="png")
     clean = assets[0]
     names = sorted(os.path.relpath(os.path.join(d, f), clean)
                    for d, _, files in os.walk(clean) for f in files)

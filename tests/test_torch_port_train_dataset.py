@@ -20,6 +20,7 @@ import pytest
 from playaid_core_tpu.timeline import cache_dataset as jax_cache_dataset
 from playaid_core_tpu.train import augment as jax_augment
 from playaid_core_tpu.train.dataset import UltActionRecogDataset as JaxDataset
+from playaid_core_torch import imgproc
 from playaid_core_torch.timeline import cache_dataset
 from playaid_core_torch.train import augment
 from playaid_core_torch.train.dataset import UltActionRecogDataset, middle_out_sample
@@ -133,14 +134,18 @@ def test_npy_twin_samples_as_the_jpg_tree(gt_tree, npy_tree, difficulty):
                          _port(gt_tree, synth_difficulty=difficulty), b_is_jax=False)
 
 
-def test_npy_tree_needs_no_cv2(npy_tree, monkeypatch):
-    """The card's machine has no cv2: at difficulty 0 the .npy tree reads
-    and resizes without it; augmentation names it."""
+def test_npy_tree_needs_no_cv2(gt_tree, npy_tree, monkeypatch):
+    """The card's machine has no cv2 or PIL: the .npy tree reads, resizes
+    and, at difficulty 1 and 2, augments without them, as the JAX dataset
+    does on the jpg tree."""
+    refs = [next(_jax(gt_tree, synth_difficulty=d).batches(2, 1)) for d in (0, 1, 2)]
     monkeypatch.setitem(sys.modules, "cv2", None)
-    frames, chars, labels = next(_port(npy_tree).batches(2, 1))
-    assert frames.shape == (2, 5, 128, 128, 3)
-    with pytest.raises(ImportError, match="cv2"):
-        _port(npy_tree, synth_difficulty=1)[0]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for difficulty, (ref, _, ref_labels) in enumerate(refs):
+        frames, chars, labels = next(_port(npy_tree, synth_difficulty=difficulty).batches(2, 1))
+        assert frames.shape == (2, 5, 128, 128, 3)
+        np.testing.assert_array_equal(_as_jax(frames), ref)
+        np.testing.assert_array_equal(labels, ref_labels)
 
 
 # ---- tests/test_dataset.py:81-157, ported ----
@@ -191,9 +196,19 @@ def test_batches_iterator(gt_tree):
 
 @pytest.mark.parametrize("split", ["synth", "simple", "manual"])
 def test_sprite_splits_are_not_ported(gt_tree, split):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, what is left of action-model training"):
-        _port(gt_tree, split)
+    """The name is kept from when the port refused these splits; they are
+    ported now, and this checks that without their sprite, stage or
+    annotation assets they raise what the JAX dataset raises
+    (RuntimeError for synth and manual; simple's StopIteration of an
+    empty sprite tree).  tests/test_torch_port_splits.py holds them
+    against JAX on their assets."""
+    ref = _jax(gt_tree, split)
+    with pytest.raises(Exception) as jax_err:
+        ref[0]
+    port = _port(gt_tree, split, stages_dir="/nonexistent", clean_char_dir="/nonexistent")
+    with pytest.raises(type(jax_err.value)) as port_err:
+        port[0]
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def test_middle_out_sample_host():
@@ -253,12 +268,18 @@ def test_augment_ops_match_jax():
 
 
 def test_augment_ops_on_cv2_name_it(monkeypatch):
+    """The name is kept from when these ops ran on cv2 and named it where
+    it was missing; they run through imgproc now, and this checks that
+    with cv2 and PIL blocked they give the JAX ops' pixels, as does the
+    letterbox pad of RGB crops and RGBA sprites."""
+    img = np.random.default_rng(2).integers(0, 256, (16, 16, 3), dtype=np.uint8)
+    rgba = np.random.default_rng(3).integers(0, 256, (8, 4, 4), dtype=np.uint8)
+    ops = (augment.blur, augment.hue_saturation_value, augment.downscale)
+    refs = [getattr(jax_augment, fn.__name__)(img, np.random.default_rng(0)) for fn in ops]
+    pads = [jax_augment._letterbox_pad(x, 16, (0,) * x.shape[2]) for x in (img[:8, :4], rgba)]
     monkeypatch.setitem(sys.modules, "cv2", None)
-    img = np.zeros((16, 16, 3), np.uint8)
-    rng = np.random.default_rng(0)
-    for fn in (augment.blur, augment.hue_saturation_value, augment.downscale):
-        with pytest.raises(ImportError, match="cv2"):
-            fn(img, rng)
-    # What imgproc reproduces needs no cv2: the letterbox pad of RGB crops.
-    assert augment._letterbox_pad(np.full((8, 4, 3), 200, np.uint8), 16, (0, 0, 0)).shape == \
-        (16, 16, 3)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for fn, ref in zip(ops, refs):
+        np.testing.assert_array_equal(fn(img, np.random.default_rng(0)), ref)
+    for x, ref in zip((img[:8, :4], rgba), pads):
+        np.testing.assert_array_equal(imgproc.pad(x, (16, 16)), ref)

@@ -13,13 +13,18 @@ BatchedActionPipeline.load_checkpoint reads.
         [--steps 75] [--batch 16] [--out PATH] [--clean DIR --stages DIR]
         [--device cpu]
 
-Without --clean and --stages it builds the assets under WORKDIR as the JAX
-tool does: skeletal sprites of variants 0-4 for 6 fighters x 48 moves x 16
-frames, and four 540x960 stage textures as jpg; both need cv2.  With them
-it takes an existing clean-char tree and stage directory, whose files may
-be .npy (BGRA sprites, BGR stages), as on a machine without cv2.  Training
-runs in float32 (the port trains in float32 only), where the JAX tool used
-bfloat16.
+Without --clean and --stages it builds the assets under WORKDIR without
+cv2, so on the card's machine too: the JAX tool's skeletal sprites
+(variants 0-4, 6 fighters x 48 moves x 16 frames), drawn by the port's
+generate_sprite_set(fmt="npy") pixel for pixel as cv2 draws them, and its
+four 540x960 stage textures, written as BGR .npy arrays of the same draws.
+Those stages skip the JAX tool's JPEG round trip (it writes them as jpg
+files), so their pixels are the draws themselves, not their decoded jpg.
+So the headline CNN-63 weights can be retrained on the card from the real
+skeletal sprites.  With --clean and --stages it takes an existing
+clean-char tree and stage directory (png/jpg files need cv2; .npy files
+do not).  Training runs in float32 (the port trains in float32 only),
+where the JAX tool used bfloat16.
 
 The JAX tool's fixture self-check (label agreement on bench.py's
 make_sprite_video clip) needs JAX and cv2; it is not here and waits for
@@ -48,10 +53,9 @@ STAGE_SPECS = [
 
 
 def build_assets(workdir):
-    """Sprite sets of the training variants and the stage textures under
-    workdir (made once), as the JAX tool makes them; needs cv2."""
-    import cv2
-
+    """Sprite sets of the training variants (.npy BGRA, drawn in one
+    process a CPU) and the stage textures (.npy BGR) under workdir, made
+    once; no cv2 needed."""
     from playaid_core_torch.datagen import skeletal_sprites as sk
 
     clean = os.path.join(workdir, "clean")
@@ -62,13 +66,14 @@ def build_assets(workdir):
         offsets = {v: (k % 3) / 3.0 for k, v in enumerate(VARIANTS)}
         n = sk.generate_sprite_set(clean, fighters=list(sk.FIGHTER_STYLES),
                                    moves=sk.MOVES + sk.EXTRA_MOVES, frames_per_move=16,
-                                   variant_seeds=VARIANTS, phase_offsets=offsets)
+                                   variant_seeds=VARIANTS, phase_offsets=offsets, fmt="npy")
         print(f"  {n} sprites")
     rng = np.random.default_rng(0)
     for name, draw in STAGE_SPECS:
-        path = os.path.join(stages, f"{name}.jpg")
+        path = os.path.join(stages, f"{name}.npy")
+        stage = draw(rng).astype(np.uint8)  # drawn whether or not it is written
         if not os.path.exists(path):
-            cv2.imwrite(path, draw(rng).astype(np.uint8))
+            np.save(path, stage)
     return clean, stages
 
 
