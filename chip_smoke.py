@@ -176,7 +176,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    residual_block_ref on the input it ran, timed (call, device, plain,
    cuDNN chain, bound); (e) DeviceSynthDataset over the drawn tree, 10
    steps: K1's bank entry 2 launches a step, held against
-   batched_bank_resize.
+   batched_bank_resize;
+16. the annotated-match path: (a) Manuscript.render (graphs and summaries
+   on, the summaries held 3 s each) on phase 8's scripted 480-frame log at
+   1920x1080, its frames from a stand-in for the manuscript module's
+   VideoReader (the log clip's noise and discs) and its output to a
+   stand-in writer that hashes a fixed set of frames: those SHA-256, and
+   those of every chart panel of the final stats, equal the ones
+   tools/torch_port_manuscript_digests.py makes with the JAX package, cv2
+   and PIL on the same frames (playaid_core_torch/assets/
+   manuscript_digests.json); the render's frames/s and StageTimer's stages
+   (decode, state+stats, charts, encode); (b) Manuscript(ai_output_path=)
+   on the ai_output.yaml phase 9's AIRunner wrote, every label opening with
+   the file's action; (c) batched_crop_resize_shared_frame on every 8th
+   frame of the log clip through K1's frames entry (launches counted)
+   against batched_square_crop_resize on the card within 1e-5, and
+   classify_chunked against classify_buffer.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -3605,6 +3620,262 @@ def run_ocr_viz_phase(torch, dev, check, card, k2_wrapper, runner):
             "library_ms": k2["library_ms"], "mesh_device_ms": audit["k2_mesh_device_ms"]}
 
 
+# ---- phase 16: the annotated-match path (Manuscript) ----
+
+MANUSCRIPT_DIGESTS = os.path.join(ROOT, "playaid_core_torch", "assets", "manuscript_digests.json")
+# Output frames whose SHA-256 is held: the render's first frames, the move
+# changes every 40 frames, the log's repaired gap at 200, the last frame,
+# and the first frame of each of the five post-game summary cards (held
+# SUMMARY_FRAMES each).
+SUMMARY_FRAMES = 180
+MS_DIGEST_FRAMES = tuple(sorted(
+    {0, 1, 39, 40, 41, 120, 199, 200, 201, 202, 203, 280, 360, 440, NUM_FRAMES - 1}
+    | {NUM_FRAMES + k * SUMMARY_FRAMES for k in range(5)}
+    | {NUM_FRAMES + 5 * SUMMARY_FRAMES - 1}))
+SHARED_FRAME_STEP = 8   # (c): every 8th frame of the log clip, both fighters' crops
+
+
+def manuscript_reader(boxes):
+    """A stand-in for VideoReader in a manuscript module: the log clip's
+    1080p BGR frames (noise, a disc at each fighter's box), rendered with
+    numpy in order, as phase 8's capture renders them."""
+
+    class ClipReader:
+        fps, width, height, frame_count = 60.0, WIDTH, HEIGHT, len(boxes)
+
+        def __init__(self, path):
+            self.cap = LogClipCapture(boxes)
+
+        def iter_frames(self, start=0, stop=None):
+            self.cap.seek(start)
+            for i in range(start, self.frame_count if stop is None else stop):
+                ok, frame = self.cap.read()
+                if not ok:
+                    return
+                yield i, frame
+
+        def release(self):
+            pass
+
+    return ClipReader
+
+
+class HashingWriter:
+    """A stand-in for the annotator's VideoWriter: counts every frame and
+    keeps the SHA-256 of those at the indices in ``wanted`` (no codec)."""
+
+    last = None
+    wanted = frozenset(MS_DIGEST_FRAMES)
+
+    def __init__(self, path, fps, width, height, codec=None):
+        import hashlib
+
+        self.sha = hashlib.sha256
+        self.size, self.count, self.digests = (width, height), 0, {}
+        HashingWriter.last = self
+
+    def write(self, frame, copy=True):
+        if self.count in self.wanted:
+            self.digests[str(self.count)] = self.sha(
+                np.ascontiguousarray(frame).tobytes()).hexdigest()
+        self.count += 1
+
+    def release(self):
+        pass
+
+
+def chart_panel_digests(charts, fighters, stats, canvas_w):
+    """SHA-256 of every chart panel the annotator draws for these stats: the
+    two history strips, the damage graph and the outcome bars of the side
+    and bottom panels, the onscreen pie, and the five summary cards."""
+    import hashlib
+
+    half = canvas_w // 2
+    out = {}
+    for f in fighters:
+        panels = {
+            "disadvantage_ledge_history": charts.disadvantage_ledge_history(f, stats),
+            "disadvantage_tech_history": charts.disadvantage_tech_history(f, stats),
+            "move_damage_graph": charts.move_damage_graph(f, stats, width=400, height=480)[1],
+            "move_success_punished_missed_bar_graph":
+                charts.move_success_punished_missed_bar_graph(f, stats, height=400,
+                                                              width=half)[1],
+            "move_pie_chart_history": charts.move_pie_chart_history(f, stats, 60)[1],
+        }
+        for fn in (charts.move_success_punished_missed_bar_graph, charts.move_damage_graph,
+                   charts.defensive_option_chart, charts.disadvantage_tech_option_chart,
+                   charts.disadvantage_ledge_option_chart):
+            panels[f"summary_{fn.__name__}"] = fn(f, stats, width=half, height=HEIGHT + 400)[1]
+        for name, img in panels.items():
+            if img is not None:
+                out[f"{f.fighter_id}/{name}"] = hashlib.sha256(
+                    np.ascontiguousarray(img).tobytes()).hexdigest()
+    return out
+
+
+def render_manuscript(ms_module, ann_module, charts, log_path, boxes):
+    """Manuscript.render on the log with graphs and summaries on, frames
+    from manuscript_reader and output to HashingWriter, both put into the
+    given package's modules.  Returns the writer, the Manuscript and the
+    render's seconds."""
+    ms_module.VideoReader = manuscript_reader(boxes)
+    ann_module.VideoWriter = HashingWriter
+    m = ms_module.Manuscript("clips/match.mp4", "build/smoke/manuscript/out.mp4",
+                             ground_truth_path=log_path, include_audio=False,
+                             progress=False, profile=False)
+    t0 = time.perf_counter()
+    m.render()
+    return HashingWriter.last, m, time.perf_counter() - t0
+
+
+def run_manuscript_phase(torch, dev, check, card, runner):
+    """Phase 16: (a) Manuscript.render on phase 8's scripted log at 1080p,
+    digests against the JAX package's; (b) Manuscript(ai_output_path=) on
+    phase 9's ai_output.yaml; (c) batched_crop_resize_shared_frame through
+    K1 and classify_chunked.  Returns K1's shared-frame numbers."""
+    from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.infer.ai_output import read as read_ai_output
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.infer.vod_pipeline import boxes_from_log
+    from playaid_core_torch.ops.crop_kernel import square_crop_resize
+    from playaid_core_torch.ops.preprocess import (
+        batched_crop_resize_shared_frame,
+        batched_square_crop_resize,
+    )
+    from playaid_core_torch.pipeline import manuscript
+    from playaid_core_torch.render import annotator, charts
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "smoke", "manuscript")
+    os.makedirs(work, exist_ok=True)
+    log_path = os.path.join(work, "match_log.txt")
+    write_match_log(log_path, NUM_FRAMES)
+    boxes = boxes_from_log(log_path)
+    with open(MANUSCRIPT_DIGESTS) as f:
+        ref = json.load(f)
+
+    # (a) the log route at 1080p.
+    writer, m, seconds = render_manuscript(manuscript, annotator, charts, log_path, boxes)
+    canvas = (writer.size[1], writer.size[0])
+    frames_ok = writer.digests == ref["frames"]
+    check(frames_ok and writer.count == ref["frame_count"] and list(canvas) == ref["canvas"],
+          f"phase 16 (a): Manuscript.render on the {NUM_FRAMES}-frame log at {WIDTH}x{HEIGHT} "
+          f"(graphs and summaries on): {writer.count} frames of {canvas[1]}x{canvas[0]}, "
+          f"{sum(writer.digests.get(k) == v for k, v in ref['frames'].items())}/"
+          f"{len(ref['frames'])} frame digests equal the JAX package's")
+    panels = chart_panel_digests(charts, m.fighters, m.stats, writer.size[0])
+    check(panels == ref["panels"],
+          f"phase 16 (a): {sum(panels.get(k) == v for k, v in ref['panels'].items())}/"
+          f"{len(ref['panels'])} chart panel digests equal the JAX package's")
+    stages = m.timer.summary()
+    rate = NUM_FRAMES / seconds
+    log(f"phase 16 (a): render {seconds:.2f} s for {NUM_FRAMES} frames + "
+        f"{writer.count - NUM_FRAMES} summary frames = {rate:.1f} frames/s of the match; "
+        f"stages {json.dumps(stages)}; {card}")
+
+    # (b) the AI route on phase 9's ai_output.yaml.
+    if runner is None:
+        check(False, "phase 16 (b): phase 9 left no AIRunner")
+        ai = {}
+    else:
+        tree = read_ai_output(runner.ai_output_file)
+        cap = PixelsClipCapture()
+        clip = [cap.read()[1].copy() for _ in range(PIX_FRAMES)]
+
+        class PixelsReader:
+            fps, width, height, frame_count = 60.0, PIX_W, PIX_H, PIX_FRAMES
+
+            def __init__(self, path):
+                pass
+
+            def iter_frames(self, start=0, stop=None):
+                for i in range(start, PIX_FRAMES if stop is None else stop):
+                    yield i, clip[i]
+
+            def release(self):
+                pass
+
+        labels = []
+        manuscript.VideoReader = PixelsReader
+        annotator.VideoWriter = HashingWriter
+        ms = manuscript.Manuscript("clips/pixels.mp4", os.path.join(work, "ai.mp4"),
+                                   ai_output_path=runner.ai_output_file, skip_summaries=True,
+                                   include_audio=False, progress=False)
+        plain_label = ms.fighter_label
+
+        def recording_label(fighter, i):
+            label = plain_label(fighter, i)
+            labels.append((fighter.fighter_name, i, label))
+            return label
+
+        ms.fighter_label = recording_label
+        t0 = time.perf_counter()
+        ms.render()
+        ai_s = time.perf_counter() - t0
+        n = min(len(tree[name]) for name in tree)
+        # A frame's label opens with the file's action for it ("" for
+        # "Undefined"); a frame the file gives no action keeps the log's.
+        same = [label.split(" | ")[0] == tree[name][i]["action"].replace("Undefined", "")
+                for name, i, label in labels if "action" in tree[name][i]]
+        ai = {"frames": HashingWriter.last.count, "labels": len(labels)}
+        check(HashingWriter.last.count == n and len(labels) == 2 * n and all(same)
+              and len(same) >= 2 * (n - 1),
+              f"phase 16 (b): Manuscript(ai_output_path=phase 9's ai_output.yaml) rendered "
+              f"{HashingWriter.last.count} frames of {n} at {PIX_W}x{PIX_H} in {ai_s:.2f} s "
+              f"({n / ai_s:.1f} frames/s); {sum(same)}/{len(same)} labels carry the file's "
+              f"action")
+
+    # (c) the small APIs: K1 on the shared-frame route, classify_chunked.
+    frames_cpu = LogClipCapture(boxes)
+    picks = list(range(0, NUM_FRAMES, SHARED_FRAME_STEP))
+    frames = []
+    for i in range(NUM_FRAMES):
+        ok, frame = frames_cpu.read()
+        if i in picks:
+            frames.append(torch.from_numpy(frame.copy()).to(dev))
+    boxes_dev = torch.from_numpy(boxes[picks]).to(dev)
+    square_crop_resize.launches = 0
+    outs = [batched_crop_resize_shared_frame(f, b, CROP, PADDING, True) for f, b in
+            zip(frames, boxes_dev)]
+    torch.cuda.synchronize()
+    launches = square_crop_resize.launches
+    with full_float32():
+        err = max(float((o - batched_square_crop_resize(f[None], b[None], CROP, PADDING,
+                                                        True)[0]).abs().max())
+                  for o, f, b in zip(outs, frames, boxes_dev))
+    ms_k1 = time_cuda(torch, lambda _: batched_crop_resize_shared_frame(
+        frames[0], boxes_dev[0], CROP, PADDING, True), 50)
+    plain_ms = time_cuda(torch, lambda _: batched_square_crop_resize(
+        frames[0][None], boxes_dev[0][None], CROP, PADDING, True), 20)
+    k1_bytes = (crop_touched_bytes(boxes[picks[0]], HEIGHT, WIDTH, CROP, PADDING)
+                + 2 * CROP * CROP * 3 * 4 + 2 * 4 * 4)
+    bound_ms = k1_bytes / PEAK_BYTES_PER_S * 1e3
+    check(launches == len(picks) and err <= 1e-5,
+          f"phase 16 (c): batched_crop_resize_shared_frame on {len(picks)} 1080p frames "
+          f"(2 crops each) through K1: {launches} launches, max abs err {err:.3g} against "
+          f"batched_square_crop_resize on the card (limit 1e-5); call {ms_k1:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({k1_bytes / 1e6:.3f} MB)")
+    pipe = BatchedActionPipeline(device=dev).load_state_dicts(
+        from_jax_cnn(load_npz_tree(ASSET)))
+    emb = torch.randn((50, 2, pipe.embed_dim), generator=torch.Generator().manual_seed(3)) * 1.5
+    emb = emb.to(dev)
+    chunks = [emb[s:s + 16].reshape(-1, pipe.embed_dim) for s in range(0, 50, 16)]
+    chunks[-1] = torch.cat([chunks[-1], torch.zeros((2 * 16 - chunks[-1].shape[0],
+                                                     pipe.embed_dim), device=dev)])
+    with full_float32():
+        lab_c, conf_c = pipe.classify_chunked(chunks, 50 % 16)
+        buf = torch.zeros((128, pipe.embed_dim), device=dev)
+        buf[:100] = emb.reshape(100, -1)
+        lab_b, conf_b = pipe.classify_buffer(buf, 50)
+    check(torch.equal(lab_c, lab_b) and torch.allclose(conf_c, conf_b, rtol=1e-4, atol=0),
+          f"phase 16 (c): classify_chunked over {len(chunks)} chunks of 16 frames equals "
+          f"classify_buffer on the card: labels identical, confidences within 1e-4")
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"launches": launches, "max_abs_err": err, "ms": ms_k1, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "render_fps": rate, "stages": stages, "ai_route": ai}
+
+
 def main():
     import torch
 
@@ -4119,6 +4390,11 @@ def main():
     log(f"phase 15 in {time.perf_counter() - t0:.1f} s: "
         f"{json.dumps({k: v for k, v in sprites.items() if k != 'failures'})}; {card}")
 
+    # ---- phase 16: the annotated-match path (Manuscript) ----
+    t0 = time.perf_counter()
+    manuscript_res = run_manuscript_phase(torch, dev, check, card, pixels_runner)
+    log(f"phase 16 in {time.perf_counter() - t0:.1f} s: {json.dumps(manuscript_res)}; {card}")
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -4181,6 +4457,11 @@ def main():
         "k2_bound_ms", "k2_library_ms")})
     kernels[1]["sprites_train_step_launches"] = sprites.get("train_launches", {}).get(
         "residual_block")
+    # Phase 16: K1's frames entry on the shared-frame route (one frame, two
+    # crops a launch); K2 not on the manuscript's path (its input is phase
+    # 9's ai_output.yaml).
+    kernels[0].update({f"shared_frame_{k}": manuscript_res[k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -23,16 +23,31 @@ rewritten step for step so that it draws the same pixels:
 * ``ellipse2Poly`` with OpenCV's ``SinTable`` (the sines of whole degrees
   rounded to 7 places, in float32) and its step of 5-90 degrees by size.
 
-Coordinates off the canvas are clipped as OpenCV clips them.  Only
-``LINE_AA`` and ``shift=0`` arguments are offered; images are uint8 with 3
-or 4 channels, drawn in place.  ``tests/test_torch_port_draw.py`` holds
-every function against cv2 pixel for pixel.
+The charts and the annotator add a few more: ``cv2.line`` with ``LINE_8``
+(``LineIterator``'s 8-connected walk), the default filled ``cv2.rectangle``
+(``LINE_8``), the outlined ``LINE_AA`` rectangle (a closed ``PolyLine``) and
+``cv2.getTextSize`` / ``cv2.putText`` in font 0 with ``LINE_AA``.  OpenCV 5
+draws that font from its built-in outline font, not from Hershey strokes:
+each character is an antialiased coverage mask at a fixed place relative to
+the pen, and the pen moves on by a whole number of pixels.  The masks, for
+the (scale, thickness) pairs the annotator uses, come from
+``assets/cv2_text_atlas.npz`` (``tools/torch_port_cv2_text_atlas.py``
+records them with cv2); each colour channel moves toward the colour by the
+coverage, ``(v * (255 - a) + c * a + 127) // 255``, and on a 4-channel
+image the fourth channel takes the coverage itself.
+
+Coordinates off the canvas are clipped as OpenCV clips them.  Unless named
+otherwise the functions take ``LINE_AA`` and ``shift=0``; images are uint8
+with 3 or 4 channels, drawn in place.  ``tests/test_torch_port_draw.py``
+holds every function against cv2 pixel for pixel.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
+import threading
 
 import numpy as np
 
@@ -488,4 +503,155 @@ def rectangle(img, pt1, pt2, color):
     _check(img)
     (x1, y1), (x2, y2) = (int(pt1[0]), int(pt1[1])), (int(pt2[0]), int(pt2[1]))
     _fill_convex_poly(img, [(x1, y1), (x2, y1), (x2, y2), (x1, y2)], _color(img, color), 0)
+    return img
+
+
+def rectangle_outline(img, pt1, pt2, color, thickness=1):
+    """``cv2.rectangle(img, pt1, pt2, color, thickness, cv2.LINE_AA)`` with
+    ``thickness >= 1``: a closed ``PolyLine``, each side capped at its end."""
+    _check(img)
+    t = int(thickness)
+    if not 0 < t <= 32767:
+        raise ValueError("thickness must be in [1, 32767]")
+    (x1, y1), (x2, y2) = (int(pt1[0]), int(pt1[1])), (int(pt2[0]), int(pt2[1]))
+    pts = [_fixed(p) for p in ((x1, y1), (x2, y1), (x2, y2), (x1, y2))]
+    c = _color(img, color)
+    p0 = pts[-1]
+    for p in pts:
+        _thick_line(img, p0, p, c, t, 2)
+        p0 = p
+    return img
+
+
+# ---------------------------------------------------------------------------
+# LINE_8
+# ---------------------------------------------------------------------------
+
+
+def line8(img, pt1, pt2, color):
+    """``cv2.line(img, pt1, pt2, color)``: thickness 1, ``LINE_8``, the
+    segment clipped to the image and walked left to right by
+    ``LineIterator``'s Bresenham steps."""
+    _check(img)
+    h, w = img.shape[:2]
+    ok, x1, y1, x2, y2 = _clip_line(w, h, int(pt1[0]), int(pt1[1]), int(pt2[0]), int(pt2[1]))
+    if not ok:
+        return img
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, abs(y2 - y1)
+    ystep = 1 if y2 >= y1 else -1
+    steep = dy > dx
+    major, minor = (dy, dx) if steep else (dx, dy)
+    err = major - (minor + minor)
+    x, y = x1, y1
+    c = _color(img, color)
+    for _ in range(major + 1):
+        img[y, x] = c
+        if err < 0:  # a diagonal step
+            err += 2 * major - 2 * minor
+            x, y = x + 1, y + ystep
+        else:
+            err -= 2 * minor
+            if steep:
+                y += ystep
+            else:
+                x += 1
+    return img
+
+
+def rectangle8(img, pt1, pt2, color):
+    """``cv2.rectangle(img, pt1, pt2, color, -1)``: the filled ``LINE_8``
+    rectangle, both corners included."""
+    _check(img)
+    h, w = img.shape[:2]
+    x0, x1 = sorted((int(pt1[0]), int(pt2[0])))
+    y0, y1 = sorted((int(pt1[1]), int(pt2[1])))
+    x0, y0, x1, y1 = max(x0, 0), max(y0, 0), min(x1, w - 1), min(y1, h - 1)
+    if x0 <= x1 and y0 <= y1:
+        img[y0:y1 + 1, x0:x1 + 1] = _color(img, color)
+    return img
+
+
+# ---------------------------------------------------------------------------
+# Text: font 0 (FONT_HERSHEY_SIMPLEX), LINE_AA
+# ---------------------------------------------------------------------------
+
+CV2_TEXT_ATLAS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                              "cv2_text_atlas.npz")
+_cv2_atlas = None
+_cv2_lock = threading.Lock()
+
+
+def _cv2_style(font_face, font_scale, thickness):
+    """The atlas's glyphs for one (scale, thickness): metrics rows
+    (advance, dx, dy, baseline) and masks by character, and the height."""
+    global _cv2_atlas
+    if font_face != 0:
+        raise ValueError("only font 0 (FONT_HERSHEY_SIMPLEX) is drawn")
+    with _cv2_lock:
+        if _cv2_atlas is None:
+            with np.load(CV2_TEXT_ATLAS) as data:
+                _cv2_atlas = {"arrays": {k: data[k] for k in data.files}, "styles": {}}
+        key = f"s{float(font_scale):g}_t{int(thickness)}"
+        style = _cv2_atlas["styles"].get(key)
+        if style is None:
+            arrays = _cv2_atlas["arrays"]
+            if f"{key}/metrics" not in arrays:
+                raise ValueError(f"the cv2 text atlas has no scale {font_scale:g} at thickness "
+                                 f"{thickness}; add it with tools/torch_port_cv2_text_atlas.py")
+            metrics = arrays[f"{key}/metrics"].astype(np.int64).tolist()
+            shapes = arrays[f"{key}/shapes"].astype(np.int64)
+            starts = np.concatenate([[0], np.cumsum(shapes[:, 0] * shapes[:, 1])])
+            flat = arrays[f"{key}/masks"]
+            glyphs = {}
+            for i, row in enumerate(metrics):
+                mask = flat[starts[i]:starts[i + 1]].reshape(shapes[i]).astype(np.int64)
+                glyphs[chr(32 + i)] = (row, mask)
+            style = _cv2_atlas["styles"][key] = (glyphs, int(arrays[f"{key}/height"]))
+    return style
+
+
+def _cv2_glyphs(text, glyphs):
+    try:
+        return [glyphs[ch] for ch in text]
+    except KeyError as e:
+        raise ValueError(f"the cv2 text atlas holds printable ASCII only, not {e.args[0]!r}") \
+            from None
+
+
+def get_text_size(text, font_face, font_scale, thickness):
+    """``cv2.getTextSize(text, font_face, font_scale, thickness)``:
+    ``((width, height), baseline)``."""
+    glyphs, height = _cv2_style(font_face, font_scale, thickness)
+    if not text:
+        return (0, 0), 0
+    rows = [g[0] for g in _cv2_glyphs(text, glyphs)]
+    return (sum(r[0] for r in rows) + 1, height), max(r[3] for r in rows)
+
+
+def put_text(img, text, org, font_face, font_scale, color, thickness=1):
+    """``cv2.putText(img, text, org, font_face, font_scale, color,
+    thickness, cv2.LINE_AA)``."""
+    _check(img)
+    glyphs, _ = _cv2_style(font_face, font_scale, thickness)
+    h, w, ch = img.shape
+    c = np.array((list(color) + [0] * ch)[:ch], np.int64)
+    pen, y = int(org[0]), int(org[1])
+    for (adv, dx, dy, _), mask in _cv2_glyphs(text, glyphs):
+        x0, y0 = pen + dx, y + dy
+        pen += adv
+        gx0, gy0 = max(0, -x0), max(0, -y0)
+        gx1, gy1 = min(mask.shape[1], w - x0), min(mask.shape[0], h - y0)
+        if gx1 <= gx0 or gy1 <= gy0:
+            continue
+        a = mask[gy0:gy1, gx0:gx1]
+        region = img[y0 + gy0:y0 + gy1, x0 + gx0:x0 + gx1]
+        v = region.astype(np.int64)
+        on = a > 0
+        blended = (v[..., :3] * (255 - a[..., None]) + c[:3] * a[..., None] + 127) // 255
+        v[..., :3] = np.where(on[..., None], blended, v[..., :3])
+        if ch == 4:
+            v[..., 3] = np.where(on, a, v[..., 3])
+        region[:] = v
     return img

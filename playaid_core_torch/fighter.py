@@ -17,16 +17,18 @@ the derived per-frame signals):
 * camera projection can be precomputed in batch for a whole timeline
   (see :mod:`playaid_core_torch.timeline`) and injected via ``_pixel_crop``.
 
-The port's own copy of the part of ``playaid_core_tpu/fighter.py`` that
-``update_fighters_from_timeline`` uses on ground-truth records.  The
+The port's own copy of ``playaid_core_tpu/fighter.py``: ground-truth and
 AI-predicted records (``crop``/``action`` fields), interpolation and the
-stats properties wait for the manuscript and AIRunner work.
+stats properties the manuscript reads (``anim_state``, ``status``,
+``using_damage_move``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from playaid_core_torch.constants import CHAR_LIST
+from playaid_core_torch.frame_data import FIGHTER_FRAME_DATA
 from playaid_core_torch.geometry import (
     YoloCrop,
     calculate_intrinsic_matrix,
@@ -35,9 +37,11 @@ from playaid_core_torch.geometry import (
 )
 from playaid_core_torch.ontology import (
     FIGHTER_ENUM_TO_NAME,
+    FIGHTER_STATUS_ENUM_TO_STRING,
     HEX_TO_ACTION,
     ONTOLOGY,
     STAGE_ENUM_TO_DATA,
+    STATUS_ENUM_TO_STRING,
     get_anim_for_string_and_status_kind,
 )
 
@@ -49,13 +53,30 @@ BBOX_WORLD_OFFSETS = np.array(
 
 
 class Fighter:
-    def __init__(self, frame_num: int, data):
-        """@param data: dict with one ground-truth log record."""
+    def __init__(
+        self,
+        frame_num: int,
+        fighter_name: str = "",
+        char_class_id: int = -1,
+        crop=None,
+        crop_confidence: float = -1.0,
+        yolo_string: str = "",
+        action: str = "",
+        action_confidence: float = 0.0,
+        advantage_state: str = "",
+        fighter_id: int = -1,
+        data=None,
+    ):
+        """@param data: dict with one ground-truth (or AI-predicted) log record."""
         self.frame_num = frame_num
-        self.fighter_name = ""
-        self.fighter_id = -1
-        self.crop = None
-        self.action = ""
+        self.char_class_id = char_class_id
+        self.fighter_name = fighter_name
+        self.fighter_id = fighter_id
+        self.crop = crop
+        self.crop_confidence = crop_confidence
+        self.action = action
+        self.action_confidence = action_confidence
+        self.advantage_state = advantage_state
         self.damage = 0.0
         self.previous_damage = 0.0
         self.damage_delta = 0.0
@@ -98,7 +119,7 @@ class Fighter:
         # reference: fighter.py:557-585).
         self.previous_position_in_world = list(self.position_in_world)
         self.previous_facing = self.facing
-        self.previous_fighter_id = self.fighter_id
+        self.previous_fighter_id = fighter_id
         self.previous_motion_kind = self.motion_kind
         self.previous_num_frames_left = self.num_frames_left
         self.previous_pos_x = self.pos_x
@@ -106,15 +127,28 @@ class Fighter:
         self.previous_shield_size = self.shield_size
         self.previous_status_kind = self.status_kind
         self.previous_stock_count = self.stock_count
-        self.previous_fighter_name = self.fighter_name
-        self.previous_crop = self.crop
+        self.previous_fighter_name = fighter_name
+        self.previous_crop = crop
         self.previous_motion_hex = self.motion_hex
         self.previous_action_string = self.action_string
 
-        self.set_from_record(data)
+        if yolo_string:
+            class_id, x, y, crop_width, crop_height, conf = yolo_string.split(" ")
+            self.char_class_id = int(class_id)
+            self.fighter_name = CHAR_LIST[self.char_class_id]
+            self.crop = YoloCrop(float(x), float(y), float(crop_width), float(crop_height))
+            self.crop_confidence = float(conf)
+
+        if data:
+            self.set_from_record(data)
 
         assert self.crop, "No crop specified"
         assert self.fighter_name, "No fighter_name specified"
+
+    # The reference named this set_from_json (reference: fighter.py:458);
+    # keep an alias for drop-in compatibility.
+    def set_from_json(self, data):
+        return self.set_from_record(data)
 
     def set_from_record(self, data):
         """Ingest one log record (reference: fighter.py:458-555)."""
@@ -146,7 +180,10 @@ class Fighter:
         camera_fov = STAGE_ENUM_TO_DATA[self.stage_id]["fov"]
 
         precomputed = data.get("_pixel_crop")
-        if precomputed is not None:
+        if "crop" in data:
+            # Only present in AI-predicted data.
+            self.crop = YoloCrop.from_string(data["crop"])
+        elif precomputed is not None:
             # Batched camera projection already ran over the whole timeline.
             self.point_in_pixel = data["_point_in_pixel"]
             self.crop = YoloCrop.from_pixel_coordinates(1280, 720, *precomputed)
@@ -186,6 +223,10 @@ class Fighter:
         self.motion_hex = f"{self.motion_kind:#012x}"
         self.action_string = HEX_TO_ACTION.get(self.motion_hex, "")
         self.action = get_anim_for_string_and_status_kind(self.action_string, self.status_kind)
+
+        if "action" in data:
+            # Only present in AI-predicted data.
+            self.action = data["action"]
 
         self.hitstun_left = data.get("hitstun_left", 0)
 
@@ -236,9 +277,78 @@ class Fighter:
             self.last_frame_in_ledge_situation = frame_number
 
     @property
+    def time_remaining(self) -> str:
+        total_seconds = self.num_frames_left / 60
+        minutes, seconds = divmod(total_seconds, 60)
+        seconds, milliseconds = divmod(seconds, 1)
+        milliseconds = round(milliseconds * 100)
+        return f"{int(minutes)}:{int(seconds):02d}.{milliseconds:02d}"
+
+    def offset(self, other_fighter):
+        return (self.pos_x - other_fighter.pos_x, self.pos_y - other_fighter.pos_y)
+
+    def offset_str(self, other_fighter) -> str:
+        off = self.offset(other_fighter)
+        return f"{off[0]:.2f}x, {off[1]:.2f}y"
+
+    @property
+    def anim_state(self) -> str:
+        """"startup" / "active" / "end lag" classification from the
+        frame-data DB (reference: fighter.py:636-660)."""
+        if self.fighter_name not in FIGHTER_FRAME_DATA:
+            return ""
+        if self.action not in FIGHTER_FRAME_DATA[self.fighter_name]:
+            return ""
+        move_frame_data = FIGHTER_FRAME_DATA[self.fighter_name][self.action]
+        if not move_frame_data.startup or not move_frame_data.active_start:
+            return ""
+        if self.animation_frame_num < move_frame_data.startup:
+            return "startup"
+        if move_frame_data.active_start <= self.animation_frame_num <= move_frame_data.active_end:
+            return "active"
+        return "end lag"
+
+    @property
+    def status(self) -> str:
+        if self.status_kind < 0:
+            return "Undefined"
+        if self.status_kind in STATUS_ENUM_TO_STRING:
+            return STATUS_ENUM_TO_STRING[self.status_kind].replace("FIGHTER_STATUS_KIND_", "")
+        if (
+            self.fighter_name in FIGHTER_STATUS_ENUM_TO_STRING
+            and self.status_kind in FIGHTER_STATUS_ENUM_TO_STRING[self.fighter_name]
+        ):
+            return FIGHTER_STATUS_ENUM_TO_STRING[self.fighter_name][self.status_kind]
+        return f"Undefined ({self.status_kind})"
+
+    @property
     def in_tech_situation(self) -> bool:
         return ONTOLOGY["all"].get(self.action, {}).get("option_group", "") == "tech"
 
     @property
     def in_ledge_situation(self) -> bool:
         return ONTOLOGY["all"].get(self.action, {}).get("option_group", "") == "ledge"
+
+    @property
+    def using_damage_move(self):
+        move_data = FIGHTER_FRAME_DATA[self.fighter_name][self.action]
+        return move_data.base_damage and move_data.base_damage > 0
+
+    def interp(self, b, percent, frame_num):
+        crop_confidence = self.crop_confidence + percent * (
+            b.crop_confidence - self.crop_confidence
+        )
+        crop = self.crop.interp(b.crop, percent)
+        return Fighter(
+            frame_num,
+            fighter_name=self.fighter_name,
+            char_class_id=self.char_class_id,
+            crop=crop,
+            crop_confidence=crop_confidence,
+        )
+
+    def __str__(self):
+        return (
+            f"<{self.fighter_name}@{self.action} | {self.advantage_state} | "
+            f"{self.crop_confidence:.2f}%  {self.crop.center_x:.2f}x{self.crop.center_y:.2f}y />"
+        )

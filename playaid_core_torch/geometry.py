@@ -3,7 +3,8 @@
 The port's own copy of the projection functions and the ``YoloCrop`` box
 of ``playaid_core_tpu/geometry.py``, as far as :mod:`playaid_core_torch.fighter`,
 :mod:`playaid_core_torch.timeline` and the pixels-only path (label lines,
-interpolation, square crops, :func:`aspect_resize`) use them.  The image
+interpolation, square crops, :func:`aspect_resize`) and the manuscript
+(``center_pixels``, ``square_yolo_crop``) use them.  The image
 helpers compute the JAX package's pixels without PIL or cv2, through
 :mod:`playaid_core_torch.imgproc`.  Rebuild of the
 reference's YoloCrop bbox type and pinhole camera model (reference:
@@ -24,6 +25,16 @@ from __future__ import annotations
 import numpy as np
 
 from playaid_core_torch import imgproc
+
+
+def normalize_yolo_pixel(yolo_bbox, image_width, image_height):
+    center_x, center_y, crop_width, crop_height = yolo_bbox
+    return (
+        center_x / image_width,
+        center_y / image_height,
+        crop_width / image_width,
+        crop_height / image_height,
+    )
 
 
 def calculate_focal_length(fov, image_width):
@@ -163,6 +174,15 @@ class YoloCrop:
         )
 
     @classmethod
+    def from_pixel_yolo(cls, image_width, image_height, center_x, center_y, width, height):
+        return cls(
+            center_x / image_width,
+            center_y / image_height,
+            width / image_width,
+            height / image_height,
+        )
+
+    @classmethod
     def from_string(cls, yolo_string):
         """A YOLOv5 label line ``class cx cy w h confidence``."""
         class_id, center_x, center_y, width, height, confidence = yolo_string.split(" ")
@@ -190,6 +210,17 @@ class YoloCrop:
     def yolo_crop(self):
         return (self.center_x, self.center_y, self.crop_width, self.crop_height)
 
+    def square_yolo_crop_pixels(self, input_frame):
+        height, width, _ = input_frame.shape
+        center_x, center_y = self.center_pixels(width, height)
+        crop_length = max(self.crop_width * width, self.crop_height * height)
+        return (center_x, center_y, crop_length)
+
+    def square_yolo_crop(self, input_frame):
+        height, width, _ = input_frame.shape
+        _, _, len_in_pixels = self.square_yolo_crop_pixels(input_frame)
+        return (self.center_x, self.center_y, len_in_pixels / width, len_in_pixels / height)
+
     def xyxy_norm(self):
         return (
             self.center_x - self.crop_width / 2,
@@ -214,6 +245,9 @@ class YoloCrop:
             int(self.crop_width * image_width),
             int(self.crop_height * image_height),
         )
+
+    def center_pixels(self, image_width, image_height):
+        return (int(self.center_x * image_width), int(self.center_y * image_height))
 
     def crop_img(self, image):
         (x1, y1, x2, y2) = self.xyxy_pixels(image.shape[1], image.shape[0])

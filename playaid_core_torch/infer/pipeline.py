@@ -472,6 +472,18 @@ class BatchedActionPipeline:
         return labels[:true_len], conf[:true_len]
 
     @torch.inference_mode()
+    def classify_chunked(self, emb_chunks, n_last, min_frame=0):
+        """Embedding chunks ``[2 * C, D]`` (two fighters interleaved a
+        frame), the last holding ``n_last`` frames -> (labels ``[F, 2]``,
+        confidence ``[F, 2]``): the chunk-list form of
+        :meth:`classify_buffer`, as the JAX pipeline keeps it for small batch
+        counts (its ``variables`` live in this pipeline's modules)."""
+        parts = list(emb_chunks[:-1]) + [emb_chunks[-1][: n_last * 2]]
+        emb_all = torch.cat(parts, dim=0)
+        f = emb_all.shape[0] // 2
+        return self._two_fighter_tail(emb_all.reshape(f, 2, -1).float(), f, min_frame)
+
+    @torch.inference_mode()
     def classify_sequence(self, embeddings, min_frame=0, smooth_radius=0,
                           decode="argmax", switch_cost=4.0, return_raw=False):
         """One fighter's embeddings ``[F, D]`` -> (labels ``[F]``,

@@ -11,7 +11,9 @@ the frame count as zero, which gives the black letterbox.
 :func:`batched_bank_resize` write the resample as two products with dense
 weight matrices per crop, exactly as the JAX functions do (``_crop_one``:
 rows first, then columns).  They are the plain versions of the CUDA
-kernel's three entries in ``ops/crop_kernel.py``.
+kernel's three entries in ``ops/crop_kernel.py``;
+:func:`batched_crop_resize_shared_frame` routes a CUDA frame through the
+kernel's frames entry.
 """
 
 from __future__ import annotations
@@ -76,6 +78,28 @@ def batched_square_crop_resize(frames, boxes, out_size=128, padding=0,
     if normalize:
         out = out / 255.0
     return out[:, 0] if one_per_frame else out
+
+
+def batched_crop_resize_shared_frame(frame, boxes, out_size=128, padding=0, bgr_to_rgb=False,
+                                     normalize=True):
+    """Several crops out of one frame (the two fighters of a frame).
+
+    frame ``[H, W, 3]`` uint8, boxes ``[M, 4]`` -> float32 ``[M, S, S, 3]``.
+    On a CUDA frame this is K1's frames entry with the frame as a batch of
+    one holding M crops (``ops.crop_kernel.square_crop_resize``, which
+    counts the launch); on a CPU frame it is the plain resample of
+    :func:`batched_square_crop_resize`.
+    """
+    if frame.dim() != 3 or boxes.dim() != 2:
+        raise ValueError(f"frame must be [H, W, 3] and boxes [M, 4], got {tuple(frame.shape)} "
+                         f"and {tuple(boxes.shape)}")
+    if frame.device.type == "cpu":
+        return batched_square_crop_resize(frame[None], boxes[None], out_size, padding,
+                                          bgr_to_rgb, normalize)[0]
+    from playaid_core_torch.ops.crop_kernel import square_crop_resize
+
+    return square_crop_resize(frame[None], boxes[None], out_size, padding, bgr_to_rgb,
+                              normalize)[0]
 
 
 def batched_window_resize(windows, y0, x0, side, out_size=128, normalize=True):

@@ -1,8 +1,7 @@
 """Timeline ingest: ult_logger log parsing, gap repair, batched projection.
 
-The port's own copy of the parts of ``playaid_core_tpu/timeline.py`` that
-``infer/vod_pipeline.py::boxes_from_log`` needs (reference:
-timeline.py:186-280):
+The port's own copy of ``playaid_core_tpu/timeline.py`` (reference:
+timeline.py:1-322):
 
 * ``load_ground_truth_from_path`` — one JSON line per fighter per frame
   (2 lines/frame), grouped per frame, with gap repair: if
@@ -13,7 +12,12 @@ timeline.py:186-280):
   projects every fighter's bbox for the whole timeline at once and stores
   the result in each record under ``_pixel_crop`` for
   :class:`playaid_core_torch.fighter.Fighter` to consume.
-* ``update_fighters_from_timeline``.
+* ``update_fighters_from_timeline``, the streaming generators
+  ``yield_fighters_and_stats`` / ``yield_interval_fighters_and_stats``, the
+  pairings CSV and ``GTVideo`` (frames through the port's ``VideoReader``).
+* ``load_timeline_from_ai_output`` — log-like records from the
+  ``ai_output.yaml`` that the port's ``AIRunner`` writes, read by
+  :mod:`playaid_core_torch.infer.ai_output` without a YAML package.
 * ``cache_dataset`` — the index of a ``gt_action_detection`` tree that the
   training dataset samples from (its ``*.jpg`` crops, and the port's
   lossless ``*.npy`` crops).
@@ -23,6 +27,7 @@ Nothing here imports yaml or cv2, so it runs where neither is installed.
 
 from __future__ import annotations
 
+import csv
 import glob
 import json
 import os
@@ -35,7 +40,9 @@ from playaid_core_torch.geometry import (
     lookat_matrices_batch,
     project_points_batch,
 )
-from playaid_core_torch.ontology import STAGE_ENUM_TO_DATA
+from playaid_core_torch.infer import ai_output as ai_output_file
+from playaid_core_torch.ontology import FIGHTER_NAME_TO_ENUM, STAGE_ENUM_TO_DATA
+from playaid_core_torch.video.reader import VideoReader
 
 PARSERS = ("auto", "native", "python")
 
@@ -125,13 +132,14 @@ def precompute_timeline_projection(timeline, image_width=1280, image_height=720)
 
     Stamps each record with ``_pixel_crop`` (8 bbox-corner pixel coords in
     the order top_left, top_right, bottom_left, bottom_right, flattened) and
-    ``_point_in_pixel``.  Deduplicates repeated record objects (gap repair
-    reuses the same dicts).  Returns the timeline for chaining.
+    ``_point_in_pixel``.  Records that already carry an AI ``crop`` are left
+    untouched.  Deduplicates repeated record objects (gap repair reuses the
+    same dicts).  Returns the timeline for chaining.
     """
     records, seen = [], set()
     for frame in timeline:
         for rec in frame:
-            if id(rec) in seen:
+            if id(rec) in seen or "crop" in rec:
                 continue
             seen.add(id(rec))
             records.append(rec)
@@ -199,6 +207,102 @@ def update_fighters_from_timeline(frame_number: int, ground_truth, fighters):
     return fighters
 
 
+def yield_fighters_and_stats(stats, video_path: str, label_path: str, log_offset=0):
+    """Streaming (fighters, stats, frame) generator (reference: timeline.py:19-29)."""
+    timeline = load_ground_truth_from_path(label_path, log_offset=log_offset)
+    precompute_timeline_projection(timeline)
+    fighters = [Fighter(frame_num=0, data=json_data) for json_data in timeline[0]]
+    for i in range(len(timeline)):
+        fighters = update_fighters_from_timeline(i, timeline[i], fighters)
+        stats.record_frame(fighters)
+        yield (fighters, stats, i)
+
+
+def yield_interval_fighters_and_stats(stats, interval: int, video_path, label_path, log_offset=0):
+    """Interval-sampled variant (reference: timeline.py:32-49)."""
+    for fighters, stats, i in yield_fighters_and_stats(stats, video_path, label_path, log_offset):
+        if i % interval != 0 or i == 0:
+            continue
+        yield (fighters, stats, i)
+
+
+def load_timeline_from_ai_output(
+    file_path,
+    max_frames: int | None = None,
+    fighter_to_player_id=None,
+):
+    """Synthesise log-like records from an ``ai_output.yaml`` cache, read
+    without a YAML package by :func:`playaid_core_torch.infer.ai_output.read`
+    (reference: timeline.py:52-105).  The reference hardcoded
+    Joker/Pikachu and 600 frames; here the fighters and frame count are
+    inferred from the cache when not given.
+    """
+    ai_output = ai_output_file.read(file_path)
+
+    if fighter_to_player_id is None:
+        names = sorted(ai_output.keys())[:2]
+        if set(names) == {"Joker", "Pikachu"}:
+            fighter_to_player_id = {"Pikachu": 0, "Joker": 1}
+        else:
+            fighter_to_player_id = {name: i for i, name in enumerate(names)}
+    fighters = sorted(fighter_to_player_id, key=fighter_to_player_id.get, reverse=True)
+    if max_frames is None:
+        max_frames = min(len(ai_output[f]) for f in fighters)
+
+    timeline = []
+    for i in range(max_frames):
+        frame_data = []
+        for fighter in fighters:
+            fighter_data = ai_output[fighter][i]
+            base = {
+                "raw_animation_frame_num": 0,
+                "attack_connected": False,
+                "camera_fov": 30.0,
+                "camera_position": {
+                    "x": 0.0002484553260728717,
+                    "y": 15.847139358520508,
+                    "z": 148.460693359375,
+                },
+                "camera_target_position": {
+                    "x": 0.0002776149194687605,
+                    "y": 11.162917137145996,
+                    "z": 0.0,
+                },
+                "can_act": True,
+                "damage": 0.0,
+                "facing": 1.0,
+                "fighter_id": fighter_to_player_id[fighter],
+                "fighter_name": FIGHTER_NAME_TO_ENUM[fighter],
+                "hitstun_left": 0.0,
+                "motion_kind": 19292652517,
+                "num_frames_left": 54000,
+                "pos_x": -50.0,
+                "pos_y": 0.21623137593269348,
+                "shield_size": 50.0,
+                "stage_id": 86,
+                "status_kind": 0,
+                "stock_count": 20,
+            }
+            base.update(fighter_data)
+            frame_data.append(base)
+        timeline.append(frame_data)
+    return timeline
+
+
+def load_ground_truth_pairings_from_file(file_path):
+    """Parse a (dir, video, log, offset) pairings CSV with '#'-comment rows
+    (reference: timeline.py:166-183)."""
+    pairings = []
+    with open(file_path, "r") as f:
+        reader = csv.reader(f)
+        next(reader)  # skip the header
+        for row in reader:
+            if any(cell.startswith("#") for cell in row):
+                continue
+            pairings.append((row[0], row[1], row[2], int(row[3])))
+    return pairings
+
+
 def cache_dataset(root_dir, char_subset=()):
     """Index a gt_action_detection tree
     ``<root>/<video>/<id>_<fighter>/{images,labels}`` (reference:
@@ -250,3 +354,47 @@ def cache_dataset(root_dir, char_subset=()):
             del video_to_sample[video_name]
 
     return video_to_sample, move_to_frames
+
+
+class GTVideo:
+    """Random access over a (video, log) pair (reference: timeline.py:283-322),
+    reading frames through the port's ``VideoReader``."""
+
+    def __init__(self, video_path, label_path):
+        self.video_path = video_path
+        self.label_path = label_path
+        self.fps = None
+        self.ground_truth = []
+
+    def get_fps(self):
+        if self.fps is None:
+            video = VideoReader(self.video_path)
+            self.fps = video.fps
+            video.release()
+        return self.fps
+
+    def get_frame(self, frame_number):
+        video = VideoReader(self.video_path)
+        ret, frame = video.read_at(frame_number)
+        video.release()
+        return frame
+
+    def get_frames(self, start_frame, num_frames):
+        return [self.get_frame(i) for i in range(start_frame, start_frame + num_frames)]
+
+    def load_ground_truth(self):
+        self.ground_truth = load_ground_truth_from_path(self.label_path)
+
+    def get_ground_truth(self, start_frame, num_frames):
+        """``num_frames`` is a count, matching get_frames (the reference
+        treated it as an exclusive end frame here, returning mismatched
+        windows for any start_frame > 0 — reference: timeline.py:313-317)."""
+        if not self.ground_truth:
+            self.load_ground_truth()
+        return [self.ground_truth[i] for i in range(start_frame, start_frame + num_frames)]
+
+    def get_frames_and_labels(self, start_frame, num_frames):
+        return (
+            self.get_frames(start_frame, num_frames),
+            self.get_ground_truth(start_frame, num_frames),
+        )

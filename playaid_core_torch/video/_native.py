@@ -1,11 +1,12 @@
 """Build and load the repository's native libraries.
 
-``native/<name>.cpp`` (the libavcodec decoder and encoder, and the
-ult_logger log parser, which the JAX package also builds) is compiled in
+``native/<name>.cpp`` (the libavcodec decoder and encoder, the
+libavformat audio remuxer, and the ult_logger log parser, which the JAX
+package also builds) is compiled in
 place by ``g++`` into ``build/native/lib<name>.so`` at the root of the
 checkout at its first use, and again whenever the source is newer than
-the library.  Each source links only the libraries it needs: the decoder
-and encoder link FFmpeg's, the log parser none.  A failed build raises
+the library.  Each source links only the libraries it needs: the decoder,
+encoder and remuxer link FFmpeg's, the log parser none.  A failed build raises
 with ``g++``'s error output: the port has no silent fallback.
 """
 
@@ -21,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[2]
 NATIVE_SRC = ROOT / "native"
 BUILD_DIR = ROOT / "build" / "native"
 FFMPEG_LINK = ["-lavformat", "-lavcodec", "-lavutil", "-lswscale"]
-LINK = {"video_decoder": FFMPEG_LINK, "video_encoder": FFMPEG_LINK, "log_parser": []}
+LINK = {"video_decoder": FFMPEG_LINK, "video_encoder": FFMPEG_LINK,
+        "audio_remux": ["-lavformat", "-lavcodec", "-lavutil"], "log_parser": []}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

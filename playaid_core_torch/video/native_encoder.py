@@ -4,7 +4,9 @@ The port's copy of ``playaid_core_tpu/video/native_encoder.py``.  It wraps
 ``native/video_encoder.cpp`` (built by :mod:`._native` into
 ``build/native/``) and writes BGR24 or RGBA frames to an MP4 with any
 encoder that libavcodec has (libx264, or mpeg4, which every FFmpeg build
-carries).  The port uses it to write test clips where cv2 is absent.
+carries).  The port writes the annotated video through it
+(``video/writer.py``), and test clips where cv2 is absent; ``transcode``
+re-encodes a file.
 """
 
 from __future__ import annotations
@@ -100,3 +102,23 @@ class NativeVideoWriter:
     def __exit__(self, *exc):
         self.release()
         return False
+
+
+def transcode(src, dst, codec="libx264", preset="veryfast", crf=23, threads=0, max_frames=None):
+    """Re-encode a video file with the native encoder (h264 bench fixtures
+    from mp4v sources).  Frames are read through the port's ``VideoReader``
+    (its capture seam, ``BoundedSegmentDecoder.open_capture``)."""
+    from playaid_core_torch.video.reader import VideoReader
+
+    reader = VideoReader(src)
+    writer = NativeVideoWriter(dst, reader.fps or 60.0, (reader.width, reader.height),
+                               codec=codec, preset=preset, crf=crf, threads=threads)
+    n = 0
+    try:
+        for _, frame in reader.iter_frames(0, max_frames):
+            writer.write(frame)
+            n += 1
+    finally:
+        reader.release()
+        writer.release()
+    return n

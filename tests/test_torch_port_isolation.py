@@ -2,7 +2,8 @@
 its card-path modules (the log-driven VOD path, the pixels-only path, the
 training path and its mesh, the sprite drawer and splits, device-side
 synthesis and detector training) import no cv2,
-PIL, yaml or click, the OCR and dashboard modules not matplotlib either
+PIL, yaml or click, the OCR, dashboard and annotated-match modules not
+matplotlib either (nor tqdm)
 (the card's machine has none of them), and chip_smoke.py refuses to run
 without a CUDA device.
 
@@ -247,6 +248,80 @@ print("ok")
 """
 
 
+# The annotated-match path: the modules import with every host package
+# blocked; a render with graphs and summaries runs from in-memory frames;
+# stats snapshots, the post-game report's PNGs and the charts need none of
+# them; the mpl backend names matplotlib and the inspection report's JPEG
+# names cv2.
+MANUSCRIPT_PATH = ("time_utils", "geometry", "fighter", "timeline", "stats", "draw", "text",
+                   "render.compositing", "render.fastcharts", "render.charts",
+                   "render.annotator", "video.native_remux", "video.writer",
+                   "video.native_encoder", "video.reader", "pipeline.manuscript",
+                   "pipeline.multi", "viz.postgame_report", "viz.manuscript_vis",
+                   "ops.preprocess")
+
+_MANUSCRIPT_WITHOUT_HOST_PACKAGES = f"""
+import importlib, os, sys, tempfile
+import numpy as np
+for name in {BANNED + HOST_ONLY + ("matplotlib", "tqdm")!r}:
+    sys.modules[name] = None
+for name in {MANUSCRIPT_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch import stats
+from playaid_core_torch.pipeline import manuscript
+from playaid_core_torch.render import annotator, charts
+from playaid_core_torch.viz import manuscript_vis, postgame_report
+import chip_smoke
+root = tempfile.mkdtemp()
+log = os.path.join(root, "log.txt")
+chip_smoke.write_match_log(log, 30)
+frames = [np.full((180, 320, 3), i, np.uint8) for i in range(30)]
+
+class Reader:
+    fps, width, height, frame_count = 60.0, 320, 180, 30
+    def __init__(self, path):
+        pass
+    def iter_frames(self, start=0, stop=None):
+        for i in range(start, stop or 30):
+            yield i, frames[i]
+    def release(self):
+        pass
+
+class Writer:
+    count = 0
+    def __init__(self, path, fps, width, height, codec=None):
+        assert (width, height) == (1120, 580)
+    def write(self, frame, copy=True):
+        Writer.count += 1
+    def release(self):
+        pass
+
+manuscript.VideoReader = Reader
+annotator.VideoWriter = Writer
+annotator.Annotator.write_num_seconds = lambda self, n: self.write()
+m = manuscript.Manuscript("v.mp4", os.path.join(root, "o.mp4"), ground_truth_path=log,
+                          show_timer=True, include_audio=False, progress=False)
+m.render()
+assert Writer.count == 30 + 5
+st = stats.Stats("v.mp4")
+st.output_dir = os.path.join(root, "stats")
+from playaid_core_torch.timeline import load_ground_truth_from_path
+st.write_all_stats(load_ground_truth_from_path(log), [], interval=10)
+assert st.load_stats(20) and st.stats.history
+postgame_report.write_postgame_report(log, os.path.join(root, "r.html"))
+for call, package in ((lambda: charts.set_chart_backend("mpl") or charts._move_pie_chart(1, 1, 1, 60),
+                       "matplotlib"),
+                      (lambda: manuscript_vis._jpeg_b64(frames[0]), "cv2")):
+    try:
+        call()
+    except ImportError as e:
+        assert package in str(e), e
+    else:
+        raise AssertionError(package + " was not asked for")
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -264,7 +339,7 @@ def test_port_imports_with_jax_blocked():
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
                  "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH,
-                 *DETECTOR_TRAIN_PATH, *OCR_VIZ_PATH):
+                 *DETECTOR_TRAIN_PATH, *OCR_VIZ_PATH, *MANUSCRIPT_PATH):
         assert f"playaid_core_torch.{name}" in imported
 
 
@@ -319,6 +394,17 @@ def test_ocr_and_viz_run_with_cv2_pil_yaml_click_matplotlib_blocked():
     proc = subprocess.run([sys.executable, "-c", _OCR_VIZ_WITHOUT_HOST_PACKAGES], cwd=ROOT,
                           env=_env(), capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_manuscript_path_runs_with_host_packages_blocked():
+    """The annotated-match path on a machine without cv2, PIL, matplotlib,
+    yaml, click, tqdm or JAX (the card's): every module imports, a render
+    with graphs, summaries and the timer runs from in-memory frames, stats
+    snapshots and the post-game report are written, and the two lazy
+    functions name the package they need."""
+    proc = subprocess.run([sys.executable, "-c", _MANUSCRIPT_WITHOUT_HOST_PACKAGES], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
 @pytest.mark.parametrize("module", ["infer.ocr_conv", "infer.runner"])

@@ -195,13 +195,12 @@ def test_batches_iterator(gt_tree):
 
 
 @pytest.mark.parametrize("split", ["synth", "simple", "manual"])
-def test_sprite_splits_are_not_ported(gt_tree, split):
-    """The name is kept from when the port refused these splits; they are
-    ported now, and this checks that without their sprite, stage or
-    annotation assets they raise what the JAX dataset raises
-    (RuntimeError for synth and manual; simple's StopIteration of an
-    empty sprite tree).  tests/test_torch_port_splits.py holds them
-    against JAX on their assets."""
+def test_sprite_splits_without_assets_raise_as_jax(gt_tree, split):
+    """Without their sprite, stage or annotation assets the splits raise
+    what the JAX dataset raises (RuntimeError for synth and manual;
+    simple's StopIteration of an empty sprite tree).
+    tests/test_torch_port_splits.py holds them against JAX on their
+    assets."""
     ref = _jax(gt_tree, split)
     with pytest.raises(Exception) as jax_err:
         ref[0]
@@ -267,11 +266,10 @@ def test_augment_ops_match_jax():
                                       getattr(jax_augment, name)(img, *b), err_msg=name)
 
 
-def test_augment_ops_on_cv2_name_it(monkeypatch):
-    """The name is kept from when these ops ran on cv2 and named it where
-    it was missing; they run through imgproc now, and this checks that
-    with cv2 and PIL blocked they give the JAX ops' pixels, as does the
-    letterbox pad of RGB crops and RGBA sprites."""
+def test_augment_ops_run_without_cv2_or_pil(monkeypatch):
+    """The ops run through imgproc: with cv2 and PIL blocked they give the
+    JAX ops' pixels, as does the letterbox pad of RGB crops and RGBA
+    sprites."""
     img = np.random.default_rng(2).integers(0, 256, (16, 16, 3), dtype=np.uint8)
     rgba = np.random.default_rng(3).integers(0, 256, (8, 4, 4), dtype=np.uint8)
     ops = (augment.blur, augment.hue_saturation_value, augment.downscale)
