@@ -124,13 +124,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    and grad norm within 2e-4 relative, and one meshed evaluate with K2 in layer4[1] held
    against residual_block_ref; (b) two gloo ranks sharing the card
    (python3 chip_smoke.py --mesh-rank 0|1, CUDA tensors): CNN-63 on a
-   (2, 1) mesh and the ResFormer at full width (ResNet-50, 63 classes, T 7,
-   128 px, batch 8) on a (1, 2) mesh, 3 steps each, against one process:
-   loss and grad norm within 2e-4 relative (CNN-63 in float32; the
-   ResFormer in float64, and its float32 grad norm no farther from
-   float64's than one process's is, plus 2e-4), batch-norm running
-   statistics within 1e-5, each rank's host-to-device bytes exactly its
-   rows of a batch, step times and the bytes of each collective; (c)
+   (2, 1) mesh, the ResFormer at full width (ResNet-50, 63 classes, T 7,
+   128 px, batch 8) on a (1, 2) mesh and the RNN at full width (ResNet-18,
+   63 classes, T 7, 128 px, hidden 512, 3 layers; its LSTM's gate rows
+   split over model and stepped by hand) on a (1, 2) mesh, 3 steps each,
+   against one process: loss and grad norm within 2e-4 relative (CNN-63 and
+   the RNN in float32, the RNN's param norm too; the ResFormer in float64,
+   and its float32 grad norm no farther from float64's than one process's
+   is, plus 2e-4), batch-norm running statistics within 1e-5, each rank's
+   host-to-device bytes exactly its rows of a batch, step times, the number
+   and bytes of each collective, the RNN's model-axis collectives a step
+   and its LSTM's share of the step (the LSTM timed alone); (c)
    VodAnalyzer(mesh=make_mesh(devices=[cuda:0, cuda:0])) on phase 6's clip:
    labels identical to mesh=None, confidences within 1e-4, K2 launches 2
    a chunk and K2 held against its plain version in each replica,
@@ -190,8 +194,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    on the ai_output.yaml phase 9's AIRunner wrote, every label opening with
    the file's action; (c) batched_crop_resize_shared_frame on every 8th
    frame of the log clip through K1's frames entry (launches counted)
-   against batched_square_crop_resize on the card within 1e-5, and
-   classify_chunked against classify_buffer.
+   against batched_square_crop_resize on the card within 1e-5, its call,
+   device (through profiling.trace) and plain times, F.grid_sample at the
+   same shape (one 1080p frame, two crops), and classify_chunked against
+   classify_buffer;
+17. ground truth from a (VOD, log) pair on the card's machine, under
+   build/smoke/gt/: phase 8's log served at 1280x720 (the log's projection
+   size) by a stand-in capture behind BoundedSegmentDecoder.open_capture;
+   (a) gen_gt_action_detection.process_pairing(fmt="npy") writes the
+   action tree (960 crops), whose crops and labels digest, per fighter, to
+   what the JAX module gives on the same frames (playaid_core_torch/
+   assets/gt_digests.json, from tools/torch_port_gt_digests.py), a second
+   run writes nothing, then Trainer.fit trains CNN-63 from the bench
+   weights 8 steps on the tree and evaluate runs 2 batches, K2 one launch
+   a batch (none in train steps), held against residual_block_ref; (b)
+   gen_gt_char_detection.generate_data(interval=10, fmt="npy") writes 48
+   frames whose YOLO label files and frames equal the JAX module's, then
+   DetectorTrainer.fit takes 8 steps and evaluate(32) runs with K2 (one a
+   batch of 16), held against its plain version; (c) a raw animation dump
+   written as PNG by imgcodec's own writer is cleaned by raw_anim_cleaner,
+   whose PNGs decode to the JAX cleaner's, and read_sprite reads each as
+   BGRA; (d) char_loader.CharacterLoader(seed=0)'s strips from PNG frames
+   digest to the JAX loader's.
 
 The card's machine has no FFmpeg libraries or headers
 (tools/torch_port_probe_libav.sh), so the port's native decoder cannot be
@@ -233,6 +257,8 @@ FAMILY_SEED = 0
 
 PROFILE_SETTLE_S = 0.05   # pause between a profile's first opening kernel and the rest
 PROFILE_OPENERS = 8       # small kernels after the pause, before the work
+TRACE_OPENERS = 64        # the same in traced_device_ms: late in this process a
+                          # profiling.trace session lost its first 33 launches
 
 # H100 SXM data-sheet peaks at 700 W.
 PEAK_BYTES_PER_S = 3.35e12
@@ -282,6 +308,30 @@ def render_frames(indices, num_frames, out):
         for cx, cy, colour in ((x, HEIGHT // 2, (0, 200, 255)),
                                (WIDTH - x, HEIGHT // 2 + 60, (255, 80, 0))):
             frame[cy - r:cy + r + 1, cx - r:cx + r + 1][disc] = colour
+
+
+def grid_sample_inputs(torch, frames, boxes):
+    """K1's yardstick: F.grid_sample's input (the uint8 BGR frames [N, H, W,
+    3] as RGB floats in [0, 1], channels first, one copy a crop) and its
+    grid, sampling each of the boxes [N, 2, 4] at K1's points (the window of
+    side 2 * (max(w, h) // 2 + PADDING) around the integer centre, CROP^2,
+    align_corners=False)."""
+    height, width = frames.shape[1:3]
+    x = frames.flip(-1).permute(0, 3, 1, 2).float() / 255.0
+    x = x.repeat_interleave(2, dim=0)  # one input per crop
+    b = boxes.reshape(-1, 4)
+    cx = torch.floor(b[:, 0] * width)
+    cy = torch.floor(b[:, 1] * height)
+    half = torch.floor(torch.maximum(torch.floor(b[:, 2] * width),
+                                     torch.floor(b[:, 3] * height)) / 2)
+    side = torch.clamp(2 * (half + PADDING), min=1.0)
+    i = torch.arange(CROP, device=frames.device, dtype=torch.float32)
+    sy = (cy - half - PADDING)[:, None] + (i + 0.5) * side[:, None] / CROP - 0.5
+    sx = (cx - half - PADDING)[:, None] + (i + 0.5) * side[:, None] / CROP - 0.5
+    gy = (2 * sy + 1) / height - 1  # align_corners=False
+    gx = (2 * sx + 1) / width - 1
+    grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), dim=-1)
+    return x, grid
 
 
 def bgr_crop(frame, box, size, padding):
@@ -511,6 +561,44 @@ def device_ms(torch, fn, iters, kernel_name, per_call, warmup=3):
             f"{launches} launches with no kernel on the device (launch index, ms into the "
             f"trace: {lost[:12]})")
     return None, traced
+
+
+def traced_device_ms(torch, fn, iters, kernel_name, per_call, log_dir, warmup=3,
+                     openers=TRACE_OPENERS):
+    """device_ms through the port's own tracer: iters back-to-back calls of
+    fn(it) under profiling.trace(log_dir), which opens with one kernel run
+    to its end, then (as profiled opens a session) a pause and openers more
+    small kernels before the work; the mean per call of the kernels whose
+    name holds kernel_name in its trace.json.  A trace that holds another
+    count than per_call a call is taken again, once; if that one is short
+    too, the time is None (and the losses are logged)."""
+    from playaid_core_torch import profiling
+
+    for it in range(warmup):
+        fn(it)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profiling.trace(log_dir):
+            time.sleep(PROFILE_SETTLE_S)
+            x = torch.ones(1, device="cuda")
+            for _ in range(openers):
+                x.add_(1)
+            torch.cuda.synchronize()
+            for it in range(iters):
+                fn(it)
+            torch.cuda.synchronize()
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        path = os.path.join(log_dir, profiling.TRACE_FILE)
+        durs = [dur for name, cat, _, dur, _ in trace_device_events(path)
+                if cat == "kernel" and kernel_name in name]
+        if len(durs) == per_call * iters:
+            return sum(durs) / 1e3 / iters
+        launches, lost = lost_launches(path)
+        log(f"traced_device_ms: {len(durs)} of {per_call * iters} {kernel_name} records; "
+            f"{len(lost)} of {launches} launches with no kernel on the device (launch index, "
+            f"ms into the trace: {lost[:12]})")
+    return None
 
 
 def lost_launches(path):
@@ -3008,8 +3096,9 @@ def mesh_cases(dev):
     and phase 10's first batch (frames, chars, labels) that they train on:
     CNN-63 from the bench weights, and the ResFormer at full width (63
     classes, T 7, 128 px, batch 8) from seeded weights, checkpointed after
-    its first step; and the ResFormer's one step on dryrun_multichip's input
-    (uniform frames and labels from seed 0)."""
+    its first step; the ResFormer's one step on dryrun_multichip's input
+    (uniform frames and labels from seed 0); and the RNN at full width
+    (hidden 512, 3 layers) from seeded weights."""
     from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
 
     batch = next(train_dataset("train", seed=1).batches(TRAIN_BATCH, 1))
@@ -3022,7 +3111,37 @@ def mesh_cases(dev):
     uniform = dict(base, family="resformer", steps=1,
                    frames=gen.integers(0, 256, batch[0].shape, dtype=np.uint8),
                    labels=gen.integers(0, len(train_actions()), batch[2].shape).astype(np.int64))
-    return cnn, resformer, uniform, batch
+    rnn = dict(base, family="rnn")
+    return cnn, resformer, uniform, rnn, batch
+
+
+def lstm_ms(torch, dev, model_parallel, reps=6):
+    """The RNN's 3-layer LSTM (300 -> 512) alone, forward and backward at a
+    step's shape [TRAIN_BATCH, TRAIN_T, 300] in full float32: the median ms
+    of reps - 1 synchronised runs after one, whole (cuDNN's nn.LSTM) or on
+    a (1, model_parallel) mesh of the world's ranks (this rank's gate rows,
+    hand-stepped; every rank calls it)."""
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.models.rnn_action_detector import StackedLSTM
+    from playaid_core_torch.parallel.mesh import attach_mesh, make_mesh
+
+    holder = torch.nn.Module()
+    holder.lstm = StackedLSTM(300, 512, 3)
+    holder.to(dev)
+    if model_parallel > 1:
+        attach_mesh(holder, make_mesh(model_parallel=model_parallel, device=dev),
+                    split_batch=False)
+    x = torch.randn((TRAIN_BATCH, TRAIN_T, 300), generator=torch.Generator().manual_seed(0))
+    x = x.to(dev).requires_grad_(True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with full_float32():
+            holder.lstm(x).sum().backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
 
 
 def mesh_rank_main(rank):
@@ -3045,7 +3164,7 @@ def mesh_rank_main(rank):
     dist.init_process_group("gloo", init_method=os.environ[MESH_STORE_ENV], world_size=2,
                             rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
-        cnn, resformer, uniform, batch = mesh_cases(dev)
+        cnn, resformer, uniform, rnn, batch = mesh_cases(dev)
         out = {"rank": rank}
         out["cnn"] = run_train_case(dict(cnn, model_parallel=1,
                                          out=os.path.join(MESH_WORK, "cnn_2x1.pt")))
@@ -3074,6 +3193,8 @@ def mesh_rank_main(rank):
         out["resformer64"] = run_train_case(dict(resformer, model_parallel=2, double=True,
                                                  save=None, steps=1))
         out["uniform"] = run_train_case(dict(uniform, model_parallel=2))
+        out["rnn"] = run_train_case(dict(rnn, model_parallel=2))
+        out["rnn_lstm_ms"] = lstm_ms(torch, dev, 2)
     finally:
         dist.destroy_process_group()
     print(json.dumps(out), flush=True)
@@ -3141,7 +3262,7 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
 
     os.makedirs(MESH_WORK, exist_ok=True)
     t_phase = time.perf_counter()
-    cnn, resformer, uniform, batch = mesh_cases(dev)
+    cnn, resformer, uniform, rnn, batch = mesh_cases(dev)
     k2 = {}
 
     def k2_against_plain(block, x):
@@ -3204,6 +3325,8 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
     ref_res64 = run_train_case(dict(resformer, devices=[str(dev)], save=None, steps=1,
                                     double=True))
     ref_uniform = run_train_case(dict(uniform, devices=[str(dev)]))
+    ref_rnn = run_train_case(dict(rnn, devices=[str(dev)]))
+    ref_rnn_lstm_ms = lstm_ms(torch, dev, 1)
     if None not in ranks:
         for family, key, ref, shape, what in (
                 ("cnn", "cnn", ref_cnn, (2, 1), "phase 10's batch, float32"),
@@ -3233,6 +3356,30 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
                   f"{ref_res['grad_norms'][0]:.9f}, float64 {g64:.9f}: rel to float64 "
                   f"{rel_err(got['grad_norms'][0], g64):.3e} on the mesh, "
                   f"{rel_err(ref_res['grad_norms'][0], g64):.3e} on one process; {card}")
+        # The RNN at full width with its LSTM split over model (this rank's
+        # gate rows, stepped by hand, h gathered at every step).
+        for r, res in enumerate(ranks):
+            got = res["rnn"]
+            errs = [rel_err(got[k][0], ref_rnn[k][0])
+                    for k in ("losses", "grad_norms", "param_norms")]
+            check(tuple(got["mesh"]) == (1, 2) and max(errs) <= MESH_REL_TOL,
+                  f"phase 13 (b): rank {r} rnn on (1, 2) (LSTM gate rows split over model; "
+                  f"phase 10's batch, float32): first-step loss {got['losses'][0]:.9f} vs one "
+                  f"process {ref_rnn['losses'][0]:.9f} (rel {errs[0]:.3e}), grad norm rel "
+                  f"{errs[1]:.3e}, param norm rel {errs[2]:.3e}; tol {MESH_REL_TOL}; {card}")
+        got = ranks[0]["rnn"]
+        steps = len(got["seconds"])
+        step_ms = float(np.median(got["seconds"][1:])) * 1e3
+        model_calls = {k: v / steps for k, v in got["calls"].items() if k.endswith("/model")}
+        model_bytes = {k: v / steps for k, v in got["bytes"].items() if k.endswith("/model")}
+        log(f"phase 13 (b): rnn on (1, 2): step ms {[round(v * 1e3, 1) for v in got['seconds']]}"
+            f" (one process {[round(v * 1e3, 1) for v in ref_rnn['seconds']]}); model-axis "
+            f"collectives a step {json.dumps(model_calls)}, their bytes a step "
+            f"{json.dumps(model_bytes)}; all collectives over {steps} steps "
+            f"{json.dumps(got['calls'])}; the LSTM alone, forward and backward: "
+            f"{ranks[0]['rnn_lstm_ms']:.1f} ms on the mesh = "
+            f"{ranks[0]['rnn_lstm_ms'] / step_ms:.3f} of the median later step "
+            f"({step_ms:.1f} ms), {ref_rnn_lstm_ms:.1f} ms whole on one process (cuDNN); {card}")
         log(f"phase 13 (b): CNN-63's gradient all-reduce alone over gloo (one flat float32 "
             f"buffer of {ranks[0]['grad_all_reduce_bytes']} B, CUDA tensors): ms "
             f"{[round(t, 1) for t in ranks[0]['grad_all_reduce_ms']]} on rank 0; {card}")
@@ -3743,6 +3890,8 @@ def run_manuscript_phase(torch, dev, check, card, runner):
         batched_crop_resize_shared_frame,
         batched_square_crop_resize,
     )
+    import torch.nn.functional as F
+
     from playaid_core_torch.pipeline import manuscript
     from playaid_core_torch.render import annotator, charts
 
@@ -3844,18 +3993,32 @@ def run_manuscript_phase(torch, dev, check, card, runner):
         err = max(float((o - batched_square_crop_resize(f[None], b[None], CROP, PADDING,
                                                         True)[0]).abs().max())
                   for o, f, b in zip(outs, frames, boxes_dev))
-    ms_k1 = time_cuda(torch, lambda _: batched_crop_resize_shared_frame(
-        frames[0], boxes_dev[0], CROP, PADDING, True), 50)
+    def shared_frame(_):
+        return batched_crop_resize_shared_frame(frames[0], boxes_dev[0], CROP, PADDING, True)
+
+    ms_k1 = time_cuda(torch, shared_frame, 50)
+    dev_ms_k1 = traced_device_ms(torch, shared_frame, 50, "crop_resize_kernel", 1,
+                                 os.path.join(work, "shared_frame_trace"))
     plain_ms = time_cuda(torch, lambda _: batched_square_crop_resize(
         frames[0][None], boxes_dev[0][None], CROP, PADDING, True), 20)
+    # The library yardstick at the same shape: one 1080p frame, two crops.
+    lib_in = grid_sample_inputs(torch, frames[0][None], boxes_dev[0][None])
+    lib_err = float((F.grid_sample(*lib_in, mode="bilinear", padding_mode="zeros",
+                                   align_corners=False).permute(0, 2, 3, 1)
+                     - outs[0].reshape(2, CROP, CROP, 3)).abs().max())
+    lib_ms = time_cuda(torch, lambda _: F.grid_sample(*lib_in, mode="bilinear",
+                                                      padding_mode="zeros",
+                                                      align_corners=False), 50)
     k1_bytes = (crop_touched_bytes(boxes[picks[0]], HEIGHT, WIDTH, CROP, PADDING)
                 + 2 * CROP * CROP * 3 * 4 + 2 * 4 * 4)
     bound_ms = k1_bytes / PEAK_BYTES_PER_S * 1e3
-    check(launches == len(picks) and err <= 1e-5,
+    check(launches == len(picks) and err <= 1e-5 and dev_ms_k1 is not None,
           f"phase 16 (c): batched_crop_resize_shared_frame on {len(picks)} 1080p frames "
           f"(2 crops each) through K1: {launches} launches, max abs err {err:.3g} against "
-          f"batched_square_crop_resize on the card (limit 1e-5); call {ms_k1:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({k1_bytes / 1e6:.3f} MB)")
+          f"batched_square_crop_resize on the card (limit 1e-5); call {ms_k1:.4f} ms, device "
+          f"{'not measured' if dev_ms_k1 is None else f'{dev_ms_k1:.4f} ms'} "
+          f"(profiling.trace), plain {plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms (max abs "
+          f"diff {lib_err:.3g} from K1), bound {bound_ms:.4f} ms ({k1_bytes / 1e6:.3f} MB)")
     pipe = BatchedActionPipeline(device=dev).load_state_dicts(
         from_jax_cnn(load_npz_tree(ASSET)))
     emb = torch.randn((50, 2, pipe.embed_dim), generator=torch.Generator().manual_seed(3)) * 1.5
@@ -3872,8 +4035,366 @@ def run_manuscript_phase(torch, dev, check, card, runner):
           f"phase 16 (c): classify_chunked over {len(chunks)} chunks of 16 frames equals "
           f"classify_buffer on the card: labels identical, confidences within 1e-4")
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s; {card}")
-    return {"launches": launches, "max_abs_err": err, "ms": ms_k1, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "render_fps": rate, "stages": stages, "ai_route": ai}
+    return {"launches": launches, "max_abs_err": err, "ms": ms_k1, "device_ms": dev_ms_k1,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": lib_ms,
+            "render_fps": rate, "stages": stages, "ai_route": ai}
+
+
+# ---- phase 17: ground truth from a (VOD, log) pair on the card's machine ----
+# Phase 8's scripted log served at the log's projection size through a
+# stand-in capture; the action tree, the character-detection tree, a raw
+# animation dump cleaned through the PNG codec and char_loader's strips,
+# each held to what the JAX package's modules give on the same inputs
+# (tools/torch_port_gt_digests.py writes GT_DIGESTS with them, cv2 and PIL).
+
+GT_DIGESTS = os.path.join(ROOT, "playaid_core_torch", "assets", "gt_digests.json")
+GT_WORK = os.path.join(ROOT, "build", "smoke", "gt")
+GT_W, GT_H = 1280, 720     # the log's projection size (precompute_timeline_projection)
+GT_DISC_RADIUS = 60
+GT_PAIRING = ("match_1", "match.mp4", "match_log.txt", 0)
+GT_CHAR_INTERVAL = 10      # gen_gt_char_detection's interval: 48 of the 480 frames
+GT_FIT_STEPS = 8           # CNN-63 steps on the action tree (from the bench weights)
+GT_EVAL_BATCHES = 2
+GT_DET_STEPS = 8           # detector steps on the character-detection tree
+GT_DET_EVAL_IMAGES = 32    # evaluate's draws: 2 batches of 16
+RAW_ANIMS = {"byleth": ("c00attack1", "c00attackdash"), "pikachu": ("c00attack1", "c00wait1")}
+RAW_FRAMES, RAW_H, RAW_W = 4, 270, 360
+CHAR_LABELS = ("byleth_pikachu", "pikachu_byleth")
+CHAR_FRAMES = 3            # frames a label in char_loader's tree
+CHAR_DRAWS = 8             # CharacterLoader(seed=0) draws digested
+
+
+class GtClipCapture:
+    """Stand-in frame source behind BoundedSegmentDecoder.open_capture for
+    phase 17 (and, in tools/torch_port_gt_digests.py, behind the JAX
+    package's VideoReader): 1280x720 BGR frames of seeded noise with a disc
+    at each fighter's box of the log; each read renders a new frame, which
+    the caller may keep."""
+
+    fps, width, height = 60.0, GT_W, GT_H
+
+    def __init__(self, boxes):
+        self.boxes = boxes
+        self.frame_count = len(boxes)
+        self.pos = 0
+        self.base = np.random.default_rng(4).integers(0, 60, (GT_H, GT_W, 3), dtype=np.uint8)
+        r = GT_DISC_RADIUS
+        yy, xx = np.ogrid[-r:r + 1, -r:r + 1]
+        self.disc = yy ** 2 + xx ** 2 <= r * r
+
+    def seek(self, index):
+        self.pos = index
+
+    def read(self):
+        if self.pos >= len(self.boxes):
+            return False, None
+        frame, r = self.base.copy(), GT_DISC_RADIUS
+        for box, colour in zip(self.boxes[self.pos], ((0, 200, 255), (255, 80, 0))):
+            cx = min(max(int(box[0] * GT_W), r), GT_W - r - 1)
+            cy = min(max(int(box[1] * GT_H), r), GT_H - r - 1)
+            frame[cy - r:cy + r + 1, cx - r:cx + r + 1][self.disc] = colour
+        self.pos += 1
+        return True, frame
+
+    def release(self):
+        pass
+
+
+def write_gt_pairing(root):
+    """Phase 8's scripted log as the ground-truth pairing GT_PAIRING under
+    root (the video is the stand-in capture; its file is never opened) and
+    a pairings CSV of it.  Returns (the log's boxes, the CSV's path)."""
+    from playaid_core_torch.infer.vod_pipeline import boxes_from_log
+
+    d = os.path.join(root, GT_PAIRING[0])
+    os.makedirs(d, exist_ok=True)
+    log_path = os.path.join(d, GT_PAIRING[2])
+    write_match_log(log_path, NUM_FRAMES)
+    csv = os.path.join(root, "pairings.csv")
+    with open(csv, "w") as f:
+        f.write("dir,video,log,offset\n" + ",".join(str(v) for v in GT_PAIRING) + "\n")
+    return boxes_from_log(log_path), csv
+
+
+def digest_arrays(items):
+    """SHA-256 over (name, array) pairs in name order: each name, then the
+    array's dtype, shape and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, a in sorted(items, key=lambda item: item[0]):
+        a = np.ascontiguousarray(a)
+        h.update(f"{name}|{a.dtype}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def action_tree_digests(crops, labels):
+    """Per fighter directory of an action tree: the number of crops, the
+    digest of the crops ({path without suffix: array}) and of the labels
+    ({path without suffix: text})."""
+    out = {}
+    for name in sorted({os.path.dirname(k) for k in crops}):
+        mine = [(k, a) for k, a in crops.items() if k.startswith(name + os.sep)]
+        texts = [(k, np.frombuffer(t.encode(), np.uint8)) for k, t in labels.items()
+                 if k.startswith(name + os.sep)]
+        out[name] = {"crops": len(mine), "crop_sha256": digest_arrays(mine),
+                     "labels": len(texts), "label_sha256": digest_arrays(texts)}
+    return out
+
+
+def write_raw_dump(root, write):
+    """A raw animation dump under root/<fighter>/<animation>/frame_<i>.png:
+    RAW_H x RAW_W BGR frames of a seeded-colour figure on black (a body
+    and a head that move, a row of 1s that the cleaner keeps transparent),
+    written with write(path, image)."""
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[:RAW_H, :RAW_W]
+    for fighter, anims in RAW_ANIMS.items():
+        for anim in anims:
+            d = os.path.join(root, fighter, anim)
+            os.makedirs(d, exist_ok=True)
+            for i in range(RAW_FRAMES):
+                img = np.zeros((RAW_H, RAW_W, 3), np.uint8)
+                x0, y0 = 60 + 25 * i, 80 + 10 * i
+                img[y0:y0 + 120, x0:x0 + 70] = rng.integers(2, 256, (120, 70, 3), dtype=np.uint8)
+                head = (yy - (y0 - 25)) ** 2 + (xx - (x0 + 35)) ** 2 <= 22 ** 2
+                img[head] = rng.integers(2, 256, 3, dtype=np.uint8)
+                img[y0 + 60, x0:x0 + 70] = 1
+                write(os.path.join(d, f"frame_{i}.png"), img)
+
+
+def write_char_frames(root, boxes, write):
+    """char_loader's tree: root/<label>/<frame>.png of the stand-in's
+    frames, CHAR_FRAMES a label, written with write(path, image)."""
+    cap = GtClipCapture(boxes)
+    for k, label in enumerate(CHAR_LABELS):
+        d = os.path.join(root, label)
+        os.makedirs(d, exist_ok=True)
+        for j in range(CHAR_FRAMES):
+            index = 150 * j + 40 * k
+            cap.seek(index)
+            write(os.path.join(d, f"{index:06d}.png"), cap.read()[1])
+
+
+def char_strip_digest(loader_module, table):
+    """The digest of CHAR_DRAWS (feature, label) draws of
+    loader_module.CharacterLoader(table, seed=0)."""
+    loader = loader_module.CharacterLoader(table, seed=0)
+    draws = [loader[i] for i in range(CHAR_DRAWS)]
+    return digest_arrays([(f"{i:02d}/{label}", feature)
+                          for i, (feature, label) in enumerate(draws)])
+
+
+def port_gt_trees(work):
+    """The port's side of phase 17's trees, under work (emptied first):
+    the action tree and the character-detection tree of GT_PAIRING with
+    fmt="npy", frames from GtClipCapture behind
+    BoundedSegmentDecoder.open_capture; the raw dump written by imgcodec
+    and cleaned; char_loader's strips.  Returns the digests in
+    GT_DIGESTS's layout and what the phase reads of the run."""
+    import shutil
+
+    from playaid_core_torch import char_loader, imgcodec
+    from playaid_core_torch.datagen import gen_gt_action_detection as gt_action
+    from playaid_core_torch.datagen import gen_gt_char_detection as gt_char
+    from playaid_core_torch.datagen import raw_anim_cleaner
+    from playaid_core_torch.infer.vod_pipeline import BoundedSegmentDecoder
+
+    shutil.rmtree(work, ignore_errors=True)
+    vods = os.path.join(work, "vods")
+    boxes, csv = write_gt_pairing(vods)
+    run = {"action_root": os.path.join(work, "action", "train"),
+           "char_dir": os.path.join(work, "char", "train")}
+    real_capture = BoundedSegmentDecoder.open_capture
+    BoundedSegmentDecoder.open_capture = staticmethod(lambda path: GtClipCapture(boxes))
+    try:
+        t0 = time.perf_counter()
+        run["written"] = gt_action.process_pairing(run["action_root"], GT_PAIRING,
+                                                   ground_truth_dir=vods, fmt="npy")
+        run["write_s"] = time.perf_counter() - t0
+        run["again"] = gt_action.process_pairing(run["action_root"], GT_PAIRING,
+                                                 ground_truth_dir=vods, fmt="npy")
+        t0 = time.perf_counter()
+        run["char_frames"] = gt_char.generate_data(
+            csv, "train", interval=GT_CHAR_INTERVAL, output_root=os.path.join(work, "char"),
+            ground_truth_dir=vods, fmt="npy")
+        run["char_s"] = time.perf_counter() - t0
+    finally:
+        BoundedSegmentDecoder.open_capture = real_capture
+
+    crops, labels = {}, {}
+    for dirpath, _, files in os.walk(run["action_root"]):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            parts = os.path.relpath(path, run["action_root"]).split(os.sep)
+            key = "/".join(parts[:2] + [name[:-4]])  # <video>/<id>_<fighter>/<frame>
+            if name.endswith(".npy"):
+                crops[key] = np.load(path)
+            else:
+                with open(path) as fh:
+                    labels[key] = fh.read()
+    char_names = sorted(f[:-4] for f in os.listdir(os.path.join(run["char_dir"], "images")))
+    char_labels = {}
+    for name in char_names:
+        with open(os.path.join(run["char_dir"], "labels", name + ".txt")) as fh:
+            char_labels[name] = fh.read()
+    char_frames = [(n, np.load(os.path.join(run["char_dir"], "images", n + ".npy")))
+                   for n in char_names]
+
+    raw, clean = os.path.join(work, "raw"), os.path.join(work, "clean")
+    write_raw_dump(raw, imgcodec.write_image)
+    t0 = time.perf_counter()
+    run["cleaned"] = sum(raw_anim_cleaner.clean_all_raw_fighter_anim_data(
+        f, raw_dir=raw, clean_dir=clean) for f in RAW_ANIMS)
+    run["clean_s"] = time.perf_counter() - t0
+    cleaned, run["sprites_ok"] = {}, True
+    for dirpath, _, files in os.walk(clean):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            img = imgcodec.read_image(path, imgcodec.IMREAD_UNCHANGED)
+            cleaned["/".join(os.path.relpath(path, clean).split(os.sep))] = digest_arrays(
+                [("png", img)])
+            sprite = imgcodec.read_sprite(path)
+            run["sprites_ok"] &= sprite.shape[2] == 4 and np.array_equal(sprite, img)
+
+    chars = os.path.join(work, "chars")
+    write_char_frames(chars, boxes, imgcodec.write_image)
+    run["digests"] = {
+        "action": action_tree_digests(crops, labels), "char_labels": char_labels,
+        "char_frames_sha256": digest_arrays(char_frames), "cleaned": cleaned,
+        "strips_sha256": char_strip_digest(char_loader,
+                                           char_loader.dataframe_from_directory(chars))}
+    return run
+
+
+def run_gt_phase(torch, dev, check, card, k2_wrapper):
+    """Phase 17: (a) gen_gt_action_detection.process_pairing(fmt="npy") on
+    the stand-in VOD and phase 8's log, its crops and labels held to the
+    JAX module's, then Trainer.fit (CNN-63 from the bench weights) and
+    evaluate on the tree with K2; (b) gen_gt_char_detection.generate_data(
+    fmt="npy"), its frames and YOLO rows held to the JAX module's, then
+    DetectorTrainer.fit and evaluate with K2; (c) a raw dump written as PNG
+    by imgcodec, cleaned by raw_anim_cleaner, the cleaned PNGs held to the
+    JAX cleaner's, read back by read_sprite; (d) char_loader's strips.
+    Returns the phase's numbers."""
+    from playaid_core_torch.convert import from_jax_cnn, load_npz_tree
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.train.dataset import UltActionRecogDataset
+    from playaid_core_torch.train.detector_train import DetectionDataset, DetectorTrainer
+    from playaid_core_torch.train.train import Trainer
+
+    t_phase = time.perf_counter()
+    with open(GT_DIGESTS) as f:
+        ref = json.load(f)
+    run = port_gt_trees(GT_WORK)
+    got = run["digests"]
+    out = {"crops_per_sec": run["written"] / run["write_s"],
+           "char_frames_per_sec": run["char_frames"] / run["char_s"]}
+    check(got["action"] == ref["action"] and run["again"] == 0,
+          f"phase 17 (a): gen_gt_action_detection.process_pairing(fmt=\"npy\") on the "
+          f"{NUM_FRAMES}-frame log at {GT_W}x{GT_H}: {run['written']} crops in "
+          f"{run['write_s']:.2f} s = {out['crops_per_sec']:.1f} crops/s; the digests of crops "
+          f"and labels per fighter equal the JAX module's: {got['action'] == ref['action']} "
+          f"({json.dumps(got['action'])}); a second run writes {run['again']}; {card}")
+    check(got["char_labels"] == ref["char_labels"]
+          and got["char_frames_sha256"] == ref["char_frames_sha256"],
+          f"phase 17 (b): gen_gt_char_detection.generate_data(interval={GT_CHAR_INTERVAL}, "
+          f"fmt=\"npy\"): {run['char_frames']} frames in {run['char_s']:.2f} s; "
+          f"{sum(got['char_labels'].get(k) == v for k, v in ref['char_labels'].items())}/"
+          f"{len(ref['char_labels'])} YOLO label files equal the JAX module's; frame digest "
+          f"equal: {got['char_frames_sha256'] == ref['char_frames_sha256']}; {card}")
+    check(got["cleaned"] == ref["cleaned"] and run["sprites_ok"],
+          f"phase 17 (c): raw_anim_cleaner on {len(RAW_ANIMS)} fighters' PNG dumps (written by "
+          f"imgcodec): {run['cleaned']} sprites cleaned in {run['clean_s']:.2f} s; "
+          f"{sum(got['cleaned'].get(k) == v for k, v in ref['cleaned'].items())}/"
+          f"{len(ref['cleaned'])} decoded digests equal the JAX cleaner's; read_sprite gives "
+          f"each as BGRA: {run['sprites_ok']}")
+    check(got["strips_sha256"] == ref["strips_sha256"],
+          f"phase 17 (d): char_loader.CharacterLoader(seed=0): the digest of {CHAR_DRAWS} "
+          f"strips and labels equals the JAX loader's: "
+          f"{got['strips_sha256'] == ref['strips_sha256']}")
+
+    def k2_against_plain(block, x):
+        with torch.inference_mode(), full_float32():
+            args = k2_ref_args(block, x)
+            y = residual_block_packed(args[0], block.block_pack(torch.float32))
+            want = residual_block_ref(*args)
+        return float((y - want).abs().max()), float(want.abs().max()), tuple(args[0].shape)
+
+    # (a) training on the action tree: CNN-63 from the bench weights.
+    def action_dataset(seed):
+        root = run["action_root"]
+        return UltActionRecogDataset(
+            split="train", num_samples=TRAIN_BATCH * GT_FIT_STEPS, img_dimension=CROP,
+            anim_subset=train_actions(), num_frames_per_sample=[TRAIN_T], frame_delta=[1, 2, 3],
+            char_subset=["Byleth", "Pikachu"], num_preceding_actions=0, crop_size=CROP,
+            seed=seed, gt_root_train=root, gt_root_val=root, gt_root_test=root)
+
+    trainer = Trainer(train_config("cnn", device=str(dev)), action_dataset(0))
+    trainer.init_state(FAMILY_SEED)
+    load_bench(trainer.model, from_jax_cnn(load_npz_tree(ASSET)))
+    k2_wrapper.launches = 0
+    trainer.fit(num_epochs=1, steps_per_epoch=GT_FIT_STEPS)
+    fit_launches = k2_wrapper.launches
+    record = trainer.metrics_log[-1]
+    block = trainer.model.embed.layer4[1]
+    seen = {}
+    hook = block.register_forward_hook(keep_input(seen))
+    k2_wrapper.launches = 0
+    result = trainer.evaluate(action_dataset(1), num_batches=GT_EVAL_BATCHES)
+    eval_launches = k2_wrapper.launches
+    hook.remove()
+    err, scale, shape = k2_against_plain(block, seen["x"])
+    out.update({"action_steps_per_sec": record["steps_per_sec"],
+                "action_crops_per_sec": record["crops_per_sec"],
+                "k2_action_train_launches": fit_launches, "k2_action_launches": eval_launches,
+                "k2_action_max_abs_err": err, "k2_action_shape": list(shape)})
+    check(np.isfinite(record["train_loss"]) and np.isfinite(result["loss"])
+          and trainer.state.step == GT_FIT_STEPS and fit_launches == 0
+          and eval_launches == GT_EVAL_BATCHES and err <= K2_F32_REL_TOL * scale,
+          f"phase 17 (a): Trainer.fit CNN-63 (bench weights) {GT_FIT_STEPS} steps on the tree "
+          f"(batch {TRAIN_BATCH}, T {TRAIN_T}): {record['steps_per_sec']} steps/s = "
+          f"{record['crops_per_sec']} crops/s, loss {record['train_loss']:.4f}; K2 launches "
+          f"in train steps {fit_launches} (must be 0), in evaluate({GT_EVAL_BATCHES}) "
+          f"{eval_launches}: loss {result['loss']:.4f}, acc {result['acc']:.3f}; K2 at "
+          f"layer4[1] {shape} vs residual_block_ref: max abs err {err:.3e} (tol "
+          f"{K2_F32_REL_TOL} x max|ref| {scale:.3f}); {card}")
+
+    # (b) training on the character-detection tree.
+    def det_dataset(seed):
+        return DetectionDataset(run["char_dir"], input_hw=DET_HW, num_classes=DET_CLASSES,
+                                seed=seed)
+
+    det = DetectorTrainer(det_dataset(0), num_classes=DET_CLASSES, input_hw=DET_HW,
+                          device=dev).init(0)
+    k2_wrapper.launches = 0
+    t0 = time.perf_counter()
+    det.fit(GT_DET_STEPS, batch_size=DET_BATCH)
+    det_s = time.perf_counter() - t0
+    det_fit_launches = k2_wrapper.launches
+    k2_wrapper.launches = 0
+    scores = det.evaluate(det_dataset(1), num_images=GT_DET_EVAL_IMAGES)
+    det_eval_launches = k2_wrapper.launches
+    block, x = k2_block_input(torch, det, next(det_dataset(2).batches(16, 1))[0])
+    err, scale, shape = k2_against_plain(block, x)
+    out.update({"detector_steps_per_sec": GT_DET_STEPS / det_s,
+                "k2_detector_train_launches": det_fit_launches,
+                "k2_detector_launches": det_eval_launches, "k2_detector_max_abs_err": err,
+                "k2_detector_shape": list(shape)})
+    losses = [rec["loss"] for rec in det.metrics_log]
+    check(all(np.isfinite(losses)) and det_fit_launches == 0
+          and det_eval_launches == GT_DET_EVAL_IMAGES // 16 and err <= K2_F32_REL_TOL * scale,
+          f"phase 17 (b): DetectorTrainer.fit {GT_DET_STEPS} steps (batch {DET_BATCH}) on the "
+          f"{run['char_frames']} frames in {det_s:.2f} s = {GT_DET_STEPS / det_s:.2f} steps/s, "
+          f"losses {[round(v, 4) for v in losses]}; K2 launches in the fit {det_fit_launches} "
+          f"(must be 0), in evaluate({GT_DET_EVAL_IMAGES}) {det_eval_launches}: {scores}; K2 "
+          f"at the trunk's layer4[1] {shape} vs residual_block_ref: max abs err {err:.3e} "
+          f"(tol {K2_F32_REL_TOL} x max|ref| {scale:.3f}); {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17: {out['seconds']:.1f} s; {card}")
+    return out
 
 
 def main():
@@ -4181,24 +4702,7 @@ def main():
     frame_sets = [host[k * per_chunk:(k + 1) * per_chunk].to(dev) for k in range(n_sets)]
     box_sets = [boxes_dev[k * per_chunk:(k + 1) * per_chunk] for k in range(n_sets)]
 
-    def grid_inputs(k):
-        frames = frame_sets[k].flip(-1).permute(0, 3, 1, 2).float() / 255.0
-        frames = frames.repeat_interleave(2, dim=0)  # one input per crop
-        b = box_sets[k].reshape(-1, 4)
-        cx = torch.floor(b[:, 0] * WIDTH)
-        cy = torch.floor(b[:, 1] * HEIGHT)
-        half = torch.floor(torch.maximum(torch.floor(b[:, 2] * WIDTH),
-                                         torch.floor(b[:, 3] * HEIGHT)) / 2)
-        side = torch.clamp(2 * (half + PADDING), min=1.0)
-        i = torch.arange(CROP, device=dev, dtype=torch.float32)
-        sy = (cy - half - PADDING)[:, None] + (i + 0.5) * side[:, None] / CROP - 0.5
-        sx = (cx - half - PADDING)[:, None] + (i + 0.5) * side[:, None] / CROP - 0.5
-        gy = (2 * sy + 1) / HEIGHT - 1  # align_corners=False
-        gx = (2 * sx + 1) / WIDTH - 1
-        grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), dim=-1)
-        return frames, grid
-
-    lib_inputs = [grid_inputs(k) for k in range(n_sets)]
+    lib_inputs = [grid_sample_inputs(torch, frame_sets[k], box_sets[k]) for k in range(n_sets)]
     lib_out = F.grid_sample(*lib_inputs[0], mode="bilinear", padding_mode="zeros",
                             align_corners=False).permute(0, 2, 3, 1)
     lib_err = float((lib_out.reshape(k1_ref.shape) - k1_ref).abs().max())
@@ -4395,6 +4899,14 @@ def main():
     manuscript_res = run_manuscript_phase(torch, dev, check, card, pixels_runner)
     log(f"phase 16 in {time.perf_counter() - t0:.1f} s: {json.dumps(manuscript_res)}; {card}")
 
+    # ---- phase 17: ground truth from a (VOD, log) pair, both trainings on it ----
+    k1_wrappers = (square_crop_resize, window_resize, bank_resize)
+    for wrapper in k1_wrappers:
+        wrapper.launches = 0
+    gt = run_gt_phase(torch, dev, check, card, residual_block_packed)
+    k1_gt_launches = sum(wrapper.launches for wrapper in k1_wrappers)
+    log(f"phase 17: {json.dumps(gt)}; {card}")
+
     kernels = [
         {"name": "crop_resize", "route": "cuda",
          "source": "playaid_core_torch/csrc/crop_resize.cu",
@@ -4461,7 +4973,12 @@ def main():
     # crops a launch); K2 not on the manuscript's path (its input is phase
     # 9's ai_output.yaml).
     kernels[0].update({f"shared_frame_{k}": manuscript_res[k] for k in (
-        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")})
+        "launches", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")})
+    # Phase 17: K2 in the evaluations of both trainings on the generated
+    # trees (none in their train steps); K1 (any entry) not on the path
+    # (ground-truth crops are square_crop on the host).
+    kernels[0]["gt_launches"] = k1_gt_launches
+    kernels[1].update({f"gt_{k[3:]}": v for k, v in gt.items() if k.startswith("k2_")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -135,8 +135,9 @@ def run_train_case(case):
       ``"grads"``.
 
     Returns ``{"losses", "accs", "grad_norms", "param_norms", "seconds",
-    "bytes", "mesh"}`` (the step results as floats; ``seconds`` per step,
-    synchronised; ``bytes`` each collective's payload over the steps)."""
+    "bytes", "calls", "mesh"}`` (the step results as floats; ``seconds`` per
+    step, synchronised; ``bytes`` each collective's payload over the steps,
+    ``calls`` their number)."""
     from playaid_core_torch.device import resolve_device
     from playaid_core_torch.parallel.mesh import gather_params, make_mesh
     from playaid_core_torch.train.train import Trainer, TrainerConfig
@@ -165,6 +166,7 @@ def run_train_case(case):
         frames = frames.double() / 255.0
     labels = torch.from_numpy(rows(labels_np)).to(device)
     mesh.bytes.clear()
+    mesh.calls.clear()
     out = {"losses": [], "accs": [], "grad_norms": [], "param_norms": [], "seconds": []}
     steps = case.get("steps", 1)
     for step in range(1, steps + 1):
@@ -175,10 +177,11 @@ def run_train_case(case):
         for key, v in zip(("losses", "accs", "grad_norms", "param_norms"), values):
             out[key].append(v)
         if case.get("save") and step == case.get("save_at", steps):
-            moved = collections.Counter(mesh.bytes)
+            moved, calls = collections.Counter(mesh.bytes), collections.Counter(mesh.calls)
             out["checkpoint"] = trainer.save_checkpoint(step)
-            mesh.bytes = moved  # the checkpoint's gathers are no step's
+            mesh.bytes, mesh.calls = moved, calls  # the checkpoint's gathers are no step's
     out["bytes"] = dict(mesh.bytes)
+    out["calls"] = dict(mesh.calls)
     out["mesh"] = mesh.shape
     if case.get("out"):
         whole = trainer.whole_state()

@@ -26,17 +26,19 @@ and batch norm over the ``data`` axis (:func:`data_batch_norm`).  gloo
 takes CUDA tensors as they are (all_reduce, all_gather, broadcast and
 all_gather_object, two ranks on one H100:
 ``tools/torch_port_gloo_cuda_probe.py``).  Every collective adds its
-payload to ``Mesh.bytes`` (``"all_reduce/data"``, ...).
+payload to ``Mesh.bytes`` (``"all_reduce/data"``, ...) and one to
+``Mesh.calls``.
 
 The rules (:data:`DEFAULT_TP_RULES`) are the JAX package's, on the port's
 parameter names and torch's ``[out, in]`` layouts: the transformer's
 feed-forward (``linear1`` by rows, ``linear2`` by columns), its attention
 by whole heads (the rows of each of the q, k and v blocks of the packed
 ``in_proj``, the matching columns of ``out_proj``), the CNN head's
-``temporal_dense`` and every ``classifier`` by rows.  A rule whose
-dimension does not divide falls back to replication (the 63-way
-classifier stays whole).  The RNN family's LSTM stays replicated: see
-:data:`LSTM_NOTE`.
+``temporal_dense``, every ``classifier`` by rows, and the RNN's LSTM by
+this rank's rows of each of its i, f, g, o gate blocks (JAX's hidden
+columns of each gate's kernel; ``models/rnn_action_detector.StackedLSTM``
+then steps the recurrence by hand).  A rule whose dimension does not divide falls back to
+replication (the 63-way classifier stays whole).
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ class Mesh:
         # This rank's device (distributed) or the first device of the grid.
         self.device = device if device is not None else devices.flat[0]
         self.bytes = collections.Counter()
+        self.calls = collections.Counter()
 
     def __repr__(self):
         where = f"rank {self.rank} of {self.size}" if self.distributed else "one process"
@@ -116,6 +119,7 @@ class Mesh:
         if group is None:
             return tensor
         self.bytes[f"all_reduce/{axis}"] += tensor.numel() * tensor.element_size()
+        self.calls[f"all_reduce/{axis}"] += 1
         dist.all_reduce(tensor, group=group)
         return tensor
 
@@ -128,6 +132,7 @@ class Mesh:
         tensor = tensor.contiguous()
         n = self.axis_size(axis)
         self.bytes[f"all_gather/{axis}"] += n * tensor.numel() * tensor.element_size()
+        self.calls[f"all_gather/{axis}"] += 1
         parts = [torch.empty_like(tensor) for _ in range(n)]
         dist.all_gather(parts, tensor, group=group)
         return parts
@@ -240,12 +245,10 @@ class Spec(NamedTuple):
     """How a tensor lies on the mesh: ``axes`` names the mesh axis that
     splits each leading dimension (None: whole; ``()``: replicated).  A
     dimension of ``blocks`` equal blocks (the packed q, k and v of
-    ``in_proj``) splits each block.  ``note`` says why a tensor that the
-    JAX rules shard stays whole in the port."""
+    ``in_proj``, the LSTM's four gates) splits each block."""
 
     axes: tuple = ()
     blocks: int = 1
-    note: Optional[str] = None
 
     @property
     def sharded(self):
@@ -257,10 +260,6 @@ class Spec(NamedTuple):
 
 
 REPLICATED = Spec()
-
-LSTM_NOTE = ("replicated over model: the RNN's LSTM is cuDNN's nn.LSTM, which cannot be split "
-             "by gate columns without a hand-stepped cell that gathers h at every step "
-             "(ROADMAP queue 1); the JAX rules shard its kernels' hidden columns")
 
 # (name regex, Spec): first match wins; default replicated.  torch layouts:
 # a Linear's weight is [out, in], so JAX's column split (kernel [in, out],
@@ -275,7 +274,8 @@ DEFAULT_TP_RULES = (
     (r".*self_attn\.out_proj\.weight$", Spec((None, "model"))),
     (r".*temporal_dense\.weight$", Spec(("model", None))),
     (r".*temporal_dense\.bias$", Spec(("model",))),
-    (r".*lstm\.weight_(ih|hh)_l\d+$", Spec(note=LSTM_NOTE)),
+    # This rank's rows of each of the i, f, g, o blocks; the biases stay whole.
+    (r".*lstm\.weight_(ih|hh)_l\d+$", Spec(("model", None), blocks=4)),
     (r".*classifier\.weight$", Spec(("model", None))),
     (r".*classifier\.bias$", Spec(("model",))),
 )

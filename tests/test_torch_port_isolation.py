@@ -3,7 +3,8 @@ its card-path modules (the log-driven VOD path, the pixels-only path, the
 training path and its mesh, the sprite drawer and splits, device-side
 synthesis and detector training) import no cv2,
 PIL, yaml or click, the OCR, dashboard and annotated-match modules not
-matplotlib either (nor tqdm)
+matplotlib either (nor tqdm), the ground-truth and char_loader modules not
+pandas
 (the card's machine has none of them), and chip_smoke.py refuses to run
 without a CUDA device.
 
@@ -322,6 +323,54 @@ print("ok")
 """
 
 
+# The ground-truth generators, the cleaner, char_loader and gap_report on
+# the card: they import with pandas blocked too; a raw dump written as PNG
+# by the port's codec is cleaned and read back as sprites, a frame tree of
+# .npy and PNG files is loaded, the gap report runs, and a jpg names cv2.
+DATAGEN_PATH = ("imgcodec", "char_loader", "datagen.raw_anim_cleaner",
+                "datagen.gen_gt_action_detection", "datagen.gen_gt_char_detection",
+                "datagen.gap_report")
+
+_DATAGEN_WITHOUT_HOST_PACKAGES = f"""
+import importlib, json, os, sys, tempfile
+import numpy as np
+for name in {BANNED + HOST_ONLY + ("pandas",)!r}:
+    sys.modules[name] = None
+for name in {DATAGEN_PATH!r}:
+    importlib.import_module("playaid_core_torch." + name)
+from playaid_core_torch import char_loader, imgcodec
+from playaid_core_torch.datagen import gap_report, gen_gt_action_detection, raw_anim_cleaner
+root = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+raw = os.path.join(root, "raw", "byleth", "c00attack1")
+os.makedirs(raw)
+img = np.zeros((60, 80, 3), np.uint8)
+img[10:40, 20:70] = rng.integers(2, 256, (30, 50, 3), dtype=np.uint8)
+imgcodec.write_image(os.path.join(raw, "frame_0.png"), img)
+assert raw_anim_cleaner.clean_all_raw_fighter_anim_data(
+    "byleth", raw_dir=os.path.join(root, "raw"), clean_dir=os.path.join(root, "clean")) == 1
+sprite = imgcodec.read_sprite(os.path.join(root, "clean", "byleth", "Jab", "frame_0.png"))
+assert sprite.shape == (30, 50, 4) and np.array_equal(sprite[..., :3], img[10:40, 20:70])
+frames = os.path.join(root, "frames", "fox")
+os.makedirs(frames)
+np.save(os.path.join(frames, "a.npy"), rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8))
+imgcodec.write_image(os.path.join(frames, "b.png"), img)
+table = char_loader.dataframe_from_directory(os.path.join(root, "frames"))
+feature, label = char_loader.CharacterLoader(table, seed=0)[0]
+assert len(table) == 2 and feature.shape == (120, 480, 3) and label == "fox"
+with open(os.path.join(root, "req.json"), "w") as f:
+    json.dump({{"r1": "a@x"}}, f)
+gap_report.main(["--requests", os.path.join(root, "req.json"), "--store", root])
+try:
+    imgcodec.write_image(os.path.join(root, "c.jpg"), img)
+except ImportError as e:
+    assert "cv2" in str(e)
+else:
+    raise AssertionError("a jpg was written without cv2")
+print("ok")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -339,7 +388,7 @@ def test_port_imports_with_jax_blocked():
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
                  "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH,
-                 *DETECTOR_TRAIN_PATH, *OCR_VIZ_PATH, *MANUSCRIPT_PATH):
+                 *DETECTOR_TRAIN_PATH, *OCR_VIZ_PATH, *MANUSCRIPT_PATH, *DATAGEN_PATH):
         assert f"playaid_core_torch.{name}" in imported
 
 
@@ -446,3 +495,14 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_datagen_runs_with_cv2_pil_yaml_click_pandas_blocked():
+    """The ground-truth generators, the raw-animation cleaner, char_loader
+    and gap_report on a machine without cv2, PIL, yaml, click or pandas
+    (the card's): the modules import, a PNG dump is cleaned through the
+    port's codec and read back as a sprite, char_loader reads .npy and PNG
+    frames, the gap report prints, and a jpg names cv2."""
+    proc = subprocess.run([sys.executable, "-c", _DATAGEN_WITHOUT_HOST_PACKAGES], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr

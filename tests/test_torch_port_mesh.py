@@ -24,9 +24,9 @@ from playaid_core_torch.infer.pipeline import BatchedActionPipeline
 from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
 from playaid_core_torch.models.resnet import BatchNorm2d
 from playaid_core_torch.models.resnet_transformer import TransformerEncoderLayer
+from playaid_core_torch.models.rnn_action_detector import StackedLSTM
 from playaid_core_torch.parallel import dryrun
 from playaid_core_torch.parallel.mesh import (
-    LSTM_NOTE,
     REPLICATED,
     Mesh,
     Spec,
@@ -174,8 +174,7 @@ def _expected(jax_specs, port_name, value):
 @pytest.mark.parametrize("family,num_actions", [("resformer", 63), ("cnn", 64), ("rnn", 63)])
 def test_param_specs_match_jax(family, num_actions):
     """Every parameter of the port's detector is sharded exactly where the
-    JAX rules shard its source leaves (through convert.py's mapping), with
-    one named exception: the RNN's LSTM stays whole."""
+    JAX rules shard its source leaves (through convert.py's mapping)."""
     shapes, jax_specs = _jax_spec_tree(family, num_actions)
     flat = {"/".join(str(p.key) for p in path): spec for path, spec in
             jax.tree_util.tree_flatten_with_path(
@@ -190,9 +189,7 @@ def test_param_specs_match_jax(family, num_actions):
             continue
         expected = _expected(flat, name, sources[name])
         if ".lstm.weight_" in name:
-            assert expected.sharded and spec == Spec(note=LSTM_NOTE), name
             lstm.add(name)
-            continue
         assert spec == expected, (name, spec, expected, sources[name])
     assert bool(lstm) == (family == "rnn")
     if family == "resformer":
@@ -201,6 +198,52 @@ def test_param_specs_match_jax(family, num_actions):
     if family == "cnn":
         assert port["head.classifier.weight"].sharded  # 64 do split
         assert port["head.temporal_dense.weight"].sharded
+
+
+# ---- the RNN's LSTM on model ----
+
+
+def test_stepped_lstm_at_model_1_equals_nn_lstm_in_float64():
+    """The hand-stepped stack that runs on a mesh splitting ``model``, at
+    model 1 (no mesh): outputs, the input's gradient and every parameter's
+    gradient equal ``nn.LSTM``'s within 1e-12 of each tensor's max (float64;
+    the same products, summed in another order)."""
+    gen = torch.Generator().manual_seed(0)
+    lstm = StackedLSTM(12, 16, 3).double()
+    with torch.no_grad():
+        for p in lstm.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float64) * 0.4)
+    x = torch.randn((3, 7, 12), generator=gen, dtype=torch.float64)
+    grad = torch.randn((3, 7, 16), generator=gen, dtype=torch.float64)
+    results = []
+    for run in (lstm, lstm.stepped):
+        lstm.zero_grad()
+        xt = x.clone().requires_grad_(True)
+        y = run(xt)
+        y.backward(grad)
+        results.append({"y": y.detach(), "x": xt.grad,
+                        **{k: p.grad.clone() for k, p in lstm.named_parameters()}})
+    assert not lstm.sharded
+    for key, ref in results[0].items():
+        err = float((results[1][key] - ref).abs().max())
+        assert err <= 1e-12 * float(ref.abs().max()), (key, err)
+
+
+def test_lstm_rows_split_only_where_the_hidden_size_divides():
+    """The rule gives each rank its rows of every gate block where 4 x the
+    model axis divides the rows (JAX's fallback otherwise: replicated, and
+    the stack runs whole); the stepped stack refuses a size that does not
+    divide its hidden width."""
+    lstm = StackedLSTM(6, 6, 1)
+    params = dict(lstm.named_parameters())
+    assert param_specs(params, _grid((1, 2)))["weight_hh_l0"] == REPLICATED  # no "lstm." prefix
+    named = {f"lstm.{k}": v for k, v in params.items()}
+    assert param_specs(named, _grid((1, 2)))["lstm.weight_ih_l0"] == Spec(("model", None), 4)
+    assert param_specs(named, _grid((1, 4)))["lstm.weight_ih_l0"] == REPLICATED
+    assert param_specs(named, _grid((1, 2)))["lstm.bias_hh_l0"] == REPLICATED
+    lstm.mesh = _grid((1, 4), rank=0)
+    with pytest.raises(ValueError, match="does not split"):
+        lstm.stepped(torch.zeros(1, 2, 6))
 
 
 # ---- the collectives inside the model, at gloo world size 2 ----

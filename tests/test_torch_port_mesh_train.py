@@ -6,7 +6,9 @@ step; then ``train.main --model_parallel 2`` on four ranks under torchrun.
 Same numpy inputs from a seed on both sides: a perturbed Flax init
 (``tests/test_torch_port_families._perturbed``) carried across by
 ``convert.monolithic_state_dict``, uint8 frames of 32 px, T 3, batch 4.
-The ResFormer runs with dropout on: the JAX side's dropout draws
+The RNN's LSTM holds this rank's rows of each gate block and is stepped by
+hand (``StackedLSTM.stepped``), its 63 classes whole.  The ResFormer runs
+with dropout on: the JAX side's dropout draws
 (``jax.random.bernoulli``, called by Flax's ``Dropout`` and its attention)
 are replaced, while its step is traced, by the masks the port draws from
 its dropout generator at the whole batch's shape, in the same order.  The
@@ -38,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.linen import OptimizedLSTMCell
 
 from playaid_core_torch.convert import monolithic_state_dict
 from playaid_core_torch.parallel import dryrun
@@ -48,7 +51,7 @@ from tests.test_torch_port_families import _numpy_tree, _perturbed
 torch.set_num_threads(2)
 
 T, CROP, B, LR, SEED = 3, 32, 4, 1e-4, 0
-FAMILIES = {"resformer": 5, "cnn": 64}
+FAMILIES = {"resformer": 5, "cnn": 64, "rnn": 63}
 SPAWN_TIMEOUT_S = 300
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64_TOL = 1e-6
@@ -73,6 +76,19 @@ def _dropout_masks(seed):
     return bernoulli
 
 
+def _float64_carry(initialize_carry):
+    """Flax's ``OptimizedLSTMCell`` makes its zero carry in its
+    ``param_dtype`` (float32), and ``nn.RNN``'s scan then refuses the
+    float64 carry its step returns: the zeros are made float64 (no value
+    changes) while the JAX step is traced."""
+
+    def carry(self, rng, input_shape):
+        return jax.tree_util.tree_map(lambda c: c.astype(jnp.float64),
+                                      initialize_carry(self, rng, input_shape))
+
+    return carry
+
+
 def _jax_meshed_step(family, num_actions, init, frames, labels):
     """One JAX train step in float64 on a (2, 2) mesh of four devices."""
     with jax.enable_x64(True):
@@ -91,12 +107,13 @@ def _jax_meshed_step(family, num_actions, init, frames, labels):
             bsh = jax_mesh.batch_sharding(mesh)
             x = jax.device_put(jnp.asarray(frames, jnp.float64) / 255.0, bsh)
             y = jax.device_put(jnp.asarray(labels, jnp.int32), bsh)
-            real = jax.random.bernoulli
+            real = jax.random.bernoulli, OptimizedLSTMCell.initialize_carry
             jax.random.bernoulli = _dropout_masks(SEED + 1)
+            OptimizedLSTMCell.initialize_carry = _float64_carry(real[1])
             try:
                 new, loss, acc, gnorm, pnorm = step(state, x, y, jax.random.PRNGKey(3))
             finally:
-                jax.random.bernoulli = real
+                jax.random.bernoulli, OptimizedLSTMCell.initialize_carry = real
         # Adam's first moment after one step is 0.1 g, exactly in float64.
         grads = jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1, new.opt_state[0].mu)
         return {"loss": float(loss), "gnorm": float(gnorm), "pnorm": float(pnorm),
@@ -194,10 +211,13 @@ def test_meshed_step_matches_one_process_in_float32(runs, family):
             a, b = got[key][0], one[key][0]
             assert abs(a - b) <= F32_REL_TOL * abs(b), (rank, key, a, b)
     # The collectives that ran: gradients over data, the heads' partial
-    # sums over model (and, for the CNN, the gathered widths).
-    moved = run["f32"]["bytes"]
+    # sums over model (and, for the CNN, the gathered widths; for the RNN,
+    # h gathered at every step of every layer).
+    moved, calls = run["f32"]["bytes"], run["f32"]["calls"]
     assert moved["all_reduce/data"] > 0 and moved["all_reduce/model"] > 0
-    assert ("all_gather/model" in moved) == (family == "cnn")
+    assert ("all_gather/model" in moved) == (family in ("cnn", "rnn"))
+    if family == "rnn":
+        assert calls["all_gather/model"] == 3 * T  # 3 layers x T steps
 
 
 def test_model_parallel_through_main_under_torchrun(tmp_path):

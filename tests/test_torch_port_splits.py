@@ -390,8 +390,8 @@ def test_gen_synth_video_actions_matches_jax(sprite_tree, tmp_path):
 def test_splits_run_on_npy_without_cv2_and_pil(sprite_tree, monkeypatch):
     """With cv2 and PIL blocked: the synth split at difficulty 2 and the
     simple split run on the .npy twin and give the JAX frames; the JPEG
-    degrade, a jpg stage and a PNG sprite raise an ImportError naming what
-    they need."""
+    degrade and a jpg stage raise an ImportError naming what they need; a
+    PNG sprite reads through the port's own PNG codec, as cv2 reads it."""
     root, twin = sprite_tree
     jax_ds = _splits(JaxDataset, root, seed=2, **SYNTH_CONFIGS["difficulty2-moving-stage"])
     ref = jax_ds[0]
@@ -410,6 +410,7 @@ def test_splits_run_on_npy_without_cv2_and_pil(sprite_tree, monkeypatch):
     with pytest.raises(ImportError, match="PIL"):
         _splits(UltActionRecogDataset, root, seed=0)[0]
     port_dataset._load_sprite_rgba_cached.cache_clear()
-    with pytest.raises(ImportError, match="cv2"):
-        port_dataset._load_sprite_rgba(next(
-            os.path.join(d, f) for d, _, fs in os.walk(root / "clean") for f in fs))
+    sprite = next(os.path.join(d, f) for d, _, fs in os.walk(root / "clean") for f in fs)
+    assert sprite.endswith(".png")
+    assert np.array_equal(port_dataset._load_sprite_rgba(sprite),
+                          cv2.imread(sprite, cv2.IMREAD_UNCHANGED))
