@@ -10,8 +10,9 @@ synthetic 1080p clip: noise background with two discs on the fighter
 trajectories.
 
 Phases (any failure exits non-zero, and no result line is printed):
-1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a)
-   and, at the same time, the native log parser (native/log_parser.cpp)
+1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a:
+   K1 crop_resize, K2 residual_block, K3 viterbi, K4 yuv420_unpack, one
+   nvcc each, all at once) and, at the same time, the native log parser (native/log_parser.cpp)
    with g++, which links no FFmpeg library;
 2. crop kernel (K1) against its plain version at the main-path shapes and
    on boxes that hang off every frame edge; its window entry against
@@ -22,18 +23,30 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. the device slice from pinned frames, with PyTorch's default TF32 flags
    (the entry points set their own float32 numerics): per chunk upload ->
    preprocess_frames (K1) -> embed_crops (ResNet-18, layer4[1] through K2)
-   -> scatter_embeddings, then classify_buffer (argmax and Viterbi) and
-   the stride repeat; launch counts; the first 96 frames again on the CPU;
+   -> scatter_embeddings, then classify_buffer (argmax and Viterbi, both
+   fighters in one K3 launch) and the stride repeat; launch counts (K3
+   one, K4 none: the crops come from K1); the first 96 frames again on
+   the CPU; (b) K3 against viterbi_decode_ref on the slice's own
+   [2, 256, 63] log-probs (true length 240), on a seeded 14,400-row match
+   and on edge cases (lengths 0, 1 and F a sequence, F 1, A 1/33/64, -inf
+   rows, costs 0 and inf, 30,000 rows whose backpointers spill past shared
+   memory): labels identical; K4 against yuv420_to_rgb_ref at [48, 24576]
+   and [1, 24576]: max abs err 0;
 5. timings of each kernel: call time (CUDA events over back-to-back calls)
    and device time (torch.profiler), its plain version and one library
    call that computes the same function (f32 and bf16), with the least
-   time the card could take;
+   time the card could take; K3 also at 14,400 rows, in us a step (its
+   dependent chain); K4's plain version's device time too, and the embed
+   of a chunk from K4's channels-first output against the same values
+   stored channels last;
 6. the VOD path, VodAnalyzer.analyze (decode -> pinned ring and copy
    stream -> embed_crops_yuv -> buffer -> labels), native backend, yuv420,
    stride 2, chunk 48, argmax then Viterbi (timed): K2 launches, weights on
    the card, host-to-device bytes per chunk under torch.profiler, the
-   device's busy share, decode-only frames/s, and the first 96 frames on
-   the CPU;
+   device's busy share and the layout conversions in its trace, K3 one
+   launch and K4 one a chunk, K3 against its plain version on the run's
+   own log-probs, decode-only frames/s, and the first 96 frames on the
+   CPU;
 7. the ResFormer (ResNet-50 + 3 transformer layers) and RNN (ResNet-18 +
    3-layer LSTM) families at full width with seeded random weights through
    the same analyzer, against the CPU on the first 96 frames;
@@ -42,9 +55,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    -> VodAnalyzer(host_resize=False), stride 1, chunk 48: 1080p frames from
    a stand-in capture -> 384-px windows cut on the host -> pinned ring ->
    K1's window entry -> ResNet-18 with K2 -> labels, argmax then Viterbi
-   (timed): K1 (window entry) and K2 launches, host-to-device bytes per
-   chunk (the windows and their origins, no weights), card vs CPU labels on
-   the first 96 frames, frames/s and its split; then the command line,
+   (timed): K1 (window entry), K2, K3 (one) and K4 (none) launches,
+   host-to-device bytes per chunk (the windows and their origins, no
+   weights), K3 against its plain version on the run's own log-probs, card
+   vs CPU labels on the first 96 frames, frames/s and its split; then the command line,
    main([...]) in this process, on the same log with a port checkpoint
    file made from the bench weights, --stride 2, through phase 6's decoder
    stand-in: one CSV row per frame, moves named by CLASS_ID_TO_MOVE;
@@ -57,8 +71,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    run_action_recognition (the bench weights, K2 in the embed at
    239x4x4x512, held against its plain version on the inputs it ran) ->
    run_damage_detection (the conv digit net on the card) -> write_output:
-   K2 launches, weights on the card, host-to-device bytes of a detector
-   batch, frames/s of each stage, card vs CPU detections, labels, readings
+   K2 launches (K3 and K4 none: argmax decode, host crops), weights on the
+   card, host-to-device bytes of a detector batch, frames/s of each stage, card vs CPU detections, labels, readings
    and digit logits;
 10. training: a ground-truth tree of .npy crops (the disc clip's crops, 63
    seeded classes) under build/smoke/ -> UltActionRecogDataset ->
@@ -136,8 +150,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    and bytes of each collective, the RNN's model-axis collectives a step
    and its LSTM's share of the step (the LSTM timed alone); (c)
    VodAnalyzer(mesh=make_mesh(devices=[cuda:0, cuda:0])) on phase 6's clip:
-   labels identical to mesh=None, confidences within 1e-4, K2 launches 2
-   a chunk and K2 held against its plain version in each replica,
+   labels identical to mesh=None, confidences within 1e-4, K2 and K4
+   launches 2 a chunk, K3 one, and K2 held against its plain version in each replica,
    frames/s beside phase 6's; (d) the (1, 2) ResFormer's checkpoint after
    its first step, restored on one process: the next two losses within
    2e-4 relative, and BatchedActionPipeline.load_checkpoint reads it;
@@ -253,6 +267,7 @@ CROP, PADDING, BOX_PX, DISC_RADIUS = 128, 30, 260, 90
 WINDOW = 384  # the window route's host-side window (VodAnalyzer's default)
 CPU_FRAMES = 96
 SWITCH_COST = 16.0
+MATCH_ROWS = 14400  # an 8-minute match at 60 fps, stride 2: K3's long case
 FAMILY_SEED = 0
 
 PROFILE_SETTLE_S = 0.05   # pause between a profile's first opening kernel and the rest
@@ -563,6 +578,43 @@ def device_ms(torch, fn, iters, kernel_name, per_call, warmup=3):
     return None, traced
 
 
+def span_device_ms(torch, fn, iters, warmup=3):
+    """Device milliseconds per call of every kernel that fn(it) launches (a
+    plain version's many small kernels), and how many a call: the kernels
+    whose launch the exported trace's host side places inside a
+    record_function span around iters calls (not the session's opening and
+    closing kernels).  A trace in which a launch of the span has no kernel
+    on the device is profiled again, once; if that one loses one too, the
+    time is None."""
+    for it in range(warmup):
+        fn(it)
+    torch.cuda.synchronize()
+    trace = os.path.join(ROOT, "build", "smoke", f"span_ms_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    for _ in range(2):
+        with profiled(torch) as prof:
+            with torch.profiler.record_function("chip_smoke_span"):
+                for it in range(iters):
+                    fn(it)
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(trace)
+        span = next(e for e in events
+                    if e.get("name") == "chip_smoke_span" and e.get("cat") == "user_annotation")
+        lo, hi = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+        launched = {e.get("args", {}).get("correlation") for e in events
+                    if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")
+                    and lo <= float(e["ts"]) <= hi}
+        durs = [float(e["dur"]) for e in events if e.get("cat") == "kernel"
+                and e.get("args", {}).get("correlation") in launched]
+        if launched and len(durs) == len(launched):
+            return sum(durs) / 1e3 / iters, len(durs) / iters
+        log(f"span_device_ms: {len(durs)} kernels on the device for {len(launched)} launches")
+    return None, len(durs) / iters
+
+
 def traced_device_ms(torch, fn, iters, kernel_name, per_call, log_dir, warmup=3,
                      openers=TRACE_OPENERS):
     """device_ms through the port's own tracer: iters back-to-back calls of
@@ -614,6 +666,67 @@ def lost_launches(path):
     start = min(float(e["ts"]) for e in events if "ts" in e)
     return len(launches), [(i, round((ts - start) / 1e3, 3))
                            for i, (ts, c) in enumerate(launches) if c not in traced]
+
+
+@contextlib.contextmanager
+def recorded_viterbi():
+    """Record each call the pipeline makes to K3's wrapper (in this script
+    only): a copy of its log-probs, its true length and cost, and a copy of
+    the labels the wrapper gave."""
+    from playaid_core_torch.infer import pipeline as pipeline_module
+
+    wrapper = pipeline_module.viterbi_decode
+    calls = []
+
+    def recording(log_probs, true_len, switch_cost):
+        lp = log_probs.clone()
+        labels = wrapper(log_probs, true_len, switch_cost)
+        calls.append((lp, true_len, switch_cost, labels.clone()))
+        return labels
+
+    pipeline_module.viterbi_decode = recording
+    try:
+        yield calls
+    finally:
+        pipeline_module.viterbi_decode = wrapper
+
+
+def k3_against_plain(torch, calls):
+    """Whether each recorded K3 launch's labels equal viterbi_decode_ref's
+    on the same card tensors, and the launches' shapes."""
+    from playaid_core_torch.ops.viterbi import viterbi_decode_ref
+
+    same = all(torch.equal(viterbi_decode_ref(lp, n, cost), labels)
+               for lp, n, cost, labels in calls)
+    return same, [tuple(lp.shape) for lp, _, _, _ in calls]
+
+
+def k3_edge_cases(torch, dev):
+    """(what, log_probs, true_len, cost) of K3's edge cases on the card:
+    per-sequence lengths 0, 1 and F, F = 1, A of 1, 33 and 64, entries,
+    a class column and a whole row of -inf, costs 0 and inf, and a match
+    long enough that the backpointers spill past shared memory.  The
+    log-probs are quantised to quarter nats, so maxima and scores tie."""
+    rng = np.random.default_rng(7)
+
+    def lp(b, f, a, neg_inf=False):
+        x = (np.round(rng.normal(-3.0, 2.0, (b, f, a)) * 4) / 4).astype(np.float32)
+        if neg_inf:
+            x[rng.random(x.shape) < 0.1] = -np.inf
+            x[0, :, a // 2] = -np.inf
+            x[-1, f // 2] = -np.inf
+        return torch.from_numpy(x).to(dev)
+
+    def lengths(*v):
+        return torch.tensor(v, device=dev)
+
+    return [("lengths 0/1/F/23, A 63", lp(4, 40, 63), lengths(0, 1, 40, 23), 4.0),
+            ("A 1", lp(2, 40, 1), 40, 4.0),
+            ("A 33, -inf, cost 0", lp(3, 40, 33, True), lengths(40, 17, 1), 0.0),
+            ("A 64, -inf, cost inf", lp(2, 40, 64, True), lengths(40, 31), float("inf")),
+            ("F 1", lp(2, 1, 63), 1, 4.0),
+            ("F 1, true_len 0", lp(2, 1, 63), 0, 4.0),
+            ("F 30000 (spills)", lp(2, 30000, 63), lengths(30000, 29000), SWITCH_COST)]
 
 
 def taps(origin, side, length, size):
@@ -860,9 +973,14 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
         w.launches = 0
     timed = viterbi.analyze(clip, boxes_all)
     launches = [w.launches for w in wrappers]
+    num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
     log(f"phase 6: launches during the timed analyze: crop_resize {launches[0]} (crops are "
-        f"made on the host on this path), residual_block {launches[1]}")
+        f"made on the host on this path), residual_block {launches[1]}, viterbi {launches[2]}, "
+        f"yuv420_unpack {launches[3]}")
     check(launches[1] > 0, "phase 6: K2 (residual_block) ran during VodAnalyzer.analyze")
+    check(launches[2] == 1 and launches[3] == num_chunks,
+          f"phase 6: K3 (viterbi) launched once for the one classify_buffer (both fighters), "
+          f"K4 (yuv420_unpack) once a chunk: {launches[2]} and {launches[3]} of {num_chunks}")
     for name, res in (("argmax", first), ("viterbi", timed)):
         check(res["labels"].shape == (NUM_FRAMES, 2) and res["frames"] == NUM_FRAMES
               and 0 <= res["labels"].min() and res["labels"].max() < 63
@@ -892,7 +1010,6 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     prof.export_chrome_trace(trace)
     events = trace_device_events(trace)
     h2d = [b for name, cat, _, _, b in events if cat == "gpu_memcpy" and "HtoD" in name]
-    num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
     chunk_bytes = (CHUNK // STRIDE) * 2 * CROP * CROP * 3 // 2
     big = [b for b in h2d if b is not None and b >= 65536]
     small = sum(b for b in h2d if b is not None and b < 65536)
@@ -906,6 +1023,10 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
         by_name[name] = by_name.get(name, 0.0) + dur
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"phase 6 profile: {us / 1e3:9.3f} ms  {name[:100]}")
+    # What K4's channels-first output changes in cuDNN's choice of kernels.
+    layout_ms = {key: sum(us for name, us in by_name.items() if key in name) / 1e3
+                 for key in ("nhwcToNchw", "nchwToNhwc", "NHWC", "yuv420_unpack_kernel")}
+    log(f"phase 6 profile: ms by name fragment over the argmax run {json.dumps(layout_ms)}")
 
     # Where the Viterbi run's wall goes: a run with the card synchronised
     # where classify_buffer starts and ends (in this script only), and one
@@ -930,9 +1051,15 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
         f"staging and embed of all chunks {(marks['classify_start'] - t0) * 1e3:.1f} ms, "
         f"classify_buffer {(marks['classify_end'] - marks['classify_start']) * 1e3:.1f} ms, "
         f"the rest {(t1 - marks['classify_end']) * 1e3:.1f} ms")
-    inline = VodAnalyzer(pipe, decode="viterbi", decode_workers=1, **kw).analyze(clip, boxes_all)
+    with recorded_viterbi() as k3_calls:
+        inline = VodAnalyzer(pipe, decode="viterbi", decode_workers=1, **kw).analyze(clip,
+                                                                                   boxes_all)
     log(f"phase 6: the same Viterbi run with one decode worker (inline chunk loop): "
         f"{inline['seconds'] * 1e3:.1f} ms = {inline['fps']:.1f} frames/s")
+    same, shapes = k3_against_plain(torch, k3_calls)
+    check(len(k3_calls) == 1 and same,
+          f"phase 6: K3 labels identical to viterbi_decode_ref on the card's own log-probs "
+          f"{shapes} (that run's one launch): {same}")
 
     e2e_fps = timed["fps"]
     log(f"phase 6: VodAnalyzer.analyze {NUM_FRAMES} frames (Viterbi run) in "
@@ -1041,9 +1168,11 @@ def run_log_phase(torch, dev, check, wrappers):
     timed = viterbi.analyze(clip, boxes)
     launches = [w.launches for w in wrappers]
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
-    check(launches[0] == num_chunks and launches[1] > 0,
+    check(launches[0] == num_chunks and launches[1] > 0 and launches[2] == 1
+          and launches[3] == 0,
           f"phase 8: launches during the timed analyze: K1 window entry {launches[0]} (one a "
-          f"chunk: {num_chunks}), K2 residual_block {launches[1]}")
+          f"chunk: {num_chunks}), K2 residual_block {launches[1]}, K3 viterbi {launches[2]} (one "
+          f"classify_buffer), K4 yuv420_unpack {launches[3]} (none on the window route)")
     for name, res in (("argmax", first), ("viterbi", timed)):
         check(res["labels"].shape == (NUM_FRAMES, 2) and res["frames"] == NUM_FRAMES
               and 0 <= res["labels"].min() and res["labels"].max() < 63
@@ -1124,11 +1253,17 @@ def run_log_phase(torch, dev, check, wrappers):
         return out
 
     pipe.classify_buffer = timed_classify
-    t0 = time.perf_counter()
-    viterbi.analyze(clip, boxes)
-    t1 = time.perf_counter()
+    with recorded_viterbi() as k3_calls:
+        t0 = time.perf_counter()
+        viterbi.analyze(clip, boxes)
+        t1 = time.perf_counter()
     del pipe.classify_buffer
-    log(f"phase 8: Viterbi run split at classify_buffer (card synchronised there): decode "
+    same, shapes = k3_against_plain(torch, k3_calls)
+    check(len(k3_calls) == 1 and same,
+          f"phase 8: K3 labels identical to viterbi_decode_ref on the card's own log-probs "
+          f"{shapes} (the split run's one launch): {same}")
+    log(f"phase 8: Viterbi run split at classify_buffer (card synchronised there; K3's input "
+        f"and labels copied by the check's recorder): decode "
         f"(stand-in capture), windows, staging, K1 and embed of all chunks "
         f"{(marks['classify_start'] - t0) * 1e3:.1f} ms, classify_buffer "
         f"{(marks['classify_end'] - marks['classify_start']) * 1e3:.1f} ms, the rest "
@@ -3256,6 +3391,8 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
     from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
     from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
+    from playaid_core_torch.ops.viterbi import viterbi_decode
+    from playaid_core_torch.ops.yuv import yuv420_to_rgb
     from playaid_core_torch.parallel.dryrun import run_train_case
     from playaid_core_torch.parallel.mesh import make_mesh
     from playaid_core_torch.train.train import Trainer
@@ -3433,9 +3570,11 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
     blocks = [p.embed.layer4[1] for p, _ in meshed._replicas]
     seen = [{} for _ in blocks]
     hooks = [b.register_forward_hook(keep_input(s)) for b, s in zip(blocks, seen)]
-    k2_wrapper.launches = 0
+    k2_wrapper.launches = viterbi_decode.launches = yuv420_to_rgb.launches = 0
     res_mesh = meshed.analyze("disc_clip.mp4", boxes_all)
     k2["vod_launches"] = k2_wrapper.launches
+    k2["vod_k3_launches"] = viterbi_decode.launches
+    k2["vod_k4_launches"] = yuv420_to_rgb.launches
     for h in hooks:
         h.remove()
     res_single = single.analyze("disc_clip.mp4", boxes_all)
@@ -3443,11 +3582,13 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
     same = bool(np.array_equal(res_mesh["labels"], res_single["labels"]))
     conf = float(np.abs(res_mesh["confidences"] - res_single["confidences"]).max())
     check(same and conf <= MESH_CONF_TOL and k2["vod_launches"] == 2 * num_chunks
+          and k2["vod_k4_launches"] == 2 * num_chunks and k2["vod_k3_launches"] == 1
           and blocks[0] is not blocks[1],
           f"phase 13 (c): VodAnalyzer(mesh=make_mesh(devices=[{dev}, {dev}])) over "
           f"{NUM_FRAMES} frames: labels identical to mesh=None {same}, confidences max abs "
-          f"diff {conf:.3e} (tol {MESH_CONF_TOL}); K2 launches {k2['vod_launches']} = 2 "
-          f"replicas x {num_chunks} chunks; {card}")
+          f"diff {conf:.3e} (tol {MESH_CONF_TOL}); K2 launches {k2['vod_launches']} and K4 "
+          f"(yuv420_unpack) {k2['vod_k4_launches']} = 2 replicas x {num_chunks} chunks, K3 "
+          f"(viterbi) {k2['vod_k3_launches']} (one classify_buffer); {card}")
     errs = []
     for r, (block, s) in enumerate(zip(blocks, seen)):
         err, scale, shape = k2_against_plain(block, s["x"])
@@ -4431,6 +4572,8 @@ def main():
         batched_square_crop_resize,
         batched_window_resize,
     )
+    from playaid_core_torch.ops.viterbi import viterbi_decode, viterbi_decode_ref
+    from playaid_core_torch.ops.yuv import yuv420_to_rgb, yuv420_to_rgb_ref
     from playaid_core_torch.video import _native
 
     failures = []
@@ -4633,12 +4776,21 @@ def main():
         return buf, labels
 
     run_slice()  # warm-up: cuDNN plans, allocator
-    square_crop_resize.launches = 0
-    residual_block_packed.launches = 0
+    slice_wrappers = {"crop_resize": square_crop_resize, "residual_block": residual_block_packed,
+                      "viterbi": viterbi_decode, "yuv420_unpack": yuv420_to_rgb}
+    for wrapper in slice_wrappers.values():
+        wrapper.launches = 0
     stage_ms = dict.fromkeys(stages, 0.0)
     t0 = time.perf_counter()
     buf, labels = run_slice(stage_ms)
     slice_s = time.perf_counter() - t0
+    launches = {name: wrapper.launches for name, wrapper in slice_wrappers.items()}
+    log(f"phase 4: main-path launches {launches}; global TF32 flags left at cudnn "
+        f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32}")
+    check(launches["crop_resize"] > 0 and launches["residual_block"] > 0
+          and launches["viterbi"] == 1 and launches["yuv420_unpack"] == 0,
+          "phase 4: K1 and K2 ran on the main path, K3 once (one classify_buffer with "
+          "Viterbi, both fighters in one launch), K4 not (the crops come from K1)")
     rng = np.random.default_rng(1)
     u8 = torch.from_numpy(rng.integers(0, 256, (48, CROP, CROP, 3), dtype=np.uint8)).to(dev)
     yuv = torch.from_numpy(rng.integers(0, 256, (48, CROP * CROP * 3 // 2),
@@ -4646,11 +4798,8 @@ def main():
     emb_u8 = pipe.embed_crops_u8(u8)
     emb_yuv = pipe.embed_crops_yuv(yuv)
     torch.cuda.synchronize()
-    launches = {"crop_resize": square_crop_resize.launches,
-                "residual_block": residual_block_packed.launches}
-    log(f"phase 4: main-path launches {launches}; global TF32 flags left at cudnn "
-        f"{torch.backends.cudnn.allow_tf32}, matmul {torch.backends.cuda.matmul.allow_tf32}")
-    check(all(n > 0 for n in launches.values()), "phase 4: both kernels ran on the main path")
+    check(yuv420_to_rgb.launches == 1,
+          f"phase 4: embed_crops_yuv on a chunk launched K4 {yuv420_to_rgb.launches} time(s)")
     fps = NUM_FRAMES / slice_s
     log(f"phase 4: slice {NUM_FRAMES} frames in {slice_s * 1e3:.1f} ms = {fps:.1f} frames/s "
         f"on the device side (decode excluded; host-to-device upload of the sampled frames, "
@@ -4696,6 +4845,41 @@ def main():
             check(agree >= LABEL_AGREEMENT_MIN, line + f" (min {LABEL_AGREEMENT_MIN})")
         else:
             log(line)
+
+    # ---- phase 4 (b): K3 and K4 against their plain versions ----
+    with recorded_viterbi() as k3_calls:  # the slice's launch again, on its log-probs
+        pipe.classify_buffer(buf, len(sampled), decode="viterbi", switch_cost=SWITCH_COST)
+    k3_lp, k3_len, k3_cost, _ = k3_calls[0]
+    match_lp = torch.log_softmax(torch.from_numpy(np.random.default_rng(3).normal(
+        0.0, 3.0, (2, MATCH_ROWS, 63)).astype(np.float32)), dim=2).to(dev)
+    k3_inputs = ([("phase 4's log-probs", k3_lp, k3_len, k3_cost),
+                  ("a seeded match", match_lp, MATCH_ROWS, SWITCH_COST)]
+                 + k3_edge_cases(torch, dev))
+    k3_err, k3_bad = 0, []
+    with torch.inference_mode():
+        for what, lp_in, n, cost in k3_inputs:
+            diff = int((viterbi_decode(lp_in, n, cost)
+                        - viterbi_decode_ref(lp_in, n, cost)).abs().max())
+            k3_err = max(k3_err, diff)
+            if diff:
+                k3_bad.append(what)
+    check(not k3_bad, f"phase 4 (b): K3 labels identical to viterbi_decode_ref on the card for "
+          f"{', '.join(f'{w} {tuple(x.shape)}' for w, x, _, _ in k3_inputs)}; differing: "
+          f"{k3_bad or 'none'}")
+    k4_err, k4_views = 0.0, True
+    with torch.inference_mode():
+        for crops_in in (yuv, yuv[:1]):
+            got = yuv420_to_rgb(crops_in, CROP)
+            k4_err = max(k4_err, float((got - yuv420_to_rgb_ref(crops_in, CROP)).abs().max()))
+            k4_views &= (tuple(got.shape) == (crops_in.shape[0], CROP, CROP, 3)
+                         and got.permute(0, 3, 1, 2).is_contiguous())
+        k4_cpu_err = float((yuv420_to_rgb(yuv, CROP).cpu()
+                            - yuv420_to_rgb_ref(yuv.cpu(), CROP)).abs().max())
+    check(k4_err == 0 and k4_views,
+          f"phase 4 (b): K4 vs yuv420_to_rgb_ref on the card at {tuple(yuv.shape)} and "
+          f"{tuple(yuv[:1].shape)}: max abs err {k4_err:.3e} (must be 0); [N, S, S, 3] views of "
+          f"[N, 3, S, S] storage {k4_views}; against the CPU's plain version {k4_cpu_err:.3e} (it "
+          f"divides by 255 where PyTorch on the card multiplies by 1/255)")
 
     # ---- phase 5: timings at the main-path shapes ----
     n_sets = 8  # distinct frame batches, so the touched windows (~75 MB) exceed L2
@@ -4826,8 +5010,53 @@ def main():
     k2_bf16_bound_ms = max(k2_flops / PEAK_BF16_FLOPS, k2_bf16_bytes / PEAK_BYTES_PER_S) * 1e3
     k2_core_bound_ms = max(k2_flops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
 
+    # K3 on phase 4's launch and on the seeded match; K4 on a chunk beside
+    # its plain version's call and device time, and the embed of its output
+    # in the NCHW storage it writes against the same values stored NHWC.
+    with torch.inference_mode():
+        def k3_call(_):
+            return viterbi_decode(k3_lp, k3_len, k3_cost)
+
+        def k3_match(_):
+            return viterbi_decode(match_lp, MATCH_ROWS, SWITCH_COST)
+
+        k3_ms = time_cuda(torch, k3_call, 100)
+        k3_dev_ms, k3_per_call = device_ms(torch, k3_call, 40, "viterbi_kernel", 1)
+        k3_plain_ms = time_cuda(torch, lambda it: viterbi_decode_ref(k3_lp, k3_len, k3_cost), 3,
+                                warmup=1)
+        k3_match_ms = time_cuda(torch, k3_match, 6, warmup=1)
+        k3_match_dev_ms, _ = device_ms(torch, k3_match, 4, "viterbi_kernel", 1, warmup=1)
+        yuv_sets = [torch.from_numpy(rng.integers(0, 256, tuple(yuv.shape), dtype=np.uint8)).to(dev)
+                    for _ in range(n_sets)]
+
+        def k4_call(it):
+            return yuv420_to_rgb(yuv_sets[it % n_sets], CROP)
+
+        def k4_plain(it):
+            return yuv420_to_rgb_ref(yuv_sets[it % n_sets], CROP)
+
+        k4_ms = time_cuda(torch, k4_call, 200)
+        k4_dev_ms, k4_per_call = device_ms(torch, k4_call, 80, "yuv420_unpack_kernel", 1)
+        k4_plain_ms = time_cuda(torch, k4_plain, 40)
+        k4_plain_dev_ms, k4_plain_kernels = span_device_ms(torch, k4_plain, 20)
+        rgb_nchw = k4_call(0)
+        rgb_nhwc = rgb_nchw.contiguous()
+        embed_ms = {"nchw": [], "nhwc": []}
+        for order in ("nchw", "nhwc", "nhwc", "nchw"):
+            x_rgb = rgb_nchw if order == "nchw" else rgb_nhwc
+            embed_ms[order].append(time_cuda(torch, lambda it: pipe.embed(x_rgb), 20))
+    k3_rows = int(min(max(k3_len, 1), k3_lp.shape[1]))
+    # Rows the true length needs read once, every label written once.
+    k3_bytes = k3_lp.shape[0] * k3_rows * k3_lp.shape[2] * 4 + k3_lp.shape[0] * k3_lp.shape[1] * 8
+    k3_bound_ms = k3_bytes / PEAK_BYTES_PER_S * 1e3
+    k4_bytes = yuv.numel() + yuv.shape[0] * 3 * CROP * CROP * 4
+    k4_bound_ms = k4_bytes / PEAK_BYTES_PER_S * 1e3
+
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    def per_step_us(ms, steps):
+        return "not measured" if ms is None else f"{ms * 1e3 / steps:.4f} us"
 
     log(f"phase 5: K1 call {k1_ms:.4f} ms, device {fmt(k1_dev_ms)} ({k1_per_call:g} kernel "
         f"a call), plain {k1_plain_ms:.4f} ms, grid_sample {k1_lib_ms:.4f} ms, bound "
@@ -4843,6 +5072,19 @@ def main():
         f"{k2_bf16_bound_ms:.4f} ms; plain {k2_plain_ms:.4f} ms, "
         f"cuDNN chain {k2_lib_ms:.4f} ms; bf16 plain {k2_bf16_plain_ms:.4f} ms, bf16 cuDNN "
         f"chain {k2_bf16_lib_ms:.4f} ms")
+    log(f"phase 5: K3 viterbi {tuple(k3_lp.shape)} (true length {k3_len}) call {k3_ms:.4f} ms, "
+        f"device {fmt(k3_dev_ms)} ({k3_per_call:g} kernel a call) = "
+        f"{per_step_us(k3_dev_ms, k3_rows)} a step, plain {k3_plain_ms:.4f} ms, bound "
+        f"{k3_bound_ms:.5f} ms (bytes, {k3_bytes} B); the chain: {tuple(match_lp.shape)} call "
+        f"{k3_match_ms:.4f} ms, device {fmt(k3_match_dev_ms)} = "
+        f"{per_step_us(k3_match_dev_ms, MATCH_ROWS)} a step; no library call computes it")
+    log(f"phase 5: K4 yuv420_unpack {tuple(yuv.shape)} call {k4_ms:.4f} ms, device "
+        f"{fmt(k4_dev_ms)} ({k4_per_call:g} kernel a call), bound {k4_bound_ms:.4f} ms (bytes, "
+        f"{k4_bytes} B); plain call {k4_plain_ms:.4f} ms, plain device {fmt(k4_plain_dev_ms)} "
+        f"({k4_plain_kernels:g} kernels a call); no library call computes it")
+    log(f"phase 5: embed of a chunk from K4's output, NCHW storage (what the pipeline runs) "
+        f"{', '.join(f'{v:.4f}' for v in embed_ms['nchw'])} ms, the same values stored NHWC "
+        f"{', '.join(f'{v:.4f}' for v in embed_ms['nhwc'])} ms (order nchw, nhwc, nhwc, nchw)")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_slice(torch, run_slice, slice_s)
 
@@ -4853,14 +5095,21 @@ def main():
     stand_in = DiscClipDecoder(NUM_FRAMES)
     install_stand_in(native_decoder, stand_in)
     vod_launches, vod_fps = run_vod_phase(torch, dev, check, boxes_all, stand_in,
-                                          [square_crop_resize, residual_block_packed])
+                                          [square_crop_resize, residual_block_packed,
+                                           viterbi_decode, yuv420_to_rgb])
     run_family_phase(torch, dev, check, boxes_all, stand_in, residual_block_packed)
 
     # ---- phase 8: the log path, the window route and the command line ----
-    log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed])
+    log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed,
+                                                     viterbi_decode, yuv420_to_rgb])
 
     # ---- phase 9: the pixels-only path, AIRunner ----
+    viterbi_decode.launches = yuv420_to_rgb.launches = 0
     pixels, pixels_runner = run_pixels_phase(torch, dev, check, card, residual_block_packed)
+    pixels_k3k4 = [viterbi_decode.launches, yuv420_to_rgb.launches]
+    check(pixels_k3k4 == [0, 0],
+          f"phase 9: K3 and K4 launches {pixels_k3k4}: none (the runner decodes by argmax, its "
+          f"crops are float crops cut on the host)")
 
     # ---- phase 10: training on the card ----
     training = run_train_phase(torch, dev, check, card, residual_block_packed)
@@ -4924,10 +5173,40 @@ def main():
          "bf16_device_ms": k2_bf16_dev_ms, "bf16_bound_ms": k2_bf16_bound_ms,
          "bf16_plain_ms": k2_bf16_plain_ms, "bf16_library_ms": k2_bf16_lib_ms},
     ]
+    # K1's window entry (phase 8's path), beside the frame entry's numbers.
+    # K3 and K4: launches of the path that runs each (phase 4's slice for
+    # K3, phase 6's yuv420 route for K4), then every phase's.
+    kernels += [
+        {"name": "viterbi", "route": "cuda", "source": "playaid_core_torch/csrc/viterbi.cu",
+         "replaces": "playaid_core_tpu/infer/pipeline.py:356",
+         "launches": launches["viterbi"], "max_abs_err": float(k3_err),
+         "ms": k3_ms, "device_ms": k3_dev_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound_ms, "bound_by": "bytes", "library_ms": None,
+         "shape": list(k3_lp.shape), "true_len": k3_len,
+         "device_us_per_step": None if k3_dev_ms is None else k3_dev_ms * 1e3 / k3_rows,
+         "match_shape": list(match_lp.shape), "match_ms": k3_match_ms,
+         "match_device_ms": k3_match_dev_ms,
+         "match_device_us_per_step": (None if k3_match_dev_ms is None
+                                      else k3_match_dev_ms * 1e3 / MATCH_ROWS)},
+        {"name": "yuv420_unpack", "route": "cuda",
+         "source": "playaid_core_torch/csrc/yuv420_unpack.cu",
+         "replaces": "playaid_core_tpu/infer/pipeline.py:246",
+         "launches": vod_launches[3], "max_abs_err": k4_err,
+         "ms": k4_ms, "device_ms": k4_dev_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound_ms, "bound_by": "bytes", "library_ms": None,
+         "shape": list(yuv.shape), "plain_device_ms": k4_plain_dev_ms,
+         "plain_kernels": k4_plain_kernels, "embed_nchw_ms": embed_ms["nchw"],
+         "embed_nhwc_ms": embed_ms["nhwc"]},
+    ]
+    for kernel, n_slice, n_pixels, n_mesh in zip(kernels[2:], (launches["viterbi"],
+                                                                launches["yuv420_unpack"]),
+                                                 pixels_k3k4, (mesh.pop("vod_k3_launches"),
+                                                               mesh.pop("vod_k4_launches"))):
+        kernel.update({"slice_launches": n_slice, "pixels_launches": n_pixels,
+                       "mesh_launches": n_mesh})
     for kernel, n, n_window in zip(kernels, vod_launches, log_launches):
         kernel["vod_launches"] = n
         kernel["window_launches"] = n_window
-    # K1's window entry (phase 8's path), beside the frame entry's numbers.
     kernels[0].update({"window_max_abs_err": kw_err, "window_ms": kw_ms,
                        "window_device_ms": kw_dev_ms, "window_plain_ms": kw_plain_ms,
                        "window_bound_ms": kw_bound_ms, "window_library_ms": kw_lib_ms})

@@ -7,9 +7,10 @@ gathered over the embedding sequence and classified by the temporal head:
 
 1. ``preprocess_frames``: frames + boxes -> crops (CUDA kernel
    ``csrc/crop_resize.cu`` on the card);
-2. ``embed_crops`` / ``embed_crops_u8`` / ``embed_crops_yuv`` /
+2. ``embed_crops`` / ``embed_crops_u8`` / ``embed_crops_yuv`` (the YUV420
+   unpack is the CUDA kernel ``csrc/yuv420_unpack.cu`` on the card) /
    ``embed_windows`` (windows cut out on the host, resized by the same
-   kernel's window entry on the card): crops ->
+   crop kernel's window entry on the card): crops ->
    per-frame embeddings: ResNet-18 -> 1000 (CNN), ResNet-50 -> 2048 -> 247
    (ResFormer), ResNet-18 -> 512 -> 300 (RNN).  ResNet-18's last identity
    block is the CUDA kernel ``csrc/residual_block.cu`` on the card;
@@ -17,7 +18,8 @@ gathered over the embedding sequence and classified by the temporal head:
    accumulate, interleaved by fighter, in one ``[F_pad * 2, D]`` buffer;
 4. ``classify_buffer`` / ``classify_sequence``: windows -> temporal head
    (dense head; transformer; LSTM) -> log-probs -> argmax or Viterbi
-   labels and confidences.  The transformer and LSTM heads give a
+   (the CUDA kernel ``csrc/viterbi.cu`` on the card, both fighters in one
+   launch) labels and confidences.  The transformer and LSTM heads give a
    prediction per step; the window's centre step labels its frame.
 
 Weights live in the pipeline's modules: load them with
@@ -48,6 +50,8 @@ from playaid_core_torch.models.lightning_ckpt import (
 )
 from playaid_core_torch.ops.crop_kernel import square_crop_resize, window_resize
 from playaid_core_torch.ops.preprocess import middle_out_frame_indices
+from playaid_core_torch.ops.viterbi import viterbi_decode
+from playaid_core_torch.ops.yuv import yuv420_to_rgb
 from playaid_core_torch.parallel.mesh import parallel_linear
 
 FAMILIES = ("cnn", "resformer", "rnn")
@@ -300,22 +304,10 @@ class BatchedActionPipeline:
     @torch.inference_mode()
     def embed_crops_yuv(self, crops_yuv):
         """Packed planar YUV420 uint8 crops ``[N, S*S*3//2]`` (Y, then U,
-        then V) -> BT.601 limited-range RGB / 255 -> embeddings.  Chroma is
-        upsampled 2x by nearest neighbour."""
-        s = self.crop_size
-        n = crops_yuv.shape[0]
-        yb, cb = s * s, (s // 2) * (s // 2)
-        y = crops_yuv[:, :yb].reshape(n, s, s).float()
-        u = crops_yuv[:, yb:yb + cb].reshape(n, s // 2, s // 2).float()
-        v = crops_yuv[:, yb + cb:].reshape(n, s // 2, s // 2).float()
-        u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        yc = 1.164383 * (y - 16.0)
-        r = yc + 1.596027 * (v - 128.0)
-        g = yc - 0.391762 * (u - 128.0) - 0.812968 * (v - 128.0)
-        b = yc + 2.017232 * (u - 128.0)
-        rgb = torch.stack([r, g, b], dim=-1)
-        return self.embed(torch.clamp(rgb, 0.0, 255.0) / 255.0)
+        then V) -> BT.601 limited-range RGB / 255 (the CUDA kernel
+        ``csrc/yuv420_unpack.cu`` on the card, channels first underneath)
+        -> embeddings.  Chroma is upsampled 2x by nearest neighbour."""
+        return self.embed(yuv420_to_rgb(crops_yuv, self.crop_size))
 
     @torch.inference_mode()
     def embed_windows(self, wins_u8, origins):
@@ -383,37 +375,11 @@ class BatchedActionPipeline:
 
     @staticmethod
     def _viterbi_decode(log_probs, true_len, switch_cost):
-        """MAP label path ``[F]`` under a uniform switching penalty of
-        ``switch_cost`` nats (a Potts prior).
-
-        Staying wins ties with switching and argmax takes the first
-        index.  Rows at or after ``true_len`` are frozen: they take the
-        last valid row's label.  ``switch_cost=inf`` gives the global
-        argmax of the summed evidence.  The forward pass loops over the
-        valid rows only; the backtrack runs on the host.
-        """
-        f, a = log_probs.shape
-        valid = torch.arange(f, device=log_probs.device) < true_len
-        lp = torch.where(valid[:, None], log_probs, 0.0)
-        n = min(max(int(true_len), 1), f)
-        idx = torch.arange(a, device=lp.device)
-        carry = lp[0]
-        ptrs = []
-        for t in range(1, n):
-            switch_from = torch.argmax(carry)
-            switch_score = carry[switch_from] - switch_cost
-            take_stay = carry >= switch_score
-            best = torch.where(take_stay, carry, switch_score)
-            ptrs.append(torch.where(take_stay, idx, switch_from))
-            carry = lp[t] + best
-        cur = int(torch.argmax(carry))
-        labels = [cur] * f
-        back = torch.stack(ptrs).cpu().tolist() if ptrs else []
-        for t in range(n - 1, 0, -1):
-            labels[t] = cur
-            cur = back[t - 1][cur]
-        labels[0] = cur
-        return torch.tensor(labels, dtype=torch.long, device=log_probs.device)
+        """MAP label path ``[F]`` of one sequence's log-probs ``[F, A]``
+        under a uniform switching penalty of ``switch_cost`` nats (a Potts
+        prior): :func:`~playaid_core_torch.ops.viterbi.viterbi_decode` on a
+        batch of one (the CUDA kernel ``csrc/viterbi.cu`` on the card)."""
+        return viterbi_decode(log_probs[None], true_len, switch_cost)[0]
 
     def _head_apply(self, windows):
         """Windows ``[B, T, D]`` -> log-probs ``[B, A]``; the per-step heads
@@ -439,12 +405,15 @@ class BatchedActionPipeline:
         return self._head_apply(windows).reshape(lead + (-1,))
 
     def _decode(self, log_probs, true_len, smooth_radius, decode, switch_cost):
-        """One fighter's log-probs ``[F, A]`` -> (labels [F], confidence [F])."""
+        """Log-probs ``[B, F, A]`` of B sequences of one true length ->
+        (labels ``[B, F]``, confidence ``[B, F]``).  Viterbi decodes every
+        sequence in one kernel launch on the card."""
         if smooth_radius:
-            log_probs = self._smooth_log_probs(log_probs, true_len, smooth_radius)
+            log_probs = torch.stack([self._smooth_log_probs(lp, true_len, smooth_radius)
+                                     for lp in log_probs])
         if decode == "viterbi":
-            labels = self._viterbi_decode(log_probs, true_len, switch_cost)
-            conf = torch.exp(torch.gather(log_probs, 1, labels[:, None]))[:, 0] * 100.0
+            labels = viterbi_decode(log_probs, true_len, switch_cost)
+            conf = torch.exp(torch.gather(log_probs, 2, labels[..., None]))[..., 0] * 100.0
         elif decode == "argmax":
             labels = torch.argmax(log_probs, dim=-1)
             conf = torch.exp(torch.max(log_probs, dim=-1).values) * 100.0
@@ -455,11 +424,11 @@ class BatchedActionPipeline:
     def _two_fighter_tail(self, per_fighter, true_len, min_frame, smooth_radius=0,
                           decode="argmax", switch_cost=4.0):
         """Interleaved ``[F, 2, D]`` embeddings -> (labels ``[F, 2]``,
-        confidence ``[F, 2]``)."""
+        confidence ``[F, 2]``); both fighters decode together."""
         log_probs = self._window_log_probs(per_fighter, true_len, min_frame)  # [F, 2, A]
-        out = [self._decode(log_probs[:, k], true_len, smooth_radius, decode, switch_cost)
-               for k in range(2)]
-        return torch.stack([o[0] for o in out], 1), torch.stack([o[1] for o in out], 1)
+        labels, conf = self._decode(log_probs.transpose(0, 1), true_len, smooth_radius, decode,
+                                    switch_cost)
+        return labels.t(), conf.t()
 
     @torch.inference_mode()
     def classify_buffer(self, buf, true_len, min_frame=0, smooth_radius=0,
@@ -498,7 +467,8 @@ class BatchedActionPipeline:
         """
         f = embeddings.shape[0]
         log_probs = self._window_log_probs(embeddings.float(), f, min_frame)
-        labels, conf = self._decode(log_probs, f, smooth_radius, decode, switch_cost)
+        labels, conf = (a[0] for a in self._decode(log_probs[None], f, smooth_radius, decode,
+                                                    switch_cost))
         if return_raw:
             return labels, conf, torch.argmax(log_probs, dim=-1)
         return labels, conf
