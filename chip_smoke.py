@@ -11,9 +11,10 @@ trajectories.
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a:
-   K1 crop_resize, K2 residual_block, K3 viterbi, K4 yuv420_unpack, one
-   nvcc each, all at once) and, at the same time, the native log parser (native/log_parser.cpp)
-   with g++, which links no FFmpeg library;
+   K1 crop_resize, K2 residual_block, K3 viterbi, K4 yuv420_unpack and
+   K3's chain floor, one nvcc each, all at once) and, at the same time,
+   the native log parser (native/log_parser.cpp) with g++, which links no
+   FFmpeg library;
 2. crop kernel (K1) against its plain version at the main-path shapes and
    on boxes that hang off every frame edge; its window entry against
    batched_window_resize at the window route's shapes (96 windows of 384^2
@@ -28,17 +29,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    one, K4 none: the crops come from K1); the first 96 frames again on
    the CPU; (b) K3 against viterbi_decode_ref on the slice's own
    [2, 256, 63] log-probs (true length 240), on a seeded 14,400-row match
-   and on edge cases (lengths 0, 1 and F a sequence, F 1, A 1/33/64, -inf
-   rows, costs 0 and inf, 30,000 rows whose backpointers spill past shared
-   memory): labels identical; K4 against yuv420_to_rgb_ref at [48, 24576]
-   and [1, 24576]: max abs err 0;
+   and on edge cases (lengths 0, 1 and F a sequence, F 1, A 1/33/64/1024,
+   -inf rows, costs 0 and inf, 30,000 rows whose backpointers spill past
+   shared memory, a length one 32-step group past what shared memory holds
+   beside one that just fits, A 1024 spilling): labels identical; K4
+   against yuv420_to_rgb_ref at [48, 24576] and [1, 24576]: max abs err 0;
 5. timings of each kernel: call time (CUDA events over back-to-back calls)
    and device time (torch.profiler), its plain version and one library
    call that computes the same function (f32 and bf16), with the least
-   time the card could take; K3 also at 14,400 rows, in us a step (its
-   dependent chain); K4's plain version's device time too, and the embed
-   of a chunk from K4's channels-first output against the same values
-   stored channels last;
+   time the card could take; K3 also at 14,400 rows, in us a step, with
+   its latency bound beside: the chain floor (one warp running only the
+   dependent chain, tools/torch_port_k3_chain_floor.cu, built in phase 1)
+   times the steps, and the fraction of the device time it is; K4's
+   plain version's device time too, and the embed of a chunk from K4's
+   channels-first output against the same values stored channels last;
 6. the VOD path, VodAnalyzer.analyze (decode -> pinned ring and copy
    stream -> embed_crops_yuv -> buffer -> labels), native backend, yuv420,
    stride 2, chunk 48, argmax then Viterbi (timed): K2 launches, weights on
@@ -248,6 +252,7 @@ The last line of standard output is
 
 import atexit
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -703,11 +708,16 @@ def k3_against_plain(torch, calls):
 
 def k3_edge_cases(torch, dev):
     """(what, log_probs, true_len, cost) of K3's edge cases on the card:
-    per-sequence lengths 0, 1 and F, F = 1, A of 1, 33 and 64, entries,
-    a class column and a whole row of -inf, costs 0 and inf, and a match
-    long enough that the backpointers spill past shared memory.  The
-    log-probs are quantised to quarter nats, so maxima and scores tie."""
+    per-sequence lengths 0, 1 and F, F = 1, A of 1, 33, 64 and 1024,
+    entries, a class column and a whole row of -inf, costs 0 and inf, a
+    match long enough that the backpointers spill past shared memory, one
+    a group of 32 steps past what shared memory holds beside one that just
+    fits, and A = 1024 spilling.  The log-probs are quantised to quarter
+    nats, so maxima and scores tie."""
+    from playaid_core_torch.ops.viterbi import scratch_layout
+
     rng = np.random.default_rng(7)
+    past = 32 * scratch_layout(10**6, 63)[2] + 1  # its last row's group spills
 
     def lp(b, f, a, neg_inf=False):
         x = (np.round(rng.normal(-3.0, 2.0, (b, f, a)) * 4) / 4).astype(np.float32)
@@ -726,7 +736,63 @@ def k3_edge_cases(torch, dev):
             ("A 64, -inf, cost inf", lp(2, 40, 64, True), lengths(40, 31), float("inf")),
             ("F 1", lp(2, 1, 63), 1, 4.0),
             ("F 1, true_len 0", lp(2, 1, 63), 0, 4.0),
-            ("F 30000 (spills)", lp(2, 30000, 63), lengths(30000, 29000), SWITCH_COST)]
+            ("F 30000 (spills)", lp(2, 30000, 63), lengths(30000, 29000), SWITCH_COST),
+            (f"F {past} (one group past shared memory; the other fits)", lp(2, past, 63),
+             lengths(past, past - 1), SWITCH_COST),
+            ("A 1024 (spills)", lp(2, 2000, 1024, True), lengths(2000, 1500), SWITCH_COST)]
+
+
+CHAIN_FLOOR_SRC = os.path.join(ROOT, "tools", "torch_port_k3_chain_floor.cu")
+# The chain floor's reductions, by chain_floor_run's variant; 0 is K3's.
+CHAIN_FLOORS = ["redux.sync of the signed key, 32 lanes x 2",
+                "redux.sync of an unsigned key, 32 lanes x 2", "shuffles, 32 lanes x 2",
+                "shuffles, 16 lanes x 4", "shuffles, 8 lanes x 8", "shuffles, 4 lanes x 16"]
+
+
+def start_chain_floor_build():
+    """Start nvcc on K3's chain-floor kernel into build/kernels/; return
+    (library path, process) for load_chain_floor."""
+    from playaid_core_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = _build.BUILD_DIR / "libviterbi_chain_floor.so"
+    return lib, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                                  CHAIN_FLOOR_SRC], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def load_chain_floor(build):
+    """chain_floor_run of the library start_chain_floor_build makes, once
+    nvcc has ended; raises if it failed."""
+    lib, proc = build
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {CHAIN_FLOOR_SRC}:\n{out}")
+    fn = ctypes.CDLL(str(lib)).chain_floor_run
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chain_floor(torch, fn, steps, variant=0, iters=20):
+    """(cycles a step by clock64(), microseconds a step by CUDA events over
+    iters launches) of one warp running steps - 1 dependent steps of the
+    chain floor's reduction `variant` (0: K3's)."""
+    from playaid_core_torch.ops import _build
+
+    table = torch.log_softmax(torch.randn(64, 64, generator=torch.Generator().manual_seed(0)),
+                              dim=1).cuda()
+    out = torch.empty(32, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(_):
+        _build.check(fn(variant, table.data_ptr(), steps, SWITCH_COST, out.data_ptr(),
+                        cycles.data_ptr(), stream), "chain_floor_run")
+
+    ms = time_cuda(torch, run, iters)
+    return int(cycles.item()) / (steps - 1), ms * 1e3 / (steps - 1)
 
 
 def taps(origin, side, length, size):
@@ -4601,8 +4667,11 @@ def main():
 
     parser_thread = threading.Thread(target=build_parser)
     parser_thread.start()
+    floor_build = start_chain_floor_build()
     logs = _build.build()
-    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    chain_floor_fn = load_chain_floor(floor_build)
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s (with K3's chain floor, "
+        f"{os.path.relpath(CHAIN_FLOOR_SRC, ROOT)})")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("built in", "entry function", "registers", "spill")):
@@ -5026,6 +5095,7 @@ def main():
                                 warmup=1)
         k3_match_ms = time_cuda(torch, k3_match, 6, warmup=1)
         k3_match_dev_ms, _ = device_ms(torch, k3_match, 4, "viterbi_kernel", 1, warmup=1)
+        floor_cycles, floor_us = chain_floor(torch, chain_floor_fn, MATCH_ROWS)
         yuv_sets = [torch.from_numpy(rng.integers(0, 256, tuple(yuv.shape), dtype=np.uint8)).to(dev)
                     for _ in range(n_sets)]
 
@@ -5049,6 +5119,9 @@ def main():
     # Rows the true length needs read once, every label written once.
     k3_bytes = k3_lp.shape[0] * k3_rows * k3_lp.shape[2] * 4 + k3_lp.shape[0] * k3_lp.shape[1] * 8
     k3_bound_ms = k3_bytes / PEAK_BYTES_PER_S * 1e3
+    # The latency bound: the chain floor's time a step times the steps.
+    k3_floor_ms = floor_us * (k3_rows - 1) / 1e3
+    k3_match_floor_ms = floor_us * (MATCH_ROWS - 1) / 1e3
     k4_bytes = yuv.numel() + yuv.shape[0] * 3 * CROP * CROP * 4
     k4_bound_ms = k4_bytes / PEAK_BYTES_PER_S * 1e3
 
@@ -5057,6 +5130,9 @@ def main():
 
     def per_step_us(ms, steps):
         return "not measured" if ms is None else f"{ms * 1e3 / steps:.4f} us"
+
+    def of_floor(floor_ms, ms):
+        return "not measured" if ms is None else f"{floor_ms / ms:.3f}"
 
     log(f"phase 5: K1 call {k1_ms:.4f} ms, device {fmt(k1_dev_ms)} ({k1_per_call:g} kernel "
         f"a call), plain {k1_plain_ms:.4f} ms, grid_sample {k1_lib_ms:.4f} ms, bound "
@@ -5075,9 +5151,15 @@ def main():
     log(f"phase 5: K3 viterbi {tuple(k3_lp.shape)} (true length {k3_len}) call {k3_ms:.4f} ms, "
         f"device {fmt(k3_dev_ms)} ({k3_per_call:g} kernel a call) = "
         f"{per_step_us(k3_dev_ms, k3_rows)} a step, plain {k3_plain_ms:.4f} ms, bound "
-        f"{k3_bound_ms:.5f} ms (bytes, {k3_bytes} B); the chain: {tuple(match_lp.shape)} call "
-        f"{k3_match_ms:.4f} ms, device {fmt(k3_match_dev_ms)} = "
-        f"{per_step_us(k3_match_dev_ms, MATCH_ROWS)} a step; no library call computes it")
+        f"{k3_bound_ms:.5f} ms (bytes, {k3_bytes} B), chain floor {k3_floor_ms:.4f} ms "
+        f"({of_floor(k3_floor_ms, k3_dev_ms)} of the device time); the chain: "
+        f"{tuple(match_lp.shape)} call {k3_match_ms:.4f} ms, device {fmt(k3_match_dev_ms)} = "
+        f"{per_step_us(k3_match_dev_ms, MATCH_ROWS)} a step, chain floor "
+        f"{k3_match_floor_ms:.4f} ms ({of_floor(k3_match_floor_ms, k3_match_dev_ms)} of the "
+        f"device time); no library call computes it")
+    log(f"phase 5: K3's chain floor ({CHAIN_FLOORS[0]}, one warp, {MATCH_ROWS - 1} dependent "
+        f"steps): {floor_cycles:.1f} cycles a step (clock64), {floor_us:.4f} us a step (CUDA "
+        f"events)")
     log(f"phase 5: K4 yuv420_unpack {tuple(yuv.shape)} call {k4_ms:.4f} ms, device "
         f"{fmt(k4_dev_ms)} ({k4_per_call:g} kernel a call), bound {k4_bound_ms:.4f} ms (bytes, "
         f"{k4_bytes} B); plain call {k4_plain_ms:.4f} ms, plain device {fmt(k4_plain_dev_ms)} "
@@ -5187,7 +5269,9 @@ def main():
          "match_shape": list(match_lp.shape), "match_ms": k3_match_ms,
          "match_device_ms": k3_match_dev_ms,
          "match_device_us_per_step": (None if k3_match_dev_ms is None
-                                      else k3_match_dev_ms * 1e3 / MATCH_ROWS)},
+                                      else k3_match_dev_ms * 1e3 / MATCH_ROWS),
+         "chain_floor_cycles_per_step": floor_cycles, "chain_floor_us_per_step": floor_us,
+         "chain_floor_ms": k3_floor_ms, "match_chain_floor_ms": k3_match_floor_ms},
         {"name": "yuv420_unpack", "route": "cuda",
          "source": "playaid_core_torch/csrc/yuv420_unpack.cu",
          "replaces": "playaid_core_tpu/infer/pipeline.py:246",

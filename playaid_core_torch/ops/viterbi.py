@@ -4,9 +4,10 @@ its wrapper and its plain version.
 Counterpart of ``playaid_core_tpu/infer/pipeline.py``
 ``BatchedActionPipeline._viterbi_decode``, a ``lax.scan`` that XLA fused
 on the TPU.  For a CUDA tensor :func:`viterbi_decode` launches the kernel
-(one warp a sequence, every sequence of the batch in one launch) or
-raises; for a CPU tensor it runs :func:`viterbi_decode_ref`.  It counts
-its launches in ``.launches``.
+(one warp a sequence, every sequence of the batch in one launch; its rows
+staged through the TMA, its backpointers in shared memory) or raises; for
+a CPU tensor it runs :func:`viterbi_decode_ref`.  It counts its launches
+in ``.launches``.
 """
 
 from __future__ import annotations
@@ -84,24 +85,56 @@ def _library():
 
 
 def scratch_layout(f, a):
-    """Where the kernel keeps its backpointers: ``(k, cap, spill)``.
+    """Where the kernel keeps its rows and backpointers:
+    ``(k, rows, cap, spill)``.
 
-    Each of the steps 1..F-1 keeps ``k`` 32-bit stay masks (a lane of the
-    warp holds ``k`` = 1, 2, 4, ... 32 classes) and the 16-bit index it
-    switched from; the first ``cap`` steps fit the block's shared memory,
-    the other ``spill`` go to a scratch buffer in device memory."""
+    A lane of the warp holds ``k`` = 1, 2, 4, ... 32 classes.  The rows
+    arrive ``rows`` at a time (a tile of at most 32 KB) in a ring of two
+    tiles in the block's shared memory.  Each group of 32 rows keeps, for
+    the steps that produced them (rows 1..F-1), a 32-bit word of stay bits
+    a class (``32 k`` words) and the 16-bit index each step switched from;
+    the first ``cap`` groups fit the shared memory beside the ring, the
+    other ``spill`` go to a scratch buffer in device memory."""
     k = 1
     while 32 * k < a:
         k *= 2
-    cap = min(f - 1, _SMEM_BYTES // (4 * k + 2))
-    return k, cap, f - 1 - cap
+    rows = min(64, 256 // k)
+    groups = (f + 31) // 32
+    room = _SMEM_BYTES - 2 * (rows * a * 4 + 16) - 16
+    cap = min(groups, room // (32 * (4 * k + 2)))
+    return k, rows, cap, groups - cap
+
+
+def launch(fn, log_probs, true_len, switch_cost):
+    """Labels ``[B, F]`` of ``fn``, a build of the kernel's C entry point,
+    on CUDA float32 log-probs ``[B, F, A]``: the scratch buffer allocated
+    here, the launch on the current stream, its status checked."""
+    b, f, a = log_probs.shape
+    dev = log_probs.device
+    lp = log_probs.contiguous()
+    if isinstance(true_len, torch.Tensor):
+        lens, length = _lengths(true_len, b, dev).to(torch.int32).contiguous(), 0
+    else:
+        lens, length = None, max(min(int(true_len), f), 0)
+    k, _, cap, spill = scratch_layout(f, a)
+    spill_words = torch.empty((b, spill, 32 * k), dtype=torch.int32, device=dev) if spill else None
+    spill_from = torch.empty((b, spill, 32), dtype=torch.int16, device=dev) if spill else None
+    labels = torch.empty((b, f), dtype=torch.int64, device=dev)
+    status = fn(
+        lp.data_ptr(), None if lens is None else lens.data_ptr(), length, float(switch_cost),
+        labels.data_ptr(), None if spill == 0 else spill_words.data_ptr(),
+        None if spill == 0 else spill_from.data_ptr(), b, f, a, cap, spill,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "viterbi_decode launch")
+    return labels
 
 
 def viterbi_decode(log_probs, true_len, switch_cost):
     """MAP label paths ``[B, F]`` int64 of float32 log-probs ``[B, F, A]``;
     see :func:`viterbi_decode_ref` for the semantics.  ``true_len`` is an
     int or an int tensor ``[B]``.  On the card every sequence decodes in
-    one launch; the stay masks of the steps that do not fit the block's
+    one launch; the backpointers of the steps that do not fit the block's
     shared memory go to a scratch buffer allocated here."""
     if log_probs.dim() != 3 or 0 in log_probs.shape:
         raise ValueError(f"log_probs must be a non-empty [B, F, A], got {tuple(log_probs.shape)}")
@@ -112,25 +145,9 @@ def viterbi_decode(log_probs, true_len, switch_cost):
         raise ValueError(f"the kernel takes at most {MAX_CLASSES} classes, got {a}")
     if log_probs.device.type == "cpu":
         return viterbi_decode_ref(log_probs, true_len, switch_cost)
-    dev = log_probs.device
-    if dev.type != "cuda":
-        raise ValueError(f"log_probs must lie on the CPU or a CUDA device, not {dev}")
-    lp = log_probs.contiguous()
-    if isinstance(true_len, torch.Tensor):
-        lens, length = _lengths(true_len, b, dev).to(torch.int32).contiguous(), 0
-    else:
-        lens, length = None, max(min(int(true_len), f), 0)
-    k, cap, spill = scratch_layout(f, a)
-    spill_masks = torch.empty((b, spill, k), dtype=torch.int32, device=dev) if spill else None
-    spill_from = torch.empty((b, spill), dtype=torch.int16, device=dev) if spill else None
-    labels = torch.empty((b, f), dtype=torch.int64, device=dev)
-    status = _library()(
-        lp.data_ptr(), None if lens is None else lens.data_ptr(), length, float(switch_cost),
-        labels.data_ptr(), None if spill == 0 else spill_masks.data_ptr(),
-        None if spill == 0 else spill_from.data_ptr(), b, f, a, cap, spill,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(status, "viterbi_decode launch")
+    if log_probs.device.type != "cuda":
+        raise ValueError(f"log_probs must lie on the CPU or a CUDA device, not {log_probs.device}")
+    labels = launch(_library(), log_probs, true_len, switch_cost)
     _build.count_launch(viterbi_decode)
     return labels
 

@@ -177,16 +177,121 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("f, a, layout", [
-    (1, 63, (2, 0, 0)),
-    (240, 63, (2, 239, 0)),
-    (14400, 63, (2, 14399, 0)),          # 143,990 B of shared memory
-    (30000, 63, (2, 23244, 6755)),       # the rest spills to device memory
-    (100, 32, (1, 99, 0)),
-    (100, 33, (2, 99, 0)),
-    (100, 65, (4, 99, 0)),
-    (20000, 1024, (32, 1788, 18211)),
+    (1, 63, (2, 64, 1, 0)),
+    (240, 63, (2, 64, 8, 0)),
+    (14400, 63, (2, 64, 450, 0)),        # 176,304 B of shared memory
+    (30000, 63, (2, 64, 625, 313)),      # the rest spills to device memory
+    (100, 32, (1, 64, 4, 0)),
+    (100, 33, (2, 64, 4, 0)),
+    (100, 65, (4, 64, 4, 0)),
+    (20000, 1024, (32, 8, 40, 585)),     # 4 KB rows: tiles of 8
 ])
 def test_scratch_layout(f, a, layout):
-    k, cap, spill = scratch_layout(f, a)
-    assert (k, cap, spill) == layout
-    assert cap * (4 * k + 2) <= 232448
+    k, rows, cap, spill = scratch_layout(f, a)
+    assert (k, rows, cap, spill) == layout
+    assert cap + spill == (f + 31) // 32
+    # The ring's two tiles (rows and a 16-byte skew each), two mbarriers,
+    # then the resident groups' words and froms.
+    assert 2 * (rows * a * 4 + 16) + 16 + cap * 32 * (4 * k + 2) <= 232448
+    assert rows * a * 4 % 16 == 0
+
+
+def _transpose32(words):
+    """csrc/viterbi.cu's ``transpose32`` over the 32 lanes' words: five
+    rounds in which lanes l and l ^ s swap their off-diagonal blocks."""
+    w = [int(x) for x in words]
+    for s in (16, 8, 4, 2, 1):
+        m = 0xFFFFFFFF // ((1 << s) + 1)  # bits j with j & s == 0
+        other = [w[lane ^ s] for lane in range(32)]
+        w = [((w[lane] & ~m) | ((other[lane] >> s) & m)) if lane & s
+             else ((w[lane] & m) | ((other[lane] << s) & ~m)) for lane in range(32)]
+    return [x & 0xFFFFFFFF for x in w]
+
+
+def _ffs_index(word):
+    return (word & -word).bit_length() - 1  # ffs - 1
+
+
+def _kernel_emulation(lp, true_len, cost):
+    """csrc/viterbi.cu's bookkeeping in numpy, on one sequence ``[F, A]``:
+    lane l holds classes l + 32 k; for the step that makes row t, bit
+    t % 32 of group t // 32 in a word a class of the classes that held the
+    maximum and of those that stay; at the group's end each slot's 32 x 32
+    bit matrix transposed over the lanes (``transpose32``), so that lane j
+    finds step j's from as the first set bit of the first nonzero slot;
+    then the backtrack a group at a time, from cur down to the highest
+    clear bit of cur's stay word, where that step's from takes over.  The
+    last row's label comes from ballots of ``carry == max``."""
+    f, a = lp.shape
+    k = 1
+    while 32 * k < a:
+        k *= 2
+    n = min(max(true_len, 1), f)
+    cost = np.float32(cost)
+
+    def first_index(carry, m):
+        lanes = np.uint64(1) << np.arange(32, dtype=np.uint64)
+        ballots = ((carry == m).reshape(k, 32) * lanes).sum(axis=1)
+        idx = 0
+        for slot in reversed(range(k)):
+            if int(ballots[slot]):
+                idx = 32 * slot + _ffs_index(int(ballots[slot]))
+        return idx
+
+    carry = np.full(32 * k, -np.inf, np.float32)
+    carry[:a] = lp[0] if true_len > 0 else 0.0
+    groups = (n + 31) // 32
+    words = np.zeros((groups, 32 * k), np.uint64)
+    maxed = np.zeros((groups, 32 * k), np.uint64)
+    row = np.full(32 * k, -np.inf, np.float32)
+    for t in range(1, n):
+        g, j = divmod(t, 32)
+        m = carry.max()
+        score = np.float32(m - cost)
+        maxed[g] |= (carry == m).astype(np.uint64) << np.uint64(j)
+        stay = carry >= score
+        words[g] |= stay.astype(np.uint64) << np.uint64(j)
+        row[:a] = lp[t]
+        carry = row + np.where(stay, carry, score)
+    froms = np.zeros((groups, 32), np.int64)
+    for g in range(groups):
+        slots = [_transpose32(maxed[g, 32 * s:32 * s + 32]) for s in range(k)]
+        for lane in range(32):
+            for s in reversed(range(k)):
+                if slots[s][lane]:
+                    froms[g, lane] = 32 * s + _ffs_index(slots[s][lane])
+    last = first_index(carry, carry.max())
+    labels = np.full(f, last, np.int64)
+    cur = last
+    for g in reversed(range(groups)):
+        lo = int(g == 0)  # row 0 has no step
+        top = min(31, n - 1 - 32 * g)
+        label = np.full(32, cur, np.int64)  # lane j: label[32 g + j - 1]
+        p = top
+        while p >= lo:
+            # Steps lo..p where cur did not stay; the last of them switches.
+            moved = ~int(words[g, cur]) & ((2 << p) - 1) & ~((1 << lo) - 1)
+            s = moved.bit_length() - 1                    # 31 - clz, or -1
+            label[s + 1:p + 1] = cur
+            if s < 0:
+                break
+            cur = int(froms[g, s])
+            label[s] = cur
+            p = s - 1
+        labels[32 * g + lo - 1:32 * g + top] = label[lo:top + 1]
+    return labels
+
+
+@pytest.mark.parametrize("neg_inf", [False, True], ids=["finite", "neg_inf"])
+@pytest.mark.parametrize("cost", [0.0, 4.0, float("inf")])
+@pytest.mark.parametrize("a", [1, 33, 64, 1024])
+def test_kernel_bookkeeping_matches_jax(a, cost, neg_inf):
+    """The kernel's own bookkeeping, emulated, gives the JAX function's
+    labels: lengths 0, 1, F and 70 (three groups of 32 steps, the last
+    partial), quarter-nat ties, -inf entries, a column and a row."""
+    f = 100
+    lengths = [0, 1, f, 70]
+    lp = _batch(a * 11 + int(min(cost, 99)), f, a, lengths, neg_inf)
+    with np.errstate(invalid="ignore"):
+        got = np.stack([_kernel_emulation(seq, n, cost) for seq, n in zip(lp, lengths)])
+    assert got.tolist() == _jax_labels(lp, lengths, cost).tolist()
