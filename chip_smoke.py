@@ -19,6 +19,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    on boxes that hang off every frame edge; its window entry against
    batched_window_resize at the window route's shapes (96 windows of 384^2
    -> 128^2) and at edge origins (negative corners, side > W - 2, side 0);
+   both entries' crops are views of channels-first storage;
 3. residual-block kernel (K2) against its plain version on the real
    layer4[1] weights and input, float32 (3xTF32) and bfloat16;
 4. the device slice from pinned frames, with PyTorch's default TF32 flags
@@ -27,7 +28,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    -> scatter_embeddings, then classify_buffer (argmax and Viterbi, both
    fighters in one K3 launch) and the stride repeat; launch counts (K3
    one, K4 none: the crops come from K1); the first 96 frames again on
-   the CPU; (b) K3 against viterbi_decode_ref on the slice's own
+   the CPU; the layout kernels' ms in a profiled slice (no nhwcToNchw:
+   K1's crops reach the stem channels first); (b) K3 against
+   viterbi_decode_ref on the slice's own
    [2, 256, 63] log-probs (true length 240), on a seeded 14,400-row match
    and on edge cases (lengths 0, 1 and F a sequence, F 1, A 1/33/64/1024,
    -inf rows, costs 0 and inf, 30,000 rows whose backpointers spill past
@@ -62,7 +65,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    (timed): K1 (window entry), K2, K3 (one) and K4 (none) launches,
    host-to-device bytes per chunk (the windows and their origins, no
    weights), K3 against its plain version on the run's own log-probs, card
-   vs CPU labels on the first 96 frames, frames/s and its split; then the command line,
+   vs CPU labels on the first 96 frames, frames/s and its split, the
+   layout kernels' ms in the profiled run (no nhwcToNchw); then the
+   command line,
    main([...]) in this process, on the same log with a port checkpoint
    file made from the bench weights, --stride 2, through phase 6's decoder
    stand-in: one CSV row per frame, moves named by CLASS_ID_TO_MOVE;
@@ -107,7 +112,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    their nbytes) -> Trainer.fit for CNN-63 (batch 16, T 7, 128 px, lr 3e-4
    decaying over the run, float32; 2 epochs of 20 steps): (a) K1's bank
    entry against batched_bank_resize at the phase's shapes and on edge
-   windows, C=3 and 4, mirrored or not; (b) synth_composite on the card
+   windows, C=3 and 4, mirrored or not, its crops channels last; (b)
+   synth_composite on the card
    against the CPU with the same noise and dropout draws; (c) launches in
    the fit: bank_resize 2 a step, no other kernel of the port's; (d) under
    torch.profiler, in a process of its own (python3 chip_smoke.py --profile
@@ -149,7 +155,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    against one process: loss and grad norm within 2e-4 relative (CNN-63 and
    the RNN in float32, the RNN's param norm too; the ResFormer in float64,
    and its float32 grad norm no farther from float64's than one process's
-   is, plus 2e-4), batch-norm running statistics within 1e-5, each rank's
+   is, plus 2e-4), CNN-63's batch-norm running statistics within 1e-5 of
+   max|ref| after step 1 in float32 and after the last step on runs in
+   float64 (two float32 runs, one process against itself too, drift apart
+   through the Adam steps from the backward's rounding:
+   tools/torch_port_mesh_bn.py), the float32 statistics after the last
+   step logged beside, each rank's
    host-to-device bytes exactly its rows of a batch, step times, the number
    and bytes of each collective, the RNN's model-axis collectives a step
    and its LSTM's share of the step (the LSTM timed alone); (c)
@@ -986,9 +997,20 @@ def bf16_ulps(out, ref):
     return float((np.abs(out - ref) / ulp).max())
 
 
+LAYOUT_KEYS = ("nhwcToNchw", "nchwToNhwc", "NHWC", "yuv420_unpack_kernel", "crop_resize_kernel")
+
+
+def layout_ms(ms_by_name):
+    """Device ms of the layout conversions cuDNN runs, and of K1 and K4 that
+    feed the stem, by fragment of the kernels' names."""
+    return {key: sum(ms for name, ms in ms_by_name.items() if key in name)
+            for key in LAYOUT_KEYS}
+
+
 def profile_slice(torch, run_slice, slice_s):
-    """Device time by kernel over one more run of the slice (a diagnostic:
-    a profiler that cannot trace the card is reported, not fatal)."""
+    """Device time by kernel over one more run of the slice, and the layout
+    kernels' ms by name fragment (None when the profiler cannot trace the
+    card; reported here)."""
     try:
         with profiled(torch) as prof:
             t0 = time.perf_counter()
@@ -1000,14 +1022,17 @@ def profile_slice(torch, run_slice, slice_s):
                 for e in prof.key_averages()
                 if e.device_type != torch.autograd.DeviceType.CPU
                 and e.self_device_time_total > 0]
-    except Exception as e:  # noqa: BLE001 - diagnostic only, the checks do not depend on it
+    except Exception as e:  # noqa: BLE001 - reported; the layout check then fails
         log(f"profile: torch.profiler failed: {e!r}")
-        return
+        return None
     busy_ms = sum(ms for _, ms, _ in rows)
     log(f"profile: slice wall {wall_ms:.1f} ms under the profiler ({slice_s * 1e3:.1f} ms "
         f"without), device busy {busy_ms:.1f} ms = {busy_ms / wall_ms:.3f} of wall")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
         log(f"profile: {ms:9.3f} ms {count:6d} x  {key[:100]}")
+    layout = layout_ms({key: ms for key, ms, _ in rows})
+    log(f"phase 4 profile: ms by name fragment over the slice {json.dumps(layout)}")
+    return layout
 
 
 def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
@@ -1090,9 +1115,8 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"phase 6 profile: {us / 1e3:9.3f} ms  {name[:100]}")
     # What K4's channels-first output changes in cuDNN's choice of kernels.
-    layout_ms = {key: sum(us for name, us in by_name.items() if key in name) / 1e3
-                 for key in ("nhwcToNchw", "nchwToNhwc", "NHWC", "yuv420_unpack_kernel")}
-    log(f"phase 6 profile: ms by name fragment over the argmax run {json.dumps(layout_ms)}")
+    layout = layout_ms({name: us / 1e3 for name, us in by_name.items()})
+    log(f"phase 6 profile: ms by name fragment over the argmax run {json.dumps(layout)}")
 
     # Where the Viterbi run's wall goes: a run with the card synchronised
     # where classify_buffer starts and ends (in this script only), and one
@@ -1305,6 +1329,12 @@ def run_log_phase(torch, dev, check, wrappers):
         by_name[name] = by_name.get(name, 0.0) + dur
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"phase 8 profile: {us / 1e3:9.3f} ms  {name[:100]}")
+    layout = layout_ms({name: us / 1e3 for name, us in by_name.items()})
+    log(f"phase 8 profile: ms by name fragment over the argmax run {json.dumps(layout)}")
+    check(layout["nhwcToNchw"] == 0 and layout["crop_resize_kernel"] > 0,
+          f"phase 8: no nhwcToNchw kernel in the window route's trace ({layout['nhwcToNchw']:.3f} "
+          f"ms): K1's window entry hands the stem channels-first crops "
+          f"({layout['crop_resize_kernel']:.3f} ms of K1 traced)")
 
     # The Viterbi run split where classify_buffer starts and ends.
     marks = {}
@@ -2400,6 +2430,7 @@ def synth_main():
             sp, st = batch_bank_args(*on_card(params[0]), mirror)
             errs[key] = float((bank_resize(*sp) - batched_bank_resize(*sp)).abs().max())
         errs["stages"] = float((bank_resize(*st) - batched_bank_resize(*st)).abs().max())
+        channels_last = bank_resize(*sp).is_contiguous() and bank_resize(*st).is_contiguous()
         rng = np.random.default_rng(2)
         for c in (3, 4):
             edge_bank = torch.from_numpy(rng.integers(0, 256, (5, 24, 20, c), np.uint8)).to(dev)
@@ -2410,11 +2441,12 @@ def synth_main():
                 errs[f"edges C={c}{' mirrored' if mirror is not None else ''}"] = float(
                     (bank_resize(*e) - batched_bank_resize(*e)).abs().max())
     bank_err = max(errs.values())
-    check(bank_err <= BANK_TOL,
+    check(bank_err <= BANK_TOL and channels_last,
           f"phase 11: K1 bank_resize vs batched_bank_resize on the card (full float32): "
           f"{b * t} sprite rows {tuple(sprites.bank.shape[1:])} and {b} stage rows -> {s}^2, "
           f"and 8 edge windows (negative origins, side < 1, side 45x the source, wholly "
-          f"outside) at C=3 and 4: max abs err {json.dumps(errs)} (tol {BANK_TOL})")
+          f"outside) at C=3 and 4: max abs err {json.dumps(errs)} (tol {BANK_TOL}); the "
+          f"crops in channels-last storage, as synth_composite takes them: {channels_last}")
 
     # (b) synth_composite on the card against the CPU with the same draws.
     bank_cpu, stage_cpu = sprites.bank.cpu(), stage_bank.bank.cpu()
@@ -3368,7 +3400,9 @@ def mesh_rank_main(rank):
         cnn, resformer, uniform, rnn, batch = mesh_cases(dev)
         out = {"rank": rank}
         out["cnn"] = run_train_case(dict(cnn, model_parallel=1,
-                                         out=os.path.join(MESH_WORK, "cnn_2x1.pt")))
+                                         out=os.path.join(MESH_WORK, "cnn_2x1_step{step}.pt")))
+        run_train_case(dict(cnn, model_parallel=1, double=True,
+                            out=os.path.join(MESH_WORK, "cnn64_2x1_step{step}.pt")))
         mesh = make_mesh(device=dev)
         # CNN-63's gradient all-reduce alone: one flat float32 buffer of its
         # parameters' size over data, after a warm-up.
@@ -3523,7 +3557,9 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
         f"{time.perf_counter() - t0:.1f} s; gloo takes the CUDA tensors as they are "
         f"(tools/torch_port_gloo_cuda_probe.py); {card}")
     ref_cnn = run_train_case(dict(cnn, devices=[str(dev)],
-                                  out=os.path.join(MESH_WORK, "cnn_1x1.pt")))
+                                  out=os.path.join(MESH_WORK, "cnn_1x1_step{step}.pt")))
+    run_train_case(dict(cnn, devices=[str(dev)], double=True,
+                        out=os.path.join(MESH_WORK, "cnn64_1x1_step{step}.pt")))
     ref_res = run_train_case(dict(resformer, devices=[str(dev)], save=None, steps=1))
     ref_res64 = run_train_case(dict(resformer, devices=[str(dev)], save=None, steps=1,
                                     double=True))
@@ -3592,12 +3628,29 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
                 f"{[round(s * 1e3, 1) for s in got['seconds']]} (one process "
                 f"{[round(s * 1e3, 1) for s in ref['seconds']]}); bytes each collective moved "
                 f"over {len(got['seconds'])} steps, rank 0: {json.dumps(got['bytes'])}; {card}")
-        stats = stats_rel_err(torch.load(os.path.join(MESH_WORK, "cnn_2x1.pt"), weights_only=True),
-                              torch.load(os.path.join(MESH_WORK, "cnn_1x1.pt"), weights_only=True))
-        check(stats <= MESH_STATS_REL_TOL,
-              f"phase 13 (b): CNN-63 on (2, 1) after {1 + MESH_STEPS} steps: batch-norm running "
-              f"statistics vs one process, worst max err / max|ref| {stats:.3e} (tol "
-              f"{MESH_STATS_REL_TOL}); {card}")
+        # The batch-norm running statistics after step 1 (the batch's statistics
+        # over the mesh alone) and after the last.  Two float32 runs drift
+        # apart through the Adam steps from the backward's rounding, one
+        # process against itself too (its step-1 gradients differ by up to
+        # 1.7e-5 of max|g|, deterministic algorithms or not), so the later
+        # steps' statistics measure that drift, not the mesh
+        # (tools/torch_port_mesh_bn.py).  After the last step they are held on
+        # runs in float64, where two runs agree to about 1e-15.
+        def stats_after(prefix, step):
+            paths = [os.path.join(MESH_WORK, f"{prefix}_{m}_step{step}.pt") for m in ("2x1", "1x1")]
+            return stats_rel_err(*(torch.load(p, weights_only=True) for p in paths))
+
+        last = 1 + MESH_STEPS
+        f32 = [stats_after("cnn", step) for step in (1, last)]
+        f64 = [stats_after("cnn64", step) for step in (1, last)]
+        check(f32[0] <= MESH_STATS_REL_TOL,
+              f"phase 13 (b): CNN-63 on (2, 1) after step 1 in float32: batch-norm running "
+              f"statistics vs one process, worst max err / max|ref| {f32[0]:.3e} (tol "
+              f"{MESH_STATS_REL_TOL}); after step {last} {f32[1]:.3e}, not held; {card}")
+        check(f64[1] <= MESH_STATS_REL_TOL,
+              f"phase 13 (b): CNN-63 on (2, 1) after {last} steps in float64: batch-norm running "
+              f"statistics vs one process, worst max err / max|ref| {f64[1]:.3e} (tol "
+              f"{MESH_STATS_REL_TOL}); after step 1 {f64[0]:.3e}; {card}")
         for r, res in enumerate(ranks):
             check(sorted(res["h2d"]) == sorted(res["row_bytes"]),
                   f"phase 13 (b): rank {r}: host-to-device copies of a batch through "
@@ -4712,6 +4765,9 @@ def main():
     check(tuple(k1_out.shape) == (per_chunk, 2, CROP, CROP, 3) and k1_err <= K1_TOL,
           f"phase 2: K1 crop_resize {tuple(k1_out.shape)} + 8 edge boxes, max abs err "
           f"{k1_err:.3e} (tol {K1_TOL})")
+    check(k1_out.permute(0, 1, 4, 2, 3).is_contiguous() and not k1_out.is_contiguous(),
+          f"phase 2: K1 crop_resize's {tuple(k1_out.shape)} is a view of channels-first "
+          f"storage (strides {k1_out.stride()})")
     # Off the main path: 30-px crops (rows of 90 floats, no 16-byte stores),
     # windows wider and taller than a 90x160 frame, a degenerate box.  The
     # plain version runs on the CPU here: on the card its division by a
@@ -4756,6 +4812,9 @@ def main():
     kw_edge_ref = window_plain(edge_wins, edge_org)
     torch.cuda.synchronize()
     kw_err = max(float((kw_out - kw_ref).abs().max()), float((kw_edge - kw_edge_ref).abs().max()))
+    check(kw_out.permute(0, 3, 1, 2).is_contiguous() and not kw_out.is_contiguous(),
+          f"phase 2: K1 window entry's {tuple(kw_out.shape)} is a view of channels-first "
+          f"storage (strides {kw_out.stride()})")
     check(tuple(kw_out.shape) == (2 * CHUNK, CROP, CROP, 3) and kw_err <= K1_TOL,
           f"phase 2: K1 window entry {tuple(wins0.shape)} -> {tuple(kw_out.shape)} + 4 edge "
           f"origins, max abs err {kw_err:.3e} (tol {K1_TOL}); sides "
@@ -5168,7 +5227,11 @@ def main():
         f"{', '.join(f'{v:.4f}' for v in embed_ms['nchw'])} ms, the same values stored NHWC "
         f"{', '.join(f'{v:.4f}' for v in embed_ms['nhwc'])} ms (order nchw, nhwc, nhwc, nchw)")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_slice(torch, run_slice, slice_s)
+    layout = profile_slice(torch, run_slice, slice_s)
+    check(layout is not None and layout["nhwcToNchw"] == 0 and layout["crop_resize_kernel"] > 0,
+          f"phase 4: no nhwcToNchw kernel in the slice's trace "
+          f"({'no trace' if layout is None else '%.3f ms' % layout['nhwcToNchw']}): K1's "
+          f"frames entry hands the stem channels-first crops")
 
     # ---- phases 6 and 7: VodAnalyzer.analyze, the CNN headline and the families ----
     from playaid_core_torch.video import native_decoder

@@ -17,6 +17,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -83,6 +85,14 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
         _loaded[name] = ctypes.CDLL(str(_library_path(name)))
     return _loaded[name]
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on a CUDA device, read at each
+    launch: what ``torch.cuda.current_stream(device).cuda_stream`` gives,
+    without the ``Stream`` object it builds (3-6 us a call on the card,
+    ``tools/torch_port_k1_cmp.py``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(status: int, what: str) -> None:

@@ -157,7 +157,7 @@ def residual_block_packed(x, pack):
     b, h, w, _ = x.shape
     status = _library(x.dtype)(
         *(t.data_ptr() for t in args), mid.data_ptr(), out.data_ptr(), b, h, w, c,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.current_stream(x.device),
     )
     _build.check(status, "residual_block launch")
     _build.count_launch(residual_block_packed)

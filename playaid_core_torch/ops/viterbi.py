@@ -124,7 +124,7 @@ def launch(fn, log_probs, true_len, switch_cost):
         lp.data_ptr(), None if lens is None else lens.data_ptr(), length, float(switch_cost),
         labels.data_ptr(), None if spill == 0 else spill_words.data_ptr(),
         None if spill == 0 else spill_from.data_ptr(), b, f, a, cap, spill,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.current_stream(dev),
     )
     _build.check(status, "viterbi_decode launch")
     return labels

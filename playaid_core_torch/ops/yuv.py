@@ -68,7 +68,7 @@ def yuv420_to_rgb(crops_yuv, size):
     if n == 0:
         return out.permute(0, 2, 3, 1)
     status = _library()(crops_yuv.data_ptr(), out.data_ptr(), n, size,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        _build.current_stream(dev))
     _build.check(status, "yuv420_unpack launch")
     _build.count_launch(yuv420_to_rgb)
     return out.permute(0, 2, 3, 1)

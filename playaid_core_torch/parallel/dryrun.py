@@ -132,14 +132,14 @@ def run_train_case(case):
       write ``step_<n>.pt`` into after ``save_at`` steps (default: all);
     * ``out``: a path where rank 0 writes the whole state after the steps,
       with the last step's whole gradients (averaged over ``data``) under
-      ``"grads"``.
+      ``"grads"``; a path holding ``{step}`` is written after every step.
 
     Returns ``{"losses", "accs", "grad_norms", "param_norms", "seconds",
     "bytes", "calls", "mesh"}`` (the step results as floats; ``seconds`` per
     step, synchronised; ``bytes`` each collective's payload over the steps,
     ``calls`` their number)."""
     from playaid_core_torch.device import resolve_device
-    from playaid_core_torch.parallel.mesh import gather_params, make_mesh
+    from playaid_core_torch.parallel.mesh import make_mesh
     from playaid_core_torch.train.train import Trainer, TrainerConfig
 
     device = resolve_device(case.get("device"))
@@ -176,23 +176,32 @@ def run_train_case(case):
         out["seconds"].append(time.perf_counter() - t0)
         for key, v in zip(("losses", "accs", "grad_norms", "param_norms"), values):
             out[key].append(v)
+        moved, calls = collections.Counter(mesh.bytes), collections.Counter(mesh.calls)
         if case.get("save") and step == case.get("save_at", steps):
-            moved, calls = collections.Counter(mesh.bytes), collections.Counter(mesh.calls)
             out["checkpoint"] = trainer.save_checkpoint(step)
-            mesh.bytes, mesh.calls = moved, calls  # the checkpoint's gathers are no step's
+        path = case.get("out")
+        if path and ("{step}" in path or step == steps):
+            _write_whole(trainer, mesh, path.format(step=step))
+        mesh.bytes, mesh.calls = moved, calls  # the checkpoint's gathers are no step's
     out["bytes"] = dict(mesh.bytes)
     out["calls"] = dict(mesh.calls)
     out["mesh"] = mesh.shape
-    if case.get("out"):
-        whole = trainer.whole_state()
-        state = trainer.state
-        grads = {n: p.grad for n, p in zip(state.names, state.params) if p.grad is not None}
-        whole["grads"] = {n: g.cpu() for n, g in gather_params(
-            mesh, grads, {n: trainer.specs[n] for n in grads}).items()}
-        if trainer.is_writer:
-            torch.save(whole, case["out"])
-        mesh.barrier()
     return out
+
+
+def _write_whole(trainer, mesh, path):
+    """Rank 0 writes the whole state, with the last step's whole gradients
+    (averaged over ``data``) under ``"grads"``; every rank gathers."""
+    from playaid_core_torch.parallel.mesh import gather_params
+
+    whole = trainer.whole_state()
+    state = trainer.state
+    grads = {n: p.grad for n, p in zip(state.names, state.params) if p.grad is not None}
+    whole["grads"] = {n: g.cpu() for n, g in gather_params(
+        mesh, grads, {n: trainer.specs[n] for n in grads}).items()}
+    if trainer.is_writer:
+        torch.save(whole, path)
+    mesh.barrier()
 
 
 def run_train_cases(cases):
