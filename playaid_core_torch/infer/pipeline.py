@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from playaid_core_torch import profiling
 from playaid_core_torch.convert import split_monolithic, to_state_dicts
 from playaid_core_torch.device import full_float32, resolve_device
 from playaid_core_torch.models.resnet import ResNet18, ResNet50, at_least_float32
@@ -412,7 +413,8 @@ class BatchedActionPipeline:
             log_probs = torch.stack([self._smooth_log_probs(lp, true_len, smooth_radius)
                                      for lp in log_probs])
         if decode == "viterbi":
-            labels = viterbi_decode(log_probs, true_len, switch_cost)
+            with profiling.span("playaid.viterbi"):
+                labels = viterbi_decode(log_probs, true_len, switch_cost)
             conf = torch.exp(torch.gather(log_probs, 2, labels[..., None]))[..., 0] * 100.0
         elif decode == "argmax":
             labels = torch.argmax(log_probs, dim=-1)
@@ -434,11 +436,13 @@ class BatchedActionPipeline:
     def classify_buffer(self, buf, true_len, min_frame=0, smooth_radius=0,
                         decode="argmax", switch_cost=4.0):
         """Embedding buffer ``[F_pad * 2, D]`` -> (labels ``[true_len, 2]``,
-        confidence ``[true_len, 2]``, in percent)."""
-        per_fighter = buf.reshape(buf.shape[0] // 2, 2, -1).float()
-        labels, conf = self._two_fighter_tail(per_fighter, true_len, min_frame,
-                                              smooth_radius, decode, switch_cost)
-        return labels[:true_len], conf[:true_len]
+        confidence ``[true_len, 2]``, in percent), in the span
+        ``playaid.classify`` counting ``rows``."""
+        with profiling.span("playaid.classify", rows=true_len):
+            per_fighter = buf.reshape(buf.shape[0] // 2, 2, -1).float()
+            labels, conf = self._two_fighter_tail(per_fighter, true_len, min_frame,
+                                                  smooth_radius, decode, switch_cost)
+            return labels[:true_len], conf[:true_len]
 
     @torch.inference_mode()
     def classify_chunked(self, emb_chunks, n_last, min_frame=0):

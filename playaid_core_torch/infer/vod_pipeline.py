@@ -56,6 +56,7 @@ import time
 import numpy as np
 import torch
 
+from playaid_core_torch import profiling
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline
 from playaid_core_torch.video import native_decoder
 
@@ -151,14 +152,17 @@ class BoundedSegmentDecoder:
     decoded past the consumer.
 
     Each worker opens its own capture with :meth:`open_capture`, the one
-    seam for another frame source (:class:`Cv2Capture` by default).
+    seam for another frame source (:class:`Cv2Capture` by default).  The
+    workers' spans belong to ``analysis`` (:func:`profiling.bind`).
     """
 
     AHEAD = 6
     open_capture = staticmethod(Cv2Capture)
 
-    def __init__(self, path, num_frames, chunk, transform, collate, workers=None):
+    def __init__(self, path, num_frames, chunk, transform, collate, workers=None,
+                 analysis=None):
         self.path = path
+        self.analysis = analysis
         self.num_frames = num_frames
         self.chunk = chunk
         self.transform = transform
@@ -192,6 +196,7 @@ class BoundedSegmentDecoder:
             self._cond.notify_all()
 
     def _worker(self):
+        profiling.bind(self.analysis)
         try:
             self._worker_loop()
         except BaseException as e:  # handed to the consumer, which raises it
@@ -215,14 +220,15 @@ class BoundedSegmentDecoder:
                         return
                 start = chunk_idx * self.chunk
                 stop = min(start + self.chunk, self.num_frames)
-                if start != pos:
-                    cap.seek(start)
-                out = []
-                for i in range(start, stop):
-                    ok, frame = cap.read()
-                    if not ok:
-                        break
-                    out.append(self.transform(i, frame))
+                with profiling.span("playaid.decode"):
+                    if start != pos:
+                        cap.seek(start)
+                    out = []
+                    for i in range(start, stop):
+                        ok, frame = cap.read()
+                        if not ok:
+                            break
+                        out.append(self.transform(i, frame))
                 pos = stop
                 with self._cond:
                     self._results[chunk_idx] = (start, self.collate(start, out))
@@ -252,12 +258,13 @@ class NativeChunkDecoder:
     (``[chunk // stride, K, ...]``, sampled frame j in row j // stride) and
     calls ``sink(start, n, crops)``.  :meth:`wait` blocks until
     every chunk has gone through the sink and re-raises a worker's (or the
-    sink's) exception.
+    sink's) exception.  The workers' spans belong to ``analysis``.
     """
 
     def __init__(self, path, num_frames, chunk, boxes, crop_size, padding, sink,
-                 workers=None, lowres=0, stride=1, fmt="bgr", fast=False):
+                 workers=None, lowres=0, stride=1, fmt="bgr", fast=False, analysis=None):
         self.path = path
+        self.analysis = analysis
         self.num_frames = num_frames
         self.chunk = chunk
         self.boxes = boxes
@@ -310,8 +317,9 @@ class NativeChunkDecoder:
                 # Every chunk has the full shape; the tail is zero boxes.
                 chunk_boxes = np.zeros((self.chunk, k, 4), np.float32)
                 chunk_boxes[:stop - start] = self.boxes[start:stop]
-                n, crops = dec.decode_crops(start, chunk_boxes, self.crop_size, self.padding,
-                                            stride=self.stride, fmt=self.fmt, dense=True)
+                with profiling.span("playaid.decode"):
+                    n, crops = dec.decode_crops(start, chunk_boxes, self.crop_size, self.padding,
+                                                stride=self.stride, fmt=self.fmt, dense=True)
                 self.sink(start, min(n, stop - start), crops)
                 with self._cond:
                     self._done += 1
@@ -396,7 +404,8 @@ class PinnedStager:
     and marks each device tensor as used by that stream so the caching
     allocator does not hand its memory out again before the stream is done
     with it.  On the CPU it returns the arrays as tensors.  One analysis at
-    a time uses a stager.
+    a time uses a stager.  Each call is a span ``playaid.stage`` counting
+    ``staged_bytes``, its wait for the slot a span ``playaid.stage_slot_wait``.
     """
 
     SLOTS = 3
@@ -410,12 +419,17 @@ class PinnedStager:
 
     def to_device(self, *arrays):
         """The arrays as tensors on the device, in order (a list)."""
+        with profiling.span("playaid.stage", staged_bytes=sum(a.nbytes for a in arrays)):
+            return self._stage(arrays)
+
+    def _stage(self, arrays):
         if self._stream is None:
             return [torch.from_numpy(a) for a in arrays]
         k = self._next
         self._next = (k + 1) % self.SLOTS
         if self._copied[k] is not None:
-            self._copied[k].synchronize()
+            with profiling.span("playaid.stage_slot_wait"):
+                self._copied[k].synchronize()
         tensors = [torch.from_numpy(a) for a in arrays]
         hosts = self._host[k]
         if [(h.shape, h.dtype) for h in hosts] != [(t.shape, t.dtype) for t in tensors]:
@@ -442,13 +456,15 @@ class _ChunkDispatcher:
     one per device), stages and embeds each part
     (``embed(*arrays)``) on its device, and scatters the embeddings, in row
     order, into the buffer.  An error stops the decode at the next chunk
-    and is raised again by :meth:`finish`."""
+    and is raised again by :meth:`finish`.  Its spans belong to
+    ``analysis``."""
 
     QUEUE_CHUNKS = 8
     JOIN_TIMEOUT_S = 600.0
 
-    def __init__(self, pipeline, replicas, buf, stride):
+    def __init__(self, pipeline, replicas, buf, stride, analysis=None):
         self.pipeline = pipeline
+        self.analysis = analysis
         self.replicas = replicas
         self.buf = buf
         self.stride = stride
@@ -465,20 +481,23 @@ class _ChunkDispatcher:
         while the queue is full, and returns once the run is stopping."""
         if self.error is not None:
             raise self.error
-        while not self._stop.is_set():
-            try:
-                self._queue.put((start, n, arrays), timeout=0.25)
-                return
-            except queue.Full:
-                continue
+        with profiling.span("playaid.sink_wait"):
+            while not self._stop.is_set():
+                try:
+                    self._queue.put((start, n, arrays), timeout=0.25)
+                    return
+                except queue.Full:
+                    continue
 
     def _run(self):
+        profiling.bind(self.analysis)
         dev = self.pipeline.device
         device_ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
         # inference_mode is per thread: this thread enters it itself.
         with device_ctx, torch.inference_mode():
             while True:
-                item = self._queue.get()
+                with profiling.span("playaid.dispatch_wait"):
+                    item = self._queue.get()
                 if item is None:
                     return
                 start, n, arrays = item
@@ -487,7 +506,9 @@ class _ChunkDispatcher:
                 try:
                     flat = [a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:]) for a in arrays]
                     emb = self._embed(flat)
-                    self.pipeline.scatter_embeddings(self.buf, emb, (start // self.stride) * 2)
+                    with profiling.span("playaid.scatter"):
+                        self.pipeline.scatter_embeddings(self.buf, emb,
+                                                         (start // self.stride) * 2)
                     self.decoded += n
                     self.extent = max(self.extent, (start + n + self.stride - 1) // self.stride)
                 except BaseException as e:  # raised again on the analyzing thread
@@ -495,12 +516,18 @@ class _ChunkDispatcher:
 
     def _embed(self, flat):
         if len(self.replicas) == 1:
-            embed, stager = self.replicas[0]
-            return embed(*stager.to_device(*flat))
+            return self._embed_on(*self.replicas[0], flat)
         parts = zip(*(np.array_split(a, len(self.replicas)) for a in flat))
-        embs = [embed(*stager.to_device(*part))
+        embs = [self._embed_on(embed, stager, part)
                 for (embed, stager), part in zip(self.replicas, parts)]
         return torch.cat([e.to(self.buf.device) for e in embs])
+
+    @staticmethod
+    def _embed_on(embed, stager, arrays):
+        """Stage ``arrays`` and embed them on one replica's device."""
+        staged = stager.to_device(*arrays)
+        with profiling.span("playaid.embed", crops=arrays[0].shape[0]):
+            return embed(*staged)
 
     def finish(self):
         """Stop producers blocked in :meth:`sink`, let the dispatcher run
@@ -613,7 +640,16 @@ class VodAnalyzer:
         ``frames`` decoded, ``seconds`` and ``fps`` by wall clock from the
         start of decode to the labels on the host, and the effective
         ``lowres``, ``fast`` and ``backend``.
+
+        The call is the root span ``playaid.analyze`` of a fresh analysis
+        (counts ``frames`` and ``chunks``), whose id the dispatcher and
+        decode threads are given (:mod:`playaid_core_torch.profiling`).
         """
+        analysis = profiling.new_analysis()
+        with profiling.span("playaid.analyze", analysis=analysis):
+            return self._analyze(analysis, video_path, boxes, num_frames)
+
+    def _analyze(self, analysis, video_path, boxes, num_frames):
         boxes, padding = resolve_padding(boxes, self.padding)
         f_total = boxes.shape[0] if num_frames is None else num_frames
         chunk, stride = self.chunk, self.stride
@@ -647,23 +683,28 @@ class VodAnalyzer:
         t0 = time.time()
         buf = self.pipeline.make_embedding_buffer(num_chunks * (chunk // stride))
         replicas = [(getattr(pipe, embed), stager) for pipe, stager in self._replicas]
-        dispatcher = _ChunkDispatcher(self.pipeline, replicas, buf, stride)
-        try:
-            if use_native:
-                self._decode_native(dispatcher, video_path, boxes, f_total, padding, lowres, fmt)
-            elif self.host_resize:
-                self._decode_cv2(dispatcher, video_path, boxes, f_total, padding)
-            else:
-                self._decode_windows(dispatcher, video_path, boxes, f_total, padding)
-        finally:
-            # Producers blocked in sink() return once the dispatcher stops;
-            # it runs what it holds, then ends at the sentinel.
-            dispatcher.finish()
+        with profiling.span("playaid.chunk_loop"):
+            dispatcher = _ChunkDispatcher(self.pipeline, replicas, buf, stride, analysis)
+            try:
+                if use_native:
+                    self._decode_native(dispatcher, video_path, boxes, f_total, padding, lowres,
+                                        fmt)
+                elif self.host_resize:
+                    self._decode_cv2(dispatcher, video_path, boxes, f_total, padding)
+                else:
+                    self._decode_windows(dispatcher, video_path, boxes, f_total, padding)
+            finally:
+                # Producers blocked in sink() return once the dispatcher stops;
+                # it runs what it holds, then ends at the sentinel.
+                dispatcher.finish()
+        profiling.count("frames", dispatcher.decoded)
+        profiling.count("chunks", num_chunks)
 
         labels, conf = self.pipeline.classify_buffer(
             buf, dispatcher.extent, decode=self.label_decode,
             smooth_radius=self.smooth_radius, switch_cost=self.switch_cost)
-        labels, conf = labels.cpu().numpy(), conf.cpu().numpy()
+        with profiling.span("playaid.labels_to_host"):
+            labels, conf = labels.cpu().numpy(), conf.cpu().numpy()
         if stride > 1:
             labels = np.repeat(labels, stride, axis=0)[:f_total]
             conf = np.repeat(conf, stride, axis=0)[:f_total]
@@ -691,15 +732,17 @@ class VodAnalyzer:
                     stop = min(c0 + chunk, f_total)
                     cb = np.zeros((chunk, boxes.shape[1], 4), np.float32)
                     cb[:stop - c0] = boxes[c0:stop]
-                    n, crops = dec.decode_crops(c0, cb, crop_size, padding, stride=self.stride,
-                                                fmt=fmt, dense=True)
+                    with profiling.span("playaid.decode"):
+                        n, crops = dec.decode_crops(c0, cb, crop_size, padding,
+                                                    stride=self.stride, fmt=fmt, dense=True)
                     dispatcher.sink(c0, min(n, stop - c0), crops)
             finally:
                 native_decoder.release(dec)
             return
         decoder = NativeChunkDecoder(
             video_path, f_total, chunk, boxes, crop_size, padding, dispatcher.sink,
-            workers=workers, lowres=lowres, stride=self.stride, fmt=fmt, fast=self.fast_decode)
+            workers=workers, lowres=lowres, stride=self.stride, fmt=fmt, fast=self.fast_decode,
+            analysis=dispatcher.analysis)
         try:
             decoder.wait()
         finally:
@@ -723,7 +766,8 @@ class VodAnalyzer:
             return len(items), crops, None
 
         decoder = BoundedSegmentDecoder(video_path, f_total, chunk, transform, collate,
-                                        workers=self.decode_workers)
+                                        workers=self.decode_workers,
+                                        analysis=dispatcher.analysis)
         try:
             for start, (n, crops, _) in decoder:
                 dispatcher.sink(start, n, crops)
@@ -748,7 +792,8 @@ class VodAnalyzer:
             return n, wins, origins
 
         decoder = BoundedSegmentDecoder(video_path, f_total, self.chunk, transform, collate,
-                                        workers=self.decode_workers)
+                                        workers=self.decode_workers,
+                                        analysis=dispatcher.analysis)
         try:
             for start, (n, wins, origins) in decoder:
                 dispatcher.sink(start, n, wins, origins)

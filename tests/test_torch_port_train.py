@@ -596,11 +596,13 @@ def test_stage_timer():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
-        with profiling.annotate_stage("stage1"):
+        with profiling.span("stage1"):
             torch.ones(8, 8).sum()
     path = tmp_path / "trace" / profiling.TRACE_FILE
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "stage1" for e in events)
+    spans = json.loads((tmp_path / "trace" / profiling.SPANS_FILE).read_text())
+    assert [s["name"] for s in spans["spans"]] == ["stage1"]
 
 
 # ---------------------------------------------------------------------------
