@@ -21,15 +21,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    -> 128^2) and at edge origins (negative corners, side > W - 2, side 0);
    both entries' crops are views of channels-first storage;
 3. residual-block kernel (K2) against its plain version on the real
-   layer4[1] weights and input, float32 (3xTF32) and bfloat16;
+   layer4[1] weights and input, float32 (3xTF32) and bfloat16; (b) K2 at
+   every identity-block shape of the routes (K2_ROUTE_SHAPES) on seeded
+   inputs: its launch (launch_shape), held against its plain version, its
+   channels-first output equal to its NHWC one, its device ms (both
+   outputs) beside the cuDNN chain's and its bound, and every launch's
+   call ms (k2_launch_sweep) beside the rule's;
 4. the device slice from pinned frames, with PyTorch's default TF32 flags
    (the entry points set their own float32 numerics): per chunk upload ->
-   preprocess_frames (K1) -> embed_crops (ResNet-18, layer4[1] through K2)
+   preprocess_frames (K1) -> embed_crops (ResNet-18, its five identity blocks through K2)
    -> scatter_embeddings, then classify_buffer (argmax and Viterbi, both
    fighters in one K3 launch) and the stride repeat; launch counts (K3
    one, K4 none: the crops come from K1); the first 96 frames again on
-   the CPU; the layout kernels' ms in a profiled slice (no nhwcToNchw:
-   K1's crops reach the stem channels first); (b) K3 against
+   the CPU; the layout kernels' ms in a profiled slice (no nhwcToNchw or
+   nchwToNhwc: K1's crops reach the stem channels first, and the last
+   block of each fused run writes channels first); (b) K3 against
    viterbi_decode_ref on the slice's own
    [2, 256, 63] log-probs (true length 240), on a seeded 14,400-row match
    and on edge cases (lengths 0, 1 and F a sequence, F 1, A 1/33/64/1024,
@@ -66,7 +72,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    host-to-device bytes per chunk (the windows and their origins, no
    weights), K3 against its plain version on the run's own log-probs, card
    vs CPU labels on the first 96 frames, frames/s and its split, the
-   layout kernels' ms in the profiled run (no nhwcToNchw); then the
+   layout kernels' ms in the profiled run (no nhwcToNchw or
+   nchwToNhwc); then the
    command line,
    main([...]) in this process, on the same log with a port checkpoint
    file made from the bench weights, --stride 2, through phase 6's decoder
@@ -75,8 +82,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (two discs that cross the screen, both HUD damage counters painted with
    a 5x7 bitmap font, stepping every 30 frames) -> CharacterDetector with
    the CenterNet detector at full width and seeded weights, batches of 16
-   (frames resized to 256x448 on the card, K2 in the trunk's layer4[1] at
-   8x14x512, held against its plain version there) -> AIRunner cleanup ->
+   (frames resized to 256x448 on the card, K2 in the trunk's five identity
+   blocks, layer4[1]'s at 8x14x512 held against its plain version there) -> AIRunner cleanup ->
    run_action_recognition (the bench weights, K2 in the embed at
    239x4x4x512, held against its plain version on the inputs it ran) ->
    run_damage_detection (the conv digit net on the card) -> write_output:
@@ -133,7 +140,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    card's float32 loss, its float64 gradients, and its float32 gradients'
    error beside the CPU float32's; (b) the command line, main([...]) in
    this process, 40 steps on the training split; (c) K1 and K2 launches 0
-   in fit, K2 one a batch of 16 in evaluate(64); (d) after training, K2
+   in fit, K2 five a batch of 16 in evaluate(64); (d) after training, K2
    against its plain version on the trunk's layer4[1] input at
    16x8x14x512, timed, and evaluate's first batch with layer4[1] on K2 and
    on residual_block_ref; (e) the loss on one fixed batch falls over 20
@@ -165,8 +172,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    and bytes of each collective, the RNN's model-axis collectives a step
    and its LSTM's share of the step (the LSTM timed alone); (c)
    VodAnalyzer(mesh=make_mesh(devices=[cuda:0, cuda:0])) on phase 6's clip:
-   labels identical to mesh=None, confidences within 1e-4, K2 and K4
-   launches 2 a chunk, K3 one, and K2 held against its plain version in each replica,
+   labels identical to mesh=None, confidences within 1e-4, K2 launches 10
+   a chunk (5 a replica) and K4 2, K3 one, and K2 held against its plain version in each replica,
    frames/s beside phase 6's; (d) the (1, 2) ResFormer's checkpoint after
    its first step, restored on one process: the next two losses within
    2e-4 relative, and BatchedActionPipeline.load_checkpoint reads it;
@@ -182,7 +189,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    13's 24x4x4x512), save_params -> ConvDigitOCR(params=load_params(...))
    on the card against the trained model; (b) evaluate_samples with the
    CNN-63 from the bench weights in eval mode over 16 samples of phase
-   10's validation tree: K2 one launch a sample at 7x4x4x512, held against
+   10's validation tree: K2 five launches a sample, layer4[1]'s at 7x4x4x512 held against
    its plain version and timed, card vs CPU predictions, log-probs and
    accuracy; (c) write_vis_ai_report on phase 9's runner, its own labels as
    the first fighter's ground truth: the strip count, that fighter's
@@ -205,7 +212,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    off) for 30 steps through BackgroundIterator, timed from its third step:
    no K1 or K2 launch in it; the busy share of a profiled 4-step epoch; the
    loss on one fixed batch falls over 20 steps; (d) Trainer.evaluate on the
-   split: K2 one launch a batch at 112x4x4x512, held against
+   split: K2 five launches a batch, layer4[1]'s at 112x4x4x512 held against
    residual_block_ref on the input it ran, timed (call, device, plain,
    cuDNN chain, bound); (e) DeviceSynthDataset over the drawn tree, 10
    steps: K1's bank entry 2 launches a step, held against
@@ -235,11 +242,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    what the JAX module gives on the same frames (playaid_core_torch/
    assets/gt_digests.json, from tools/torch_port_gt_digests.py), a second
    run writes nothing, then Trainer.fit trains CNN-63 from the bench
-   weights 8 steps on the tree and evaluate runs 2 batches, K2 one launch
+   weights 8 steps on the tree and evaluate runs 2 batches, K2 five launches
    a batch (none in train steps), held against residual_block_ref; (b)
    gen_gt_char_detection.generate_data(interval=10, fmt="npy") writes 48
    frames whose YOLO label files and frames equal the JAX module's, then
-   DetectorTrainer.fit takes 8 steps and evaluate(32) runs with K2 (one a
+   DetectorTrainer.fit takes 8 steps and evaluate(32) runs with K2 (five a
    batch of 16), held against its plain version; (c) a raw animation dump
    written as PNG by imgcodec's own writer is cleaned by raw_anim_cleaner,
    whose PNGs decode to the JAX cleaner's, and read_sprite reads each as
@@ -301,6 +308,16 @@ K1_TOL = 1e-5             # max abs, outputs in [0, 1]
 LOG_PROB_TOL = 1e-4       # card vs CPU head log-probs, max abs
 K2_F32_REL_TOL = 1e-4     # of max|ref|: 3xTF32 products, summation order differs
 K2_BF16_ULPS = 2          # bf16 ulps at max(|ref|, max|ref| / 64)
+K2_BLOCKS = 5             # fused identity blocks a ResNet-18 call: layer1[0], layer1[1],
+                          # layer2[1], layer3[1], layer4[1]
+# Every identity block a route of the port runs, [B, H, W, C]: ResNet-18's
+# four stages at 128-px crops, in 48-crop chunks (the VOD path), 24 (a
+# replica of VodAnalyzer(mesh=)), 7 (the dashboards' samples), 56 and 112
+# (the training evaluate passes), and the detector's trunk at 256x448 in
+# batches of 16.
+K2_EMBED_MAPS = ((32, 32, 64), (16, 16, 128), (8, 8, 256), (4, 4, 512))
+K2_ROUTE_SHAPES = (tuple((b,) + hwc for b in (48, 24, 7, 56, 112) for hwc in K2_EMBED_MAPS)
+                   + ((16, 64, 112, 64), (16, 32, 56, 128), (16, 16, 28, 256), (16, 8, 14, 512)))
 EMBED_REL_TOL = 1e-5      # card vs CPU embeddings, of max|cpu|
 LABEL_AGREEMENT_MIN = 0.99
 
@@ -990,6 +1007,116 @@ def k2_yardsticks(torch, block, x, k2_args, pack):
             "gflop": flops / 1e9}
 
 
+def k2_shape_inputs(torch, shape, dev, seed=0):
+    """residual_block_ref's float32 arguments for a block of ``shape``
+    [B, H, W, C], drawn on ``dev`` from ``seed``: x as a ReLU's output, He-scaled
+    weights, folded scales in [0.5, 1.5] and biases of 0.1."""
+    b, h, w, c = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn(shape, generator=g, device=dev))
+    w1, w2 = (torch.randn((3, 3, c, c), generator=g, device=dev) * (2 / (9 * c)) ** 0.5
+              for _ in range(2))
+    s1, s2 = (torch.rand(c, generator=g, device=dev) + 0.5 for _ in range(2))
+    b1, b2 = (torch.randn(c, generator=g, device=dev) * 0.1 for _ in range(2))
+    return x, w1, s1, b1, w2, s2, b2
+
+
+def k2_cudnn_chain(torch, x_nchw, args):
+    """The block on cuDNN from residual_block_ref's arguments: conv -> bn ->
+    relu -> conv -> bn -> add -> relu on the NCHW input, batch norm as the
+    model runs it, on statistics that fold to the scales and biases."""
+    import torch.nn.functional as F
+
+    _, w1, s1, b1, w2, s2, b2 = args
+    mean, var = torch.zeros_like(s1), torch.full_like(s1, 1 - 1e-5)
+    y = F.conv2d(x_nchw, w1.permute(3, 2, 0, 1), padding=1)
+    y = torch.relu(F.batch_norm(y, mean, var, s1, b1, False, 0.0, 1e-5))
+    y = F.batch_norm(F.conv2d(y, w2.permute(3, 2, 0, 1), padding=1), mean, var, s2, b2, False,
+                     0.0, 1e-5)
+    return torch.relu(y + x_nchw)
+
+
+def k2_launch_sweep(torch, x, pack):
+    """Every launch K2 takes (tile rows, tile channels, depth split) on x
+    [B, H, W, C] and its pack: mean ms a call by CUDA events over
+    back-to-back calls, keyed "rowsxchannelsxsplit"."""
+    from playaid_core_torch.ops import _build
+    from playaid_core_torch.ops.conv_block import TILES, _library
+
+    b, h, w, c = x.shape
+    mid, out = torch.empty_like(x), torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, pack.w1, pack.s1, pack.b1, pack.w2, pack.s2, pack.b2,
+                                   mid, out)]
+    fn, stream = _library(x.dtype), _build.current_stream(x.device)
+    times = {}
+    for bm, bn in TILES:
+        if c % bn:
+            continue
+        for split in (1, 2):
+            def call(_):
+                _build.check(fn(*ptrs, b, h, w, c, bm, bn, split, 0, stream), "residual_block")
+
+            times[f"{bm}x{bn}x{split}"] = time_cuda(torch, call, 20)
+    return times
+
+
+def k2_route_shapes(torch, dev):
+    """K2 at every identity-block shape of the routes (K2_ROUTE_SHAPES),
+    on seeded inputs: its launch (launch_shape), held against
+    residual_block_ref, and its device ms beside the cuDNN chain's (conv ->
+    bn -> relu -> conv -> bn -> add -> relu on NCHW, TF32 off) and the
+    least time the card could take (3xTF32 operations at the TF32 peak, or
+    the bytes, the larger).  Returns one dict a shape."""
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.conv_block import (
+        launch_shape,
+        pack_block,
+        residual_block_packed,
+        residual_block_ref,
+    )
+
+    rows = []
+    for shape in K2_ROUTE_SHAPES:
+        b, h, w, c = shape
+        with torch.inference_mode():
+            args = k2_shape_inputs(torch, shape, dev)
+            x = args[0]
+            pack = pack_block(*args[1:])
+            out = residual_block_packed(x, pack)
+            nchw = residual_block_packed(x, pack, channels_first=True)
+            ref = residual_block_ref(*args)
+            err = float((out - ref).abs().max()) / float(ref.abs().max())
+            same = bool(torch.equal(nchw, out)) and nchw.permute(0, 3, 1, 2).is_contiguous()
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            dev_ms, _ = device_ms(torch, lambda _: residual_block_packed(x, pack), 20,
+                                  "conv3x3_wgmma_kernel", 2)
+            nchw_ms, _ = device_ms(
+                torch, lambda _: residual_block_packed(x, pack, channels_first=True), 20,
+                "conv3x3_wgmma_kernel", 2)
+            sweep = k2_launch_sweep(torch, x, pack)
+            with full_float32():
+                lib_ms, lib_kernels = span_device_ms(
+                    torch, lambda _: k2_cudnn_chain(torch, x_nchw, args), 10)
+        m = b * h * w
+        launch = launch_shape(c, m)
+        fastest = min(sweep, key=sweep.get)
+        flops = 2 * 2 * m * c * 9 * c
+        nbytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
+        bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        rows.append({"shape": list(shape), "launch": list(launch), "rel_err": err,
+                     "channels_first_equal": same, "device_ms": dev_ms,
+                     "channels_first_device_ms": nchw_ms, "bound_ms": bound_ms,
+                     "library_ms": lib_ms, "library_kernels": lib_kernels, "launches": sweep})
+        log(f"K2 at {shape}: launch {launch}, max abs err / max|ref| {err:.3e}, channels-first "
+            f"output equal {same}; device {'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+            f"ms ({'not measured' if nchw_ms is None else f'{nchw_ms:.4f}'} channels first), bound "
+            f"{bound_ms:.4f} ms, cuDNN chain "
+            f"{'not measured' if lib_ms is None else f'{lib_ms:.4f}'} ms; every launch's call ms "
+            f"{json.dumps({k: round(v, 4) for k, v in sweep.items()})}, fastest {fastest} "
+            f"({sweep['x'.join(map(str, launch))] / sweep[fastest] - 1:+.1%} for the rule's)")
+    return rows
+
+
 def bf16_ulps(out, ref):
     """Largest |out - ref| in bf16 ulps of max(|ref|, max|ref| / 64)."""
     mag = np.maximum(np.abs(ref), np.abs(ref).max() / 64)
@@ -1038,6 +1165,7 @@ def profile_slice(torch, run_slice, slice_s):
 def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     """Phase 6: VodAnalyzer.analyze on the headline configuration.  Returns
     each wrapper's launches during the timed run."""
+    from playaid_core_torch import profiling
     from playaid_core_torch.convert import load_npz_tree
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
     from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
@@ -1062,9 +1190,15 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     first = argmax.analyze(clip, boxes_all)
     for w in wrappers:
         w.launches = 0
-    timed = viterbi.analyze(clip, boxes_all)
+    with profiling.recording() as rec:
+        timed = viterbi.analyze(clip, boxes_all)
     launches = [w.launches for w in wrappers]
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
+    embeds = rec.summary()["playaid.embed"]
+    check(embeds["count"] == num_chunks and embeds.get("k2_blocks") == K2_BLOCKS * num_chunks
+          == launches[1],
+          f"phase 6: k2_blocks {embeds.get('k2_blocks')} over {embeds['count']} playaid.embed "
+          f"spans ({K2_BLOCKS} a chunk's embed), K2 launches {launches[1]}")
     log(f"phase 6: launches during the timed analyze: crop_resize {launches[0]} (crops are "
         f"made on the host on this path), residual_block {launches[1]}, viterbi {launches[2]}, "
         f"yuv420_unpack {launches[3]}")
@@ -1177,6 +1311,7 @@ def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
     """Phase 7: the ResFormer and RNN families at full width, seeded random
     weights, through VodAnalyzer.analyze; card against CPU on the first
     CPU_FRAMES frames."""
+    from playaid_core_torch import profiling
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
     from playaid_core_torch.infer.vod_pipeline import VodAnalyzer
 
@@ -1192,8 +1327,15 @@ def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
         analyzer = VodAnalyzer(pipe, **kw)
         analyzer.analyze(clip, boxes_all)
         k2_wrapper.launches = 0
-        res = analyzer.analyze(clip, boxes_all)
+        with profiling.recording() as rec:
+            res = analyzer.analyze(clip, boxes_all)
         k2 = k2_wrapper.launches
+        embeds = rec.summary()["playaid.embed"]
+        check(embeds.get("k2_blocks", 0) == (K2_BLOCKS if family == "rnn" else 0) * embeds["count"]
+              == k2,
+              f"phase 7: {family}: k2_blocks {embeds.get('k2_blocks', 0)} over "
+              f"{embeds['count']} playaid.embed spans (ResNet-18: {K2_BLOCKS} a span; ResNet-50: "
+              f"none), K2 launches {k2}")
         check(res["labels"].shape == (NUM_FRAMES, 2) and 0 <= res["labels"].min()
               and res["labels"].max() < 63 and np.isfinite(res["confidences"]).all(),
               f"phase 7: {family}: {NUM_FRAMES} frames in {res['seconds'] * 1e3:.1f} ms = "
@@ -1331,10 +1473,12 @@ def run_log_phase(torch, dev, check, wrappers):
         log(f"phase 8 profile: {us / 1e3:9.3f} ms  {name[:100]}")
     layout = layout_ms({name: us / 1e3 for name, us in by_name.items()})
     log(f"phase 8 profile: ms by name fragment over the argmax run {json.dumps(layout)}")
-    check(layout["nhwcToNchw"] == 0 and layout["crop_resize_kernel"] > 0,
-          f"phase 8: no nhwcToNchw kernel in the window route's trace ({layout['nhwcToNchw']:.3f} "
-          f"ms): K1's window entry hands the stem channels-first crops "
-          f"({layout['crop_resize_kernel']:.3f} ms of K1 traced)")
+    check(layout["nhwcToNchw"] == 0 and layout["nchwToNhwc"] == 0
+          and layout["crop_resize_kernel"] > 0,
+          f"phase 8: no nhwcToNchw or nchwToNhwc kernel in the window route's trace "
+          f"({layout['nhwcToNchw']:.3f}, {layout['nchwToNhwc']:.3f} ms): K1's window entry hands "
+          f"the stem channels-first crops and each run of fused blocks hands cuDNN "
+          f"channels-first maps ({layout['crop_resize_kernel']:.3f} ms of K1 traced)")
 
     # The Viterbi run split where classify_buffer starts and ends.
     marks = {}
@@ -1638,10 +1782,11 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     detector.run(clip, exp)
     detector_s = time.perf_counter() - t0
     det_launches = k2_wrapper.launches
-    check(det_launches == PIX_FRAMES // PIX_BATCH,
+    check(det_launches == K2_BLOCKS * (PIX_FRAMES // PIX_BATCH),
           f"phase 9: CharacterDetector {PIX_FRAMES} frames in {detector_s * 1e3:.1f} ms = "
           f"{PIX_FRAMES / detector_s:.1f} frames/s (detect() alone {detect_fps:.1f} frames/s); K2 "
-          f"launches in the trunk {det_launches} (one a batch of {PIX_BATCH}); {card}")
+          f"launches in the trunk {det_launches} ({K2_BLOCKS} a batch of {PIX_BATCH}, one a "
+          f"fused block); {card}")
 
     # The runner: cleanup, recognition (bench weights, crop 128), OCR, output.
     tree = load_npz_tree(ASSET)
@@ -2163,9 +2308,10 @@ def run_train_phase(torch, dev, check, card, k2_wrapper):
         lp_ref = model(x)
         del block.forward  # the class's forward again
     lp_err = float((lp_k2 - lp_ref).abs().max())
-    check(k2_in_eval == 1 and lp_err <= LOG_PROB_TOL,
+    check(k2_in_eval == K2_BLOCKS and lp_err <= LOG_PROB_TOL,
           f"phase 10: after training, eval log-probs {tuple(lp_k2.shape)} with layer4[1] on K2 "
-          f"({k2_in_eval} launch) vs on residual_block_ref: max abs err {lp_err:.3e} "
+          f"({k2_in_eval} launches, one a fused block) vs on residual_block_ref: max abs err "
+          f"{lp_err:.3e} "
           f"(tol {LOG_PROB_TOL})")
     with torch.inference_mode(), full_float32():
         k2_args = k2_ref_args(block, seen["x"])
@@ -2834,8 +2980,8 @@ def sprites_main():
           f"phase 15 (c): loss on one fixed synth batch over {LEARN_STEPS} steps: "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}")
 
-    # (d) Trainer.evaluate on the split: K2 once an eval batch at 112x4x4x512,
-    # held against residual_block_ref on the input it ran.
+    # (d) Trainer.evaluate on the split: K2 five times an eval batch, layer4[1]'s
+    # at 112x4x4x512 held against residual_block_ref on the input it ran.
     model = trainer.model
     block = model.embed.layer4[1]
     seen = {}
@@ -2855,11 +3001,11 @@ def sprites_main():
     k2_err = float((k2_out - k2_ref).abs().max())
     k2_scale = float(k2_ref.abs().max())
     check(eval_counts == {"crop_resize": 0, "window_resize": 0, "bank_resize": 0,
-                          "residual_block": 2}
+                          "residual_block": 2 * K2_BLOCKS}
           and tuple(x_nhwc.shape) == (b * t, 4, 4, 512)
           and k2_err <= K2_F32_REL_TOL * k2_scale and np.isfinite(ev["loss"]),
           f"phase 15 (d): Trainer.evaluate, 2 batches: launches {json.dumps(eval_counts)} (K2 "
-          f"one a batch) at layer4[1] {tuple(x_nhwc.shape)}; K2 vs residual_block_ref there: max abs "
+          f"{K2_BLOCKS} a batch) at layer4[1] {tuple(x_nhwc.shape)}; K2 vs residual_block_ref there: max abs "
           f"err {k2_err:.3e} (tol {K2_F32_REL_TOL} x max|ref| {k2_scale:.3f}); loss "
           f"{ev['loss']:.4f}, acc {ev['acc']:.3f}")
     k2 = k2_yardsticks(torch, block, seen["x"], k2_args, pack)
@@ -3208,11 +3354,12 @@ def run_detector_phase(torch, dev, check, card, k1_wrappers, k2_wrapper):
         del trainer.detect  # the class's method again
     eval_launches = k2_wrapper.launches
     check(finite and all(p.device.type == "cuda" for p in params) and fit_launches == (0, 0)
-          and eval_launches == len(eval_batches) == DET_EVAL_IMAGES // 16,
+          and eval_launches == K2_BLOCKS * len(eval_batches)
+          and len(eval_batches) == DET_EVAL_IMAGES // 16,
           f"phase 12: DetectorTrainer.fit {DET_FIT_STEPS} steps (batch {DET_BATCH}) in "
           f"{fit_s:.2f} s, losses finite, weights on the card; K1 and K2 launches in the fit "
           f"{fit_launches} (must be 0); evaluate({DET_EVAL_IMAGES}) K2 launches {eval_launches} "
-          f"in {len(eval_batches)} batches (one a batch); {scores}; {card}")
+          f"in {len(eval_batches)} batches ({K2_BLOCKS} a batch); {scores}; {card}")
 
     # (d) K2 after training at the trunk's shape, and evaluate's first batch
     # with layer4[1] on K2 and on residual_block_ref.
@@ -3243,9 +3390,10 @@ def run_detector_phase(torch, dev, check, card, k1_wrappers, k2_wrapper):
     same_cls = all([c for c, _, _ in a] == [c for c, _, _ in b] for a, b in zip(on_k2, on_ref))
     box_err = max(float(np.abs(np.array([bx for _, _, bx in a]) - np.array([bx for _, _, bx in b]))
                         .max()) for a, b in zip(on_k2, on_ref))
-    check(k2_in_detect == 1 and same_cls and box_err <= BOX_TOL
+    check(k2_in_detect == K2_BLOCKS and same_cls and box_err <= BOX_TOL
           and all(len(d) == DET_MAX_DET for d in on_k2),
-          f"phase 12: evaluate's first batch of 16 with layer4[1] on K2 ({k2_in_detect} launch) "
+          f"phase 12: evaluate's first batch of 16 with layer4[1] on K2 ({k2_in_detect} launches, "
+          f"one a fused block) "
           f"vs on residual_block_ref: the {DET_MAX_DET} best peaks' classes identical "
           f"{same_cls}, boxes max abs err {box_err:.3e} (tol {BOX_TOL})")
     k2 = k2_yardsticks(torch, block, x, k2_args, pack)
@@ -3540,7 +3688,7 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
         hook.remove()
         err, scale, shape = k2_against_plain(block, seen["x"])
         k2["evaluate_max_abs_err"] = err
-        check(trainer.mesh.distributed and k2["evaluate_launches"] == 1
+        check(trainer.mesh.distributed and k2["evaluate_launches"] == K2_BLOCKS
               and err <= K2_F32_REL_TOL * scale and np.isfinite(result["loss"]),
               f"phase 13 (a): meshed evaluate on {trainer.mesh}: loss {result['loss']:.4f}, "
               f"K2 launches {k2['evaluate_launches']}; K2 at layer4[1] {shape} vs "
@@ -3700,13 +3848,14 @@ def run_mesh_phase(torch, dev, check, card, k2_wrapper, boxes_all, stand_in, vod
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
     same = bool(np.array_equal(res_mesh["labels"], res_single["labels"]))
     conf = float(np.abs(res_mesh["confidences"] - res_single["confidences"]).max())
-    check(same and conf <= MESH_CONF_TOL and k2["vod_launches"] == 2 * num_chunks
+    check(same and conf <= MESH_CONF_TOL and k2["vod_launches"] == 2 * K2_BLOCKS * num_chunks
           and k2["vod_k4_launches"] == 2 * num_chunks and k2["vod_k3_launches"] == 1
           and blocks[0] is not blocks[1],
           f"phase 13 (c): VodAnalyzer(mesh=make_mesh(devices=[{dev}, {dev}])) over "
           f"{NUM_FRAMES} frames: labels identical to mesh=None {same}, confidences max abs "
-          f"diff {conf:.3e} (tol {MESH_CONF_TOL}); K2 launches {k2['vod_launches']} and K4 "
-          f"(yuv420_unpack) {k2['vod_k4_launches']} = 2 replicas x {num_chunks} chunks, K3 "
+          f"diff {conf:.3e} (tol {MESH_CONF_TOL}); K2 launches {k2['vod_launches']} = 2 "
+          f"replicas x {num_chunks} chunks x {K2_BLOCKS} fused blocks, K4 (yuv420_unpack) "
+          f"{k2['vod_k4_launches']} = 2 replicas x {num_chunks} chunks, K3 "
           f"(viterbi) {k2['vod_k3_launches']} (one classify_buffer); {card}")
     errs = []
     for r, (block, s) in enumerate(zip(blocks, seen)):
@@ -3962,12 +4111,13 @@ def run_ocr_viz_phase(torch, dev, check, card, k2_wrapper, runner):
     _, cpu_agg = evaluate_samples(cnn63_apply(torch, cpu_model, "cpu", outputs["cpu"]),
                                   train_dataset("validation", seed=DASH_SEED), DASH_SAMPLES)
     lp_err = float(max((a - b).abs().max() for a, b in zip(outputs["card"], outputs["cpu"])))
-    check(launches == DASH_SAMPLES and agg["preds"] == cpu_agg["preds"]
+    check(launches == K2_BLOCKS * DASH_SAMPLES and agg["preds"] == cpu_agg["preds"]
           and agg["accuracy"] == cpu_agg["accuracy"] and lp_err <= LOG_PROB_TOL
           and len(records) == DASH_SAMPLES,
           f"phase 14 (b): evaluate_samples with the CNN-63 (bench weights) on {DASH_SAMPLES} "
           f"samples of phase 10's validation tree (T {TRAIN_T}, {CROP} px): "
-          f"{DASH_SAMPLES / dash_s:.1f} samples/s; K2 launches {launches} (one a sample); card "
+          f"{DASH_SAMPLES / dash_s:.1f} samples/s; K2 launches {launches} ({K2_BLOCKS} a "
+          f"sample); card "
           f"vs CPU predicted ids identical {agg['preds'] == cpu_agg['preds']}, accuracy "
           f"{agg['accuracy']:.4f} vs {cpu_agg['accuracy']:.4f}, log-probs max abs err "
           f"{lp_err:.3e} (tol {LOG_PROB_TOL}); {card}")
@@ -4613,7 +4763,7 @@ def run_gt_phase(torch, dev, check, card, k2_wrapper):
                 "k2_action_max_abs_err": err, "k2_action_shape": list(shape)})
     check(np.isfinite(record["train_loss"]) and np.isfinite(result["loss"])
           and trainer.state.step == GT_FIT_STEPS and fit_launches == 0
-          and eval_launches == GT_EVAL_BATCHES and err <= K2_F32_REL_TOL * scale,
+          and eval_launches == K2_BLOCKS * GT_EVAL_BATCHES and err <= K2_F32_REL_TOL * scale,
           f"phase 17 (a): Trainer.fit CNN-63 (bench weights) {GT_FIT_STEPS} steps on the tree "
           f"(batch {TRAIN_BATCH}, T {TRAIN_T}): {record['steps_per_sec']} steps/s = "
           f"{record['crops_per_sec']} crops/s, loss {record['train_loss']:.4f}; K2 launches "
@@ -4645,7 +4795,8 @@ def run_gt_phase(torch, dev, check, card, k2_wrapper):
                 "k2_detector_shape": list(shape)})
     losses = [rec["loss"] for rec in det.metrics_log]
     check(all(np.isfinite(losses)) and det_fit_launches == 0
-          and det_eval_launches == GT_DET_EVAL_IMAGES // 16 and err <= K2_F32_REL_TOL * scale,
+          and det_eval_launches == K2_BLOCKS * (GT_DET_EVAL_IMAGES // 16)
+          and err <= K2_F32_REL_TOL * scale,
           f"phase 17 (b): DetectorTrainer.fit {GT_DET_STEPS} steps (batch {DET_BATCH}) on the "
           f"{run['char_frames']} frames in {det_s:.2f} s = {GT_DET_STEPS / det_s:.2f} steps/s, "
           f"losses {[round(v, 4) for v in losses]}; K2 launches in the fit {det_fit_launches} "
@@ -4858,6 +5009,14 @@ def main():
     check(small_err <= K2_F32_REL_TOL * small_scale and small_ulps <= K2_BF16_ULPS,
           f"phase 3: K2 residual_block B=5 C=64: f32 max abs err {small_err:.3e} (tol "
           f"{K2_F32_REL_TOL} x {small_scale:.3f}), bf16 max {small_ulps:.2f} ulps")
+
+    # ---- phase 3 (b): K2 at every identity-block shape of the routes ----
+    k2_routes = k2_route_shapes(torch, dev)
+    for row in k2_routes:
+        check(row["rel_err"] <= K2_F32_REL_TOL and row["channels_first_equal"],
+              f"phase 3 (b): K2 at {tuple(row['shape'])}, launch {tuple(row['launch'])}: max "
+              f"abs err / max|ref| {row['rel_err']:.3e} (tol {K2_F32_REL_TOL}); its "
+              f"channels-first output equal and channels first {row['channels_first_equal']}")
 
     # ---- phase 4: the slice ----
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
@@ -5228,10 +5387,12 @@ def main():
         f"{', '.join(f'{v:.4f}' for v in embed_ms['nhwc'])} ms (order nchw, nhwc, nhwc, nchw)")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     layout = profile_slice(torch, run_slice, slice_s)
-    check(layout is not None and layout["nhwcToNchw"] == 0 and layout["crop_resize_kernel"] > 0,
-          f"phase 4: no nhwcToNchw kernel in the slice's trace "
-          f"({'no trace' if layout is None else '%.3f ms' % layout['nhwcToNchw']}): K1's "
-          f"frames entry hands the stem channels-first crops")
+    check(layout is not None and layout["nhwcToNchw"] == 0 and layout["nchwToNhwc"] == 0
+          and layout["crop_resize_kernel"] > 0,
+          f"phase 4: no nhwcToNchw or nchwToNhwc kernel in the slice's trace "
+          f"({'no trace' if layout is None else '%.3f, %.3f ms' % (layout['nhwcToNchw'], layout['nchwToNhwc'])}): "
+          f"K1's frames entry hands the stem channels-first crops and each run of fused "
+          f"blocks hands cuDNN channels-first maps")
 
     # ---- phases 6 and 7: VodAnalyzer.analyze, the CNN headline and the families ----
     from playaid_core_torch.video import native_decoder
@@ -5358,6 +5519,7 @@ def main():
                        "window_device_ms": kw_dev_ms, "window_plain_ms": kw_plain_ms,
                        "window_bound_ms": kw_bound_ms, "window_library_ms": kw_lib_ms})
     # K2 in the detector's trunk and the action embed of phase 9.
+    kernels[1]["route_shapes"] = k2_routes
     kernels[1].update({f"pixels_{k}": v for k, v in pixels.items()})
     # K2 in the eval steps of phase 10's training (none in its train steps).
     kernels[1].update({f"train_{k}": v for k, v in training.items() if k != "families"})

@@ -2,8 +2,9 @@
 
 Counterpart of ``playaid_core_tpu/models/detector.py``:
 
-* a ResNet-18 trunk returning its stride-32 map (``layer4[1]`` runs as the
-  fused residual-block kernel on the card, 8x14x512 at the 256x448 input);
+* a ResNet-18 trunk returning its stride-32 map (its identity blocks run as
+  the fused residual-block kernel on the card, 64x112x64 to 8x14x512 at
+  the 256x448 input);
 * three transpose convs (4x4, stride 2) with batch norm and ReLU, to
   stride 4 (batch norm with Flax's training update, ``resnet.BatchNorm2d``,
   as in the trunk);

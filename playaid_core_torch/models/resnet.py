@@ -8,14 +8,21 @@ and a dense head (``num_classes=0`` returns the pooled features: 512 for
 ResNet-18, 2048 for ResNet-50).  The Bottleneck block puts its stride on
 the 3x3 conv.  Activations are NCHW inside the network.
 
-At inference on a CUDA tensor, ResNet-18's ``layer4[1]`` (the identity
-block of the last stage: 4x4x512 at the action model's 128-px crops,
-8x14x512 in the detector's trunk at 256x448) runs as the fused CUDA kernel
-of ``ops/conv_block.py`` with batch norm folded from its running
-statistics, whatever ``num_classes`` is.  The block packs its weights and
-folded batch norm for the kernel once and keeps the pack until a tensor
-it was built from changes.  In training mode, or on the CPU, every block
-runs unfused.  ResNet-50 has no BasicBlock and runs on cuDNN throughout.
+At inference on a CUDA tensor, every identity BasicBlock of a ResNet-18
+or ResNet-34 (stride 1, as many channels in as out: ResNet-18's
+``layer1[0]``, ``layer1[1]``, ``layer2[1]``, ``layer3[1]`` and
+``layer4[1]``, from 32x32x64 to 4x4x512 at the action model's 128-px
+crops and from 64x112x64 to 8x14x512 in the detector's trunk at 256x448)
+runs as the fused CUDA kernel of ``ops/conv_block.py`` with batch norm
+folded from its running statistics, whatever ``num_classes`` is; blocks
+with a projection and the stem run on cuDNN.  The kernel takes
+channels-last maps: a run of fused blocks copies its input to that layout
+once, passes it on from block to block, and its last block writes its
+output channels first, as cuDNN takes it.  Each block packs its
+weights and folded batch norm for the kernel once and keeps the pack until
+a tensor it was built from changes.  In training mode, or on the CPU,
+every block runs unfused.  ResNet-50 has no BasicBlock and runs on cuDNN
+throughout.
 
 Training follows Flax: batch norm (:class:`BatchNorm2d`) normalises with
 the biased batch variance and moves its running statistics by momentum 0.9
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from playaid_core_torch import profiling
 from playaid_core_torch.ops.conv_block import pack_block, residual_block_packed
 from playaid_core_torch.parallel.mesh import data_batch_norm
 
@@ -90,7 +98,9 @@ def fold_batch_norm(bn: nn.BatchNorm2d):
 class BasicBlock(nn.Module):
     """Two 3x3 convs with a residual; a 1x1 projection when the shape
     changes.  ``fused=True`` routes inference on CUDA through the fused
-    kernel (identity blocks only)."""
+    kernel (identity blocks only).  A fused block hands its output on
+    channels first (NCHW storage) unless ``channels_first_out`` is False,
+    which :class:`ResNet` sets where a fused block follows."""
 
     def __init__(self, in_planes, planes, stride=1, fused=False):
         super().__init__()
@@ -107,6 +117,7 @@ class BasicBlock(nn.Module):
         if fused and self.downsample is not None:
             raise ValueError("the fused kernel computes identity blocks only")
         self.fused = fused
+        self.channels_first_out = True
         self._pack = None  # (key, BlockPack) of the last fused call
 
     def forward(self, x):
@@ -147,7 +158,9 @@ class BasicBlock(nn.Module):
         return super().train(mode)
 
     def _fused_forward(self, x):
-        out = residual_block_packed(x.permute(0, 2, 3, 1), self.block_pack(x.dtype))
+        out = residual_block_packed(x.permute(0, 2, 3, 1), self.block_pack(x.dtype),
+                                    channels_first=self.channels_first_out)
+        profiling.count("k2_blocks", 1)
         return out.permute(0, 3, 1, 2)
 
 
@@ -186,8 +199,8 @@ class ResNet(nn.Module):
     for float64 weights and input), or the
     pooled features when ``num_classes=0``, or with ``return_feature_map``
     the stride-32 map ``[N, C, H/32, W/32]`` before the pool (the
-    detector's trunk).  In a BasicBlock network the last block of the last
-    stage is the fused kernel's identity block."""
+    detector's trunk).  In a BasicBlock network every identity block (stride
+    1, ``in_planes == planes``) is a fused kernel's block."""
 
     def __init__(self, block, stage_sizes, num_classes=1000, return_feature_map=False):
         super().__init__()
@@ -203,12 +216,15 @@ class ResNet(nn.Module):
             for j in range(num_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 if block is BasicBlock:
-                    fused = i == len(stage_sizes) - 1 and j == num_blocks - 1
+                    fused = stride == 1 and in_planes == planes
                     blocks.append(BasicBlock(in_planes, planes, stride, fused=fused))
                 else:
                     blocks.append(block(in_planes, planes, stride))
                 in_planes = planes * expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        chain = [m for m in self.modules() if isinstance(m, BasicBlock)]
+        for block, after in zip(chain, chain[1:]):
+            block.channels_first_out = not after.fused
         self.fc = nn.Linear(in_planes, num_classes) if num_classes else None
 
     def forward(self, x):

@@ -11,7 +11,8 @@ C_in]`` (depth index ``tap * C_in + c_in``).  :func:`pack_block` builds
 that layout once; in float32 it also splits each weight into TF32 halves
 ``hi = tf32(w)`` and ``lo = tf32(w - hi)`` for the kernel's 3xTF32
 products.  :class:`BlockPack` holds the result, and
-:func:`residual_block_packed` launches the kernel on it.  The model
+:func:`residual_block_packed` launches the kernel on it, in the tile shape
+and depth split that :func:`launch_shape` reads off C and B * H * W.  The model
 (``models/resnet.py``) caches its pack; :func:`residual_block` packs on
 every call.
 """
@@ -28,9 +29,48 @@ from playaid_core_torch.device import full_float32
 from playaid_core_torch.ops import _build
 
 _ENTRY = {torch.float32: "residual_block_f32", torch.bfloat16: "residual_block_bf16"}
-# The kernel's tiles: 64 output channels a block, depth slices of 128
+# The kernel's tiles: 64 or 128 output channels a block, depth slices of 128
 # bytes (32 float32 or 64 bfloat16 input channels of one tap).
 CHANNEL_MULTIPLE = 64
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 232_448  # bytes of shared memory a block may take on one
+# (pixel rows, channels) a tile, fewest bytes read out of L2 a product first:
+# a tile reads its activation rows once and its weight rows twice (TF32 hi
+# and lo), 4 * (2 / rows + 1 / channels) bytes a multiply-add.
+TILES = ((128, 128), (64, 128), (64, 64))
+
+
+def launch_smem(bm, bn):
+    """Shared memory of a float32 block of ``bm x bn`` tiles: 3 stages of
+    128-byte depth slices of its activation and weight rows, hi and lo."""
+    return 3 * 2 * (bm + bn) * 128
+
+
+def launch_shape(c, m):
+    """The kernel's launch for ``c`` channels and ``m = B * H * W`` pixel
+    rows: ``(tile rows, tile channels, depth split)``.
+
+    The first tile of :data:`TILES` whose grid keeps more than half of the
+    SMs busy, else 64 x 64.  A cluster of 2 blocks splits the depth of each
+    tile where twice the tiles still fit on the card at once (a 64 x 64
+    block leaves room for a second on its SM, the larger ones do not):
+    48x4x4x512 runs 64 x 128 tiles split in two (96 blocks), 48x16x16x128
+    128 x 128 tiles with the whole depth (96), 48x32x32x64 64 x 64 tiles
+    with the whole depth (768), 7x8x8x256 64 x 64 tiles split in two (56).
+    On the card this picked the fastest of every launch at 23 of the 24
+    identity-block shapes the port's routes run; at 24x32x32x64 the split
+    launch was 2-6% faster, where the rule keeps the short depth whole
+    (PERF.md).
+    """
+    for bm, bn in TILES:
+        if c % bn:
+            continue
+        tiles = -(-m // bm) * (c // bn)
+        split = 2 if 2 * tiles < SMS * (SMEM_PER_SM // launch_smem(bm, bn)) else 1
+        if tiles * split > SMS // 2 or (bm, bn) == TILES[-1]:
+            return bm, bn, split
+    raise ValueError(f"the kernel takes channel counts that divide by {CHANNEL_MULTIPLE}, "
+                     f"got {c}")
 
 
 def residual_block_ref(x, w1, s1, b1, w2, s2, b2):
@@ -117,18 +157,22 @@ def pack_block(w1, s1, b1, w2, s2, b2, dtype=torch.float32):
 def _library(dtype):
     fn = getattr(_build.load("residual_block"), _ENTRY[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def residual_block_packed(x, pack):
+def residual_block_packed(x, pack, channels_first=False):
     """Fused identity BasicBlock at inference on a :class:`BlockPack`.
 
     x ``[B, H, W, C]`` in ``pack.dtype``; returns ``[B, H, W, C]`` in
-    ``x.dtype``.  Any batch size works.  On CUDA the kernel takes channel
-    counts that divide by 64 (its depth slice) and raises on others; on
-    the CPU the plain version runs on the unpacked weights.
+    ``x.dtype``, contiguous, or with ``channels_first`` a view of
+    ``[B, C, H, W]`` storage (what a cuDNN convolution after the block
+    takes without a conversion).  Any batch size and map size work.  On
+    CUDA the kernel takes channel counts that divide by 64 (its depth
+    slice) and raises on others, and launches in the shape
+    :func:`launch_shape` picks; on the CPU the plain version runs on the
+    unpacked weights.
     """
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
@@ -141,8 +185,9 @@ def residual_block_packed(x, pack):
             raise ValueError(f"packed weights must be contiguous [{halves}, {c}, {9 * c}] "
                              f"{x.dtype}, got {tuple(w.shape)} {w.dtype}")
     if x.device.type == "cpu":
-        return residual_block_ref(x, unpack_weight(pack.w1), pack.s1, pack.b1,
-                                  unpack_weight(pack.w2), pack.s2, pack.b2)
+        out = residual_block_ref(x, unpack_weight(pack.w1), pack.s1, pack.b1,
+                                 unpack_weight(pack.w2), pack.s2, pack.b2)
+        return out.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) if channels_first else out
     if x.device.type != "cuda":
         raise ValueError(f"residual_block runs on CUDA or the CPU, not {x.device}")
     if c % CHANNEL_MULTIPLE:
@@ -152,12 +197,15 @@ def residual_block_packed(x, pack):
     args = (x, pack.w1, pack.s1, pack.b1, pack.w2, pack.s2, pack.b2)
     if any(t.device != x.device for t in args):
         raise ValueError("x and the pack must lie on the same CUDA device")
-    mid = torch.empty_like(x)
-    out = torch.empty_like(x)
     b, h, w, _ = x.shape
+    mid = torch.empty_like(x)
+    if channels_first:
+        out = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device).permute(0, 2, 3, 1)
+    else:
+        out = torch.empty_like(x)
     status = _library(x.dtype)(
         *(t.data_ptr() for t in args), mid.data_ptr(), out.data_ptr(), b, h, w, c,
-        _build.current_stream(x.device),
+        *launch_shape(c, b * h * w), int(channels_first), _build.current_stream(x.device),
     )
     _build.check(status, "residual_block launch")
     _build.count_launch(residual_block_packed)

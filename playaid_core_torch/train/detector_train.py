@@ -22,8 +22,8 @@ Counterpart of ``playaid_core_tpu/train/detector_train.py``:
   carried from the JAX package (:meth:`load_variables`), :meth:`fit`
   (batches assembled in a background thread, copied two steps ahead
   through pinned slots, the JAX trainer's log records), :meth:`detect`
-  (on the device: resize to the model input, the network with
-  ``layer4[1]`` on the fused residual-block kernel, peak decoding) and
+  (on the device: resize to the model input, the network with its
+  identity blocks on the fused residual-block kernel, peak decoding) and
   :meth:`evaluate`.
 * :func:`main`: the detector-training command line,
   ``python -m playaid_core_torch.train.detector_train``.

@@ -222,7 +222,7 @@ def make_train_step(model, loss_fn):
 def make_eval_step(model, loss_fn):
     """``eval_step(state, frames, labels) -> (loss, acc)`` in eval mode (batch
     norm on its running statistics, no dropout; on CUDA, ResNet-18's
-    ``layer4[1]`` runs the fused residual-block kernel).  On ``state.mesh``
+    identity blocks run the fused residual-block kernel).  On ``state.mesh``
     the loss and accuracy are the whole batch's."""
     @torch.no_grad()
     def eval_step(state, frames, labels):

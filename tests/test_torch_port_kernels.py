@@ -12,9 +12,15 @@ import torch.nn.functional as F
 import jax.numpy as jnp
 
 from playaid_core_tpu.ops.pallas_conv_block import xla_residual_block
+from playaid_core_torch import profiling
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline
-from playaid_core_torch.models.resnet import BasicBlock, fold_batch_norm
+from playaid_core_torch.models.resnet import BasicBlock, Bottleneck, fold_batch_norm, make_resnet
 from playaid_core_torch.ops.conv_block import (
+    SMEM_PER_SM,
+    SMS,
+    TILES,
+    launch_shape,
+    launch_smem,
     pack_block,
     residual_block_packed,
     residual_block_ref,
@@ -27,9 +33,9 @@ torch.set_num_threads(2)
 LOW_13_BITS = 0x1FFF
 
 
-def _block_inputs(b, c, seed=0):
+def _block_inputs(b, c, seed=0, hw=(4, 4)):
     rng = np.random.default_rng(seed)
-    x = np.maximum(rng.normal(0, 1, (b, 4, 4, c)), 0).astype(np.float32)
+    x = np.maximum(rng.normal(0, 1, (b, *hw, c)), 0).astype(np.float32)
     w1, w2 = (rng.normal(0, (2 / (9 * c)) ** 0.5, (3, 3, c, c)).astype(np.float32)
               for _ in range(2))
     s1, s2 = (rng.uniform(0.5, 1.5, c).astype(np.float32) for _ in range(2))
@@ -102,10 +108,16 @@ def _emulated_block(x, pack, passes):
     return torch.relu(_emulated_conv(y, pack.w2, passes) * pack.s2 + pack.b2 + x)
 
 
-def test_3xtf32_emulation_holds_the_f32_gate():
-    """At C=512 (the main path's width) three TF32 products hold the
+# [H, W, C] of ResNet-18's identity blocks at 128-px crops: each runs on the
+# kernel.
+BLOCK_MAPS = [(32, 32, 64), (16, 16, 128), (8, 8, 256), (4, 4, 512)]
+
+
+@pytest.mark.parametrize("hwc", BLOCK_MAPS, ids=lambda hwc: "x".join(map(str, hwc)))
+def test_3xtf32_emulation_holds_the_f32_gate(hwc):
+    """At every identity block's shape, three TF32 products hold the
     kernel's 1e-4 * max|ref| gate against both references; one does not."""
-    args = _block_inputs(2, 512, seed=3)
+    args = _block_inputs(2, hwc[2], seed=3, hw=hwc[:2])
     targs = [torch.from_numpy(a) for a in args]
     pack = pack_block(*targs[1:], dtype=torch.float32)
     ref = residual_block_ref(*targs).numpy()
@@ -118,12 +130,51 @@ def test_3xtf32_emulation_holds_the_f32_gate():
         assert np.abs(one - reference).max() > gate
 
 
+# [B, H, W, C] of every identity block a route of the port runs: the
+# embed's four stages in chunks of 48 (the VOD path), 24 (a replica of
+# VodAnalyzer(mesh=)), 7 (the dashboards), 56 and 112 (the training
+# evaluate passes), and the detector's trunk at 256x448 in batches of 16.
+ROUTE_SHAPES = ([(b, *hwc) for b in (48, 24, 7, 56, 112) for hwc in BLOCK_MAPS]
+                + [(16, 64, 112, 64), (16, 32, 56, 128), (16, 16, 28, 256), (16, 8, 14, 512)])
+
+
+@pytest.mark.parametrize("shape", ROUTE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_shape_fits_the_block(shape):
+    """The launch's grid covers the block's rows and channels exactly (no
+    empty row tile), its shared memory fits, and it splits the depth only
+    where the tiles are fewer than the SMs, into halves of whole slices."""
+    b, h, w, c = shape
+    m = b * h * w
+    bm, bn, split = launch_shape(c, m)
+    assert (bm, bn) in TILES and split in (1, 2)
+    row_tiles = -(-m // bm)
+    assert c % bn == 0 and (row_tiles - 1) * bm < m <= row_tiles * bm
+    assert launch_smem(bm, bn) <= SMEM_PER_SM
+    assert split == 1 or row_tiles * (c // bn) < SMS
+    assert (9 * c // 32) // split >= 9  # float32 depth slices a block
+
+
+def test_launch_shape_picks():
+    """The picks the card measured fastest on the main path: the depth
+    split at 4x4x512, where 64 x 64 tiles would be 96 for 132 SMs, and not
+    at 32x32x64, where K = 576 is already short and 768 tiles fill the card."""
+    assert launch_shape(512, 48 * 16) == (64, 128, 2)
+    assert launch_shape(256, 48 * 64) == (128, 128, 2)
+    assert launch_shape(128, 48 * 256) == (128, 128, 1)
+    assert launch_shape(64, 48 * 1024) == (64, 64, 1)
+    assert launch_shape(64, 7 * 1024) == (64, 64, 2)
+    with pytest.raises(ValueError):
+        launch_shape(96, 48 * 1024)
+
+
 def test_packed_block_on_cpu_runs_the_plain_version():
     targs = [torch.from_numpy(a) for a in _block_inputs(3, 64, seed=1)]
     pack = pack_block(*targs[1:], dtype=torch.float32)
     before = residual_block_packed.launches
     out = residual_block_packed(targs[0], pack)
     torch.testing.assert_close(out, residual_block_ref(*targs), atol=1e-5, rtol=0)
+    first = residual_block_packed(targs[0], pack, channels_first=True)
+    assert torch.equal(first, out) and first.permute(0, 3, 1, 2).is_contiguous()
     assert residual_block_packed.launches == before
     with pytest.raises(TypeError):
         residual_block_packed(targs[0].bfloat16(), pack)
@@ -173,6 +224,62 @@ def test_block_pack_cache_never_serves_stale_weights():
     _assert_pack_matches(block, after_training)
 
     assert block.block_pack(torch.bfloat16).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch,fused", [("resnet18", 5), ("resnet34", 13), ("resnet50", 0)])
+def test_every_identity_block_is_fused(arch, fused):
+    """A BasicBlock runs on the kernel exactly when it has no projection:
+    stride 1 and as many channels in as out.  ResNet-50 has none."""
+    net = make_resnet(arch)
+    blocks = [m for m in net.modules() if isinstance(m, (BasicBlock, Bottleneck))]
+    assert blocks
+    basic = [m for m in blocks if isinstance(m, BasicBlock)]
+    assert (not basic) == (arch == "resnet50")
+    for b, after in zip(basic, basic[1:] + [None]):
+        identity = b.conv1.stride == (1, 1) and b.conv1.in_channels == b.conv1.out_channels
+        assert b.fused == identity == (b.downsample is None)
+        # A run of fused blocks hands cuDNN its output channels first.
+        assert b.channels_first_out == (after is None or not after.fused)
+    assert sum(b.fused for b in basic) == fused
+
+
+def test_fused_resnet_runs_the_plain_path_on_cpu():
+    """Eval mode on CPU tensors: no launch, the same numbers as the net
+    with no block fused."""
+    torch.manual_seed(0)
+    fused = make_resnet("resnet18", num_classes=10)
+    with torch.no_grad():
+        for m in fused.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    plain = make_resnet("resnet18", num_classes=10)
+    plain.load_state_dict(fused.state_dict())
+    for m in plain.modules():
+        if isinstance(m, BasicBlock):
+            m.fused = False
+    x = torch.rand(2, 3, 64, 64)
+    before = residual_block_packed.launches
+    with torch.no_grad():
+        torch.testing.assert_close(fused.eval()(x), plain.eval()(x), atol=0, rtol=0)
+    assert residual_block_packed.launches == before
+
+
+def test_fused_block_counts_into_its_span():
+    """Each fused call adds one ``k2_blocks`` to the enclosing span; a
+    block that hands a fused block on keeps its output channels last."""
+    block = _fused_block(2)
+    x = torch.rand(2, 64, 8, 8)
+    with profiling.recording() as rec:
+        with profiling.span("playaid.embed", crops=2):
+            block.channels_first_out = False
+            mid = block._fused_forward(x)
+            block.channels_first_out = True
+            out = block._fused_forward(mid)
+    assert rec.summary()["playaid.embed"]["k2_blocks"] == 2
+    assert mid.is_contiguous(memory_format=torch.channels_last) and out.is_contiguous()
+    with torch.no_grad():
+        torch.testing.assert_close(out, block(block(x)), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("caller_flag", [True, False])

@@ -90,9 +90,9 @@ def test_crop_plain_matches_pallas_interpret(case, win):
     np.testing.assert_allclose(out, ref, atol=1e-4)
 
 
-def _block_inputs(dtype, b=4, c=32, seed=0):
+def _block_inputs(dtype, b=4, c=32, seed=0, hw=(4, 4)):
     rng = np.random.default_rng(seed)
-    x = np.maximum(rng.normal(0, 1, (b, 4, 4, c)), 0).astype(np.float32)
+    x = np.maximum(rng.normal(0, 1, (b, *hw, c)), 0).astype(np.float32)
     w1, w2 = (rng.normal(0, (2 / (9 * c)) ** 0.5, (3, 3, c, c)).astype(np.float32)
               for _ in range(2))
     s1, s2 = (rng.uniform(0.5, 1.5, c).astype(np.float32) for _ in range(2))
@@ -102,15 +102,24 @@ def _block_inputs(dtype, b=4, c=32, seed=0):
     return x, w1, s1, b1, w2, s2, b2
 
 
+# (B, H, W, C): a narrow 4x4 block, and ResNet-18's identity blocks at
+# 128-px crops, each of which runs on the kernel, at a small batch.
+BLOCK_SHAPES = [(4, 4, 4, 32), (2, 32, 32, 64), (2, 16, 16, 128), (2, 8, 8, 256), (2, 4, 4, 512)]
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_residual_block_plain_matches_jax(dtype):
-    args = _block_inputs(dtype)
+def test_residual_block_plain_matches_jax(dtype, shape):
+    b, h, w, c = shape
+    args = _block_inputs(dtype, b=b, c=c, hw=(h, w))
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     jargs = [jnp.asarray(a) for a in args]
     jargs[0] = jargs[0].astype(jdt)
     xla = np.asarray(xla_residual_block(*jargs).astype(jnp.float32))
-    pallas = np.asarray(pallas_residual_block(*jargs, tile_b=2, interpret=True)
-                        .astype(jnp.float32))
+    references = [xla]
+    if (h, w) == (4, 4):  # the Pallas kernel is specialised to the 4x4 stage
+        references.append(np.asarray(pallas_residual_block(*jargs, tile_b=2, interpret=True)
+                                     .astype(jnp.float32)))
     targs = [torch.from_numpy(a) for a in args]
     targs[0] = targs[0].to(getattr(torch, dtype))
     out = residual_block_ref(*targs)
@@ -122,8 +131,8 @@ def test_residual_block_plain_matches_jax(dtype):
     else:
         # One bf16 rounding of the intermediate can flip at a tie.
         atol = 2e-2
-    np.testing.assert_allclose(out, xla, atol=atol, rtol=0)
-    np.testing.assert_allclose(out, pallas, atol=atol, rtol=0)
+    for reference in references:
+        np.testing.assert_allclose(out, reference, atol=atol, rtol=0)
 
 
 def test_residual_block_any_batch_on_cpu():

@@ -24,14 +24,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from playaid_core_torch.ops import _build  # noqa: E402
-from playaid_core_torch.ops.conv_block import pack_block  # noqa: E402
+from playaid_core_torch.ops.conv_block import launch_shape, pack_block  # noqa: E402
 
 # (text of the kernel, the same text fenced by a macro)
 CUTS = {
     "SKIP_MMA": [
-        "Mma<T>::run(part, a_lo, b_hi, s > 0);\n        Mma<T>::run(part, a_hi, b_lo, 1);\n"
-        "        Mma<T>::run(part, a_hi, b_hi, 1);\n",
-        "Mma<T>::run(part, a_hi, b_hi, s > 0);\n",
+        "Mma<T, kBN>::run(part, a_lo, b_hi, s > 0);\n        Mma<T, kBN>::run(part, a_hi, b_lo, 1);\n"
+        "        Mma<T, kBN>::run(part, a_hi, b_hi, 1);\n",
+        "Mma<T, kBN>::run(part, a_hi, b_hi, s > 0);\n",
     ],
     "SKIP_LOAD": [
         "if (ks + STAGES - 1 < k_count) load_stage(ks + STAGES - 1, (ks + STAGES - 1) % STAGES);\n",
@@ -93,16 +93,17 @@ def main():
         ptrs = [t.data_ptr() for t in (xd, pack.w1, pack.s1, pack.b1, pack.w2, pack.s2, pack.b2,
                                        mid, out)]
         stream = torch.cuda.current_stream().cuda_stream
+        shape = launch_shape(c, 48 * 4 * 4)
         for name, lib in libs.items():
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             for _ in range(5):
-                _build.check(fn(*ptrs, 48, 4, 4, c, stream), name)
+                _build.check(fn(*ptrs, 48, 4, 4, c, *shape, 0, stream), name)
             torch.cuda.synchronize()
             start.record()
             for _ in range(ITERS):
-                _build.check(fn(*ptrs, 48, 4, 4, c, stream), name)
+                _build.check(fn(*ptrs, 48, 4, 4, c, *shape, 0, stream), name)
             stop.record()
             torch.cuda.synchronize()
             print(f"{dtype}: {name}: {start.elapsed_time(stop) / ITERS:.4f} ms a call "
