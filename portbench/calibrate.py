@@ -31,8 +31,8 @@ def readings(catalog, cell_name, seed, vods, control, device="cuda", log=print):
     cell = catalog.workload(cell_name)
     config = catalog.config(cell["config"])
     traffic = catalog.traffic(cell["traffic"])
-    route = catalog.module("routes", traffic["route"]).Route(config, traffic, seed, device,
-                                                             catalog.root, log)
+    route = catalog.module("routes", traffic["route"]).Route(
+        config, catalog.family(config["family"]), traffic, seed, device, catalog.root, log)
     route.setup()
     runs = [route.analyze(v) for v in range(vods)]
     route.release(runs)

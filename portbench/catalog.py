@@ -8,6 +8,11 @@ cell sits in a file of its own, found by name:
 * ``routes/<route>.py``: the entry route the traffic file names;
 * ``metrics/<metric>.py``: one reader a metric, ``read(ctx) -> float |
   None``;
+* ``families/<family>.py``: what differs between model families, named by
+  a configuration's ``family``: ``weights(config, seed, device, root)``,
+  the reference's ``embed(crops, sd, config)`` and ``head(windows, sd,
+  config)``, ``embed_flops(config)``, ``head_flops(config)`` and
+  ``k2_blocks(config)``;
 * ``limits/<cell>.json``: the limits of the cell's correctness numbers.
 
 A catalog searches its base directories in order (``portbench/`` alone for
@@ -26,7 +31,7 @@ ROOT = os.path.dirname(PORTBENCH)
 
 
 class Catalog:
-    def __init__(self, bench, bases=(PORTBENCH,), root=ROOT):
+    def __init__(self, bench=None, bases=(PORTBENCH,), root=ROOT):
         self.bench = bench
         self.bases = list(bases)
         self.root = root
@@ -62,8 +67,9 @@ class Catalog:
         return self._json(self._find("limits", f"{cell}.json"))
 
     def module(self, kind, name):
-        """``routes/<name>.py`` or ``metrics/<name>.py``, loaded by path
-        (a metric's name may hold dots)."""
+        """``routes/<name>.py``, ``metrics/<name>.py`` or
+        ``families/<name>.py``, loaded by path (a metric's name may hold
+        dots)."""
         key = (kind, name)
         if key not in self._modules:
             path = self._find(kind, f"{name}.py")
@@ -72,6 +78,11 @@ class Catalog:
             spec.loader.exec_module(mod)
             self._modules[key] = mod
         return self._modules[key]
+
+    def family(self, name):
+        """``families/<name>.py``: the model family's weights, reference and
+        counts.  A family with no file raises ``FileNotFoundError``."""
+        return self.module("families", name)
 
     def metrics_of(self, cell, trace):
         """The metrics a run of ``cell`` reports: its end-to-end metrics with

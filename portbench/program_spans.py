@@ -4,9 +4,9 @@ The port (``playaid_core_torch/profiling.py``) mirrors each of its spans
 (names ``playaid.*``, on every thread of an analysis) into the trace as a
 ``user_annotation`` event while a ``torch.profiler`` session is on, and
 keeps their counts (``frames``, ``chunks``, ``crops``, ``staged_bytes``,
-``rows``) in one recording for the process.  Spans come from the trace's
-host events, counts from that recording, for the analyses the trace
-holds.  A program without them gives nothing to read: every function here
+``rows``, ``k2_blocks``) in one recording for the process.  Spans come
+from the trace's host events, counts from that recording, for the
+analyses the trace holds.  A program without them gives nothing to read: every function here
 returns None, never 0, and raises nothing.
 """
 
@@ -20,8 +20,8 @@ def spans(ctx, name):
     return sorted((ts, dur) for n, ts, dur in ctx.trace.host if n == name)
 
 
-def counts(ctx):
-    """Each count summed over the analyses the trace holds: the recording's
+def _analyses(ctx):
+    """The recording and the analyses the trace holds: the recording's
     newest analyses, as many as the trace's ``playaid.analyze`` spans;
     None where the program keeps no such recording or lost one of them."""
     from playaid_core_torch import profiling
@@ -36,7 +36,26 @@ def counts(ctx):
     roots = rec.roots()[-n:]
     if len(roots) < n:
         return None
-    return rec.totals({r.analysis for r in roots})
+    return rec, {r.analysis for r in roots}
+
+
+def counts(ctx):
+    """Each count summed over the analyses the trace holds; None where
+    :func:`_analyses` finds none."""
+    held = _analyses(ctx)
+    return None if held is None else held[0].totals(held[1])
+
+
+def counts_by_span(ctx, name, counter):
+    """The count ``counter`` (0 where it is absent) on each span ``name``
+    of the analyses the trace holds, in the order they opened; None where
+    :func:`_analyses` finds none."""
+    held = _analyses(ctx)
+    if held is None:
+        return None
+    rec, analyses = held
+    return [s.counts.get(counter, 0) for s in rec.spans
+            if s.name == name and s.analysis in analyses and s.end_ns is not None]
 
 
 def per_count(ctx, name, counter, scale):

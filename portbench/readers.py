@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import statistics
 
-from portbench import roofline
+from portbench import program_spans, roofline
 from portbench.constants import PEAK_TF32_FLOPS
 
 K2 = "conv3x3_wgmma_kernel"
@@ -87,7 +87,18 @@ def _roofline(ctx, kernel, least_s_of_crops):
 
 
 def k2_roofline(ctx):
-    return _roofline(ctx, K2, lambda n: roofline.least_s(*roofline.k2_counts(n)))
+    """K2's share over every block the family's trunk runs on it: a call of
+    ``n`` crops takes the least time of each block at its shape.  None
+    unless the port's ``k2_blocks`` count on each ``playaid.embed`` span is
+    the family's number of blocks, so that a change to what K2 runs
+    silences the metric instead of misreading it."""
+    blocks = ctx.family.k2_blocks(ctx.config)
+    calls = sum(len(r.embeds) for r in ctx.traced)
+    counted = program_spans.counts_by_span(ctx, "playaid.embed", "k2_blocks")
+    if not blocks or counted != [len(blocks)] * calls:
+        return None
+    return _roofline(ctx, K2, lambda n: sum(roofline.least_s(*roofline.k2_counts(n, c, (h, w)))
+                                            for c, h, w in blocks))
 
 
 def k4_roofline(ctx):
@@ -106,5 +117,6 @@ def mfu(ctx):
     frames = sum(r.frames for r in ctx.traced if r.ok)
     if not frames:
         return None
-    flops = roofline.frame_flops(ctx.config, ctx.traffic["analyzer"]["stride"]) * frames
+    flops = roofline.frame_flops(ctx.config, ctx.traffic["analyzer"]["stride"],
+                                 family=ctx.family) * frames
     return 100.0 * flops / ctx.trace.window_s / PEAK_TF32_FLOPS

@@ -1,4 +1,5 @@
-"""Reference networks as functions of a state dict (torchvision's names).
+"""Reference networks as functions of a state dict (torchvision's names):
+the parts that model families share.
 
 * ResNet v1 (He et al. 2016, https://arxiv.org/abs/1512.03385): 7x7/2
   stem with padding 3, batch norm (eps 1e-5) on running statistics,
@@ -6,28 +7,22 @@
   Bottlenecks with the stride on the 3x3 (ResNet-50, 3-4-6-3, expansion
   4); a 1x1 projection with batch norm where a block changes shape; mean
   pool; an optional dense layer.
-* The CNN family's head: the window flattened time-major, dense 512, ReLU,
-  dense 128, ReLU, dense to the classes, log-softmax.
-* The ResFormer family's head: the features joined with a sinusoidal time
-  encoding of 9 (position, then cos and sin at 4 frequencies), post-norm
-  transformer layers (query scaled by 1/sqrt(head_dim) before the
-  product, layer norm eps 1e-6, a ReLU feed-forward), a per-step dense
-  classifier, log-softmax; the centre step labels the window.
+* A dense layer of a state dict, and the sinusoidal time encoding.
 
-Float32 with TF32 off unless inside :func:`precision` ``("tf32")``.
+Each family's frame encoder and head are in ``families/<family>.py``,
+which import these parts.  Float32 with TF32 off unless inside
+:func:`precision` ``("tf32")``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
-LN_EPS = 1e-6
 STAGES = {"resnet18": (2, 2, 2, 2), "resnet50": (3, 4, 6, 3)}
 
 
@@ -80,25 +75,8 @@ def resnet(x, sd, arch, prefix="", fc=True):
     return x
 
 
-def embed(crops, sd, family):
-    """NCHW RGB crops in [0, 1] -> per-crop features of the family."""
-    if family == "cnn":
-        return resnet(crops, sd, "resnet18")
-    if family == "resformer":
-        feats = resnet(crops, sd, "resnet50", prefix="resnet.", fc=False)
-        return F.linear(feats, sd["resnet_ffn.weight"], sd["resnet_ffn.bias"])
-    raise ValueError(f"no reference for the {family!r} family")
-
-
-def _linear(x, sd, p):
+def linear(x, sd, p):
     return F.linear(x, sd[p + ".weight"], sd[p + ".bias"])
-
-
-def cnn_head(windows, sd):
-    """``[B, T, D]`` -> log-probs ``[B, A]``."""
-    y = torch.relu(_linear(windows.reshape(windows.shape[0], -1), sd, "temporal_dense"))
-    y = torch.relu(_linear(y, sd, "mlp_hidden"))
-    return torch.log_softmax(_linear(y, sd, "classifier"), dim=1)
 
 
 def time_encoding(length, num_freq=4):
@@ -109,32 +87,3 @@ def time_encoding(length, num_freq=4):
     for i in range(num_freq):
         cols += [np.cos(np.pi * x * 2 ** i), np.sin(np.pi * x * 2 ** i)]
     return torch.from_numpy(np.concatenate(cols, axis=1).astype(np.float32))
-
-
-def _encoder_layer(x, sd, p, heads):
-    b, t, e = x.shape
-    hd = e // heads
-    qkv = F.linear(x, sd[p + "self_attn.in_proj_weight"], sd[p + "self_attn.in_proj_bias"])
-    q, k, v = qkv.reshape(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    att = torch.softmax(torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2)), dim=-1)
-    out = torch.matmul(att, v).transpose(1, 2).reshape(b, t, e)
-    x = F.layer_norm(x + _linear(out, sd, p + "self_attn.out_proj"), (e,),
-                     sd[p + "norm1.weight"], sd[p + "norm1.bias"], LN_EPS)
-    ff = _linear(torch.relu(_linear(x, sd, p + "linear1")), sd, p + "linear2")
-    return F.layer_norm(x + ff, (e,), sd[p + "norm2.weight"], sd[p + "norm2.bias"], LN_EPS)
-
-
-def resformer_head(windows, sd, layers, heads):
-    """``[B, T, D]`` -> the centre step's log-probs ``[B, A]``."""
-    b, t, _ = windows.shape
-    enc = time_encoding(t).to(windows.device)
-    y = torch.cat([windows, enc.expand(b, -1, -1)], dim=2)
-    for i in range(layers):
-        y = _encoder_layer(y, sd, f"layers.{i}.", heads)
-    return torch.log_softmax(_linear(y, sd, "classifier"), dim=2)[:, t // 2]
-
-
-def head(windows, sd, config):
-    if config["family"] == "cnn":
-        return cnn_head(windows, sd)
-    return resformer_head(windows, sd, config["head"]["layers"], config["head"]["heads"])

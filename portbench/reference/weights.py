@@ -1,5 +1,6 @@
 """The weights a cell runs: read from a Flax-layout ``.npz`` (the committed
-trained CNN-63) or drawn from the seed on the device.
+trained CNN-63) or drawn from the seed on the device, as each family's
+``families/<family>.py`` chooses.
 
 Both give ``{"embed": state dict, "head": state dict}`` under torchvision's
 and ``nn.TransformerEncoderLayer``'s names.  The harness hands the drawn
@@ -71,7 +72,7 @@ def load_flax_cnn(path, device):
             "head": {k: v.to(device) for k, v in head.items()}}
 
 
-def _resnet_spec(arch, prefix, fc_out):
+def resnet_spec(arch, prefix, fc_out):
     """``(name, shape)`` of a ResNet's parameters and batch-norm buffers."""
     spec = [(prefix + "conv1.weight", (64, 3, 7, 7))] + _bn_spec(prefix + "bn1", 64)
     bottleneck = arch == "resnet50"
@@ -104,29 +105,8 @@ def _bn_spec(p, c):
             (f"{p}.running_var", (c,)), (f"{p}.num_batches_tracked", ())]
 
 
-def _linear_spec(p, n_in, n_out):
+def linear_spec(p, n_in, n_out):
     return [(f"{p}.weight", (n_out, n_in)), (f"{p}.bias", (n_out,))]
-
-
-def resformer_spec(config):
-    """``{"embed": [(name, shape)], "head": [...]}`` of the ResFormer
-    family at the configuration's widths."""
-    h = config["head"]
-    d_model = config["embed_dim"] + 1 + 2 * h["time_freqs"]
-    embed = (_resnet_spec("resnet50", "resnet.", 0)
-             + _linear_spec("resnet_ffn", 2048, config["embed_dim"]))
-    head = []
-    for i in range(h["layers"]):
-        p = f"layers.{i}."
-        head += [(p + "self_attn.in_proj_weight", (3 * d_model, d_model)),
-                 (p + "self_attn.in_proj_bias", (3 * d_model,))]
-        head += _linear_spec(p + "self_attn.out_proj", d_model, d_model)
-        head += _linear_spec(p + "linear1", d_model, h["ffn"])
-        head += _linear_spec(p + "linear2", h["ffn"], d_model)
-        for norm in ("norm1", "norm2"):
-            head += [(f"{p}{norm}.weight", (d_model,)), (f"{p}{norm}.bias", (d_model,))]
-    head += _linear_spec("classifier", d_model, config["num_actions"])
-    return {"embed": embed, "head": head}
 
 
 @torch.no_grad()
@@ -156,11 +136,3 @@ def seeded(spec, seed, device):
                 out[g][name] = torch.zeros(shape, device=device)
         out[g] = {name: out[g][name] for name, _ in spec[g]}
     return out
-
-
-def load(config, seed, device, root):
-    """The configuration's weights: ``{"embed", "head"}`` state dicts."""
-    source = config["weights"]
-    if source == "seeded":
-        return seeded(resformer_spec(config), seed, device)
-    return load_flax_cnn(f"{root}/{source}", device)

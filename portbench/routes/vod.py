@@ -13,8 +13,10 @@ Correctness compares every VOD the window finished with the reference:
 * ``conf_err``: the widest gap, in percentage points, between a frame's
   confidence and ``100 exp`` of the reference's log-prob of its label.
 
-The reference embeds each scene's crop once and gathers the embeddings in
-each VOD's order; the program embedded every crop of every VOD.
+The reference is the configuration's family's (``families/<family>.py``,
+handed to the route with the configuration).  It embeds each scene's crop
+once and gathers the embeddings in each VOD's order; the program embedded
+every crop of every VOD.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ import torch
 from portbench import standin
 from portbench.reference import models as ref_models
 from portbench.reference import ops as ref_ops
-from portbench.reference import weights as ref_weights
 
 CHECK_BLOCK = 2048  # windows a reference head call
 
@@ -50,8 +51,8 @@ class VodRun:
 
 
 class Route:
-    def __init__(self, config, traffic, seed, device, root, log):
-        self.config, self.traffic, self.seed = config, traffic, seed
+    def __init__(self, config, family, traffic, seed, device, root, log):
+        self.config, self.family, self.traffic, self.seed = config, family, traffic, seed
         self.device = torch.device(device)
         self.root, self.log = root, log
         kw = dict(config["analyzer"], **traffic["analyzer"])
@@ -83,7 +84,7 @@ class Route:
                                           frame_delta=c["frame_delta"],
                                           crop_size=c["crop_size"], device=self.device)
         if c["weights"] == "seeded":
-            self.weights = ref_weights.load(c, self.seed, self.device, self.root)
+            self.weights = self.family.weights(c, self.seed, self.device, self.root)
             self.pipe.load_state_dicts(self.weights)
         else:
             self.weights = None  # the reference reads the file itself, after the window
@@ -224,7 +225,7 @@ class Route:
         embedded once."""
         c = self.config
         if self.weights is None:
-            self.weights = ref_weights.load(c, self.seed, self.device, self.root)
+            self.weights = self.family.weights(c, self.seed, self.device, self.root)
         with torch.no_grad(), ref_models.precision(mode):
             emb = self._scene_embeddings()  # [Q, 2, D]
         idx = ref_ops.middle_out_indices(self.rows, c["sequence_length"], c["frame_delta"])
@@ -237,7 +238,7 @@ class Route:
                 for f in range(2):
                     for b0 in range(0, self.rows, CHECK_BLOCK):
                         w = seq[torch.as_tensor(idx[b0:b0 + CHECK_BLOCK], device=self.device), f]
-                        out.append(ref_models.head(w, self.weights["head"], c))
+                        out.append(self.family.head(w, self.weights["head"], c))
             return torch.cat(out).reshape(2, self.rows, -1).cpu().numpy()
 
         return log_probs
@@ -246,7 +247,7 @@ class Route:
         c = self.config
         crops = torch.from_numpy(self.scene_crops.reshape(-1, self.scene_crops.shape[-1]))
         rgb = ref_ops.yuv420_to_rgb(crops.to(self.device), c["crop_size"])
-        feats = torch.cat([ref_models.embed(rgb[b0:b0 + 128], self.weights["embed"], c["family"])
+        feats = torch.cat([self.family.embed(rgb[b0:b0 + 128], self.weights["embed"], c)
                            for b0 in range(0, rgb.shape[0], 128)])
         return feats.reshape(-1, 2, feats.shape[-1])
 

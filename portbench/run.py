@@ -60,9 +60,9 @@ def cache_env(root):
 
 
 class Context:
-    """What the metric readers read: the cell, its configuration and
-    traffic, ``setup_s``, the window's ``runs``, and in traced runs the
-    ``trace`` and the ``traced`` runs."""
+    """What the metric readers read: the cell, its configuration, its
+    family's module and its traffic, ``setup_s``, the window's ``runs``,
+    and in traced runs the ``trace`` and the ``traced`` runs."""
 
     def __init__(self, **kw):
         self.trace = None
@@ -91,13 +91,15 @@ def run_cell(catalog, cell_name, seed, seconds, trace, device="cuda", t_start=No
     t_start = time.perf_counter() if t_start is None else t_start
     cell = catalog.workload(cell_name)
     config = catalog.config(cell["config"])
+    family = catalog.family(config["family"])
     traffic = catalog.traffic(cell["traffic"])
-    route = catalog.module("routes", traffic["route"]).Route(config, traffic, seed, device,
+    route = catalog.module("routes", traffic["route"]).Route(config, family, traffic, seed, device,
                                                              catalog.root, log)
     route.setup()
     setup_s = time.perf_counter() - t_start
     log(f"portbench: {cell_name} seed {seed}: set-up {setup_s:.3f} s")
-    ctx = Context(cell=cell, config=config, traffic=traffic, setup_s=setup_s, seed=seed)
+    ctx = Context(cell=cell, config=config, family=family, traffic=traffic, setup_s=setup_s,
+                  seed=seed)
     cuda = torch.device(device).type == "cuda"
     if trace:
         os.makedirs(OUT_DIR, exist_ok=True)

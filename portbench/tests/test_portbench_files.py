@@ -28,6 +28,9 @@ def test_config_file(entry):
     assert config["name"] == entry["name"] and config["reduced"] == entry["reduced"]
     assert config["source"] == entry["source"]
     assert config["dtype"] == "float32" and config["tf32"] is False
+    family = CATALOG.family(config["family"])
+    assert all(callable(getattr(family, f)) for f in (
+        "weights", "embed", "head", "embed_flops", "head_flops", "k2_blocks"))
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda c: c["name"])

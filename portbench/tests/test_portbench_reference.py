@@ -4,14 +4,16 @@ import numpy as np
 import pytest
 import torch
 
+from portbench.catalog import Catalog
 from portbench.tests.helpers import ROOT
-from portbench.reference import models, ops, weights
+from portbench.reference import ops
 
 CNN = {"family": "cnn", "embed_dim": 1000, "sequence_length": 7, "num_actions": 63,
        "head": {"dense": 512, "hidden": 128}, "weights": "playaid_core_tpu/assets/bench_cnn63.npz"}
 RESFORMER = {"family": "resformer", "embed_dim": 247, "sequence_length": 7, "num_actions": 63,
              "head": {"layers": 3, "heads": 8, "ffn": 2048, "time_freqs": 4},
              "weights": "seeded"}
+FAMILIES = Catalog()
 
 
 def test_yuv420_unpack():
@@ -52,14 +54,15 @@ def test_cnn_trained_weights():
 
     pipe = BatchedActionPipeline(device="cpu").load_variables(
         load_npz_tree(f"{ROOT}/{CNN['weights']}"))
-    sd = weights.load(CNN, 0, "cpu", ROOT)
+    family = FAMILIES.family("cnn")
+    sd = family.weights(CNN, 0, "cpu", ROOT)
     x = _crops(4)
     with torch.no_grad():
-        emb = models.embed(x, sd["embed"], "cnn")
+        emb = family.embed(x, sd["embed"], CNN)
         port = pipe.embed_crops(x.permute(0, 2, 3, 1))
         assert torch.allclose(emb, port, atol=1e-4 * port.abs().max(), rtol=0)
         win = emb[torch.tensor([[0, 1, 2, 3, 3, 2, 1]] * 2)]
-        assert torch.allclose(models.head(win, sd["head"], CNN), pipe._head_apply(win),
+        assert torch.allclose(family.head(win, sd["head"], CNN), pipe._head_apply(win),
                               atol=1e-5, rtol=0)
 
 
@@ -68,23 +71,25 @@ def test_resformer_seeded_weights():
     two sides agree on them."""
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
 
-    sd = weights.load(RESFORMER, 7, "cpu", ROOT)
-    again = weights.load(RESFORMER, 7, "cpu", ROOT)
+    family = FAMILIES.family("resformer")
+    sd = family.weights(RESFORMER, 7, "cpu", ROOT)
+    again = family.weights(RESFORMER, 7, "cpu", ROOT)
     assert all(torch.equal(sd[g][k], again[g][k]) for g in sd for k in sd[g])
     pipe = BatchedActionPipeline(family="resformer", device="cpu").load_state_dicts(sd)
     x = _crops(2)
     with torch.no_grad():
-        emb = models.embed(x, sd["embed"], "resformer")
+        emb = family.embed(x, sd["embed"], RESFORMER)
         port = pipe.embed_crops(x.permute(0, 2, 3, 1))
         assert torch.allclose(emb, port, atol=1e-4 * port.abs().max(), rtol=0)
         win = torch.randn(3, 7, 247, generator=torch.Generator().manual_seed(4))
-        ref = models.head(win, sd["head"], RESFORMER)
+        ref = family.head(win, sd["head"], RESFORMER)
         assert ref.shape == (3, 63)
         assert torch.allclose(ref, pipe._head_apply(win), atol=1e-5, rtol=0)
 
 
 def test_seeded_weights_follow_the_seed():
-    a = weights.load(RESFORMER, 1, "cpu", ROOT)["head"]["classifier.weight"]
-    b = weights.load(RESFORMER, 2, "cpu", ROOT)["head"]["classifier.weight"]
+    family = FAMILIES.family("resformer")
+    a = family.weights(RESFORMER, 1, "cpu", ROOT)["head"]["classifier.weight"]
+    b = family.weights(RESFORMER, 2, "cpu", ROOT)["head"]["classifier.weight"]
     assert not torch.equal(a, b)
     assert a.std().item() == pytest.approx(256 ** -0.5, rel=0.1)

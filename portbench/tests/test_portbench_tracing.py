@@ -50,6 +50,7 @@ def _embed_trace(tmp_path, second_call_records=True):
     call, one in the second, or none), one launched outside both."""
     ev = [
         {"cat": "user_annotation", "name": "portbench.window", "ts": 0, "dur": 1000},
+        {"cat": "user_annotation", "name": "playaid.analyze", "ts": 50, "dur": 900},
         {"cat": "user_annotation", "name": "portbench.embed", "ts": 100, "dur": 50},
         {"cat": "user_annotation", "name": "portbench.embed", "ts": 300, "dur": 50},
         {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110, "dur": 5,
@@ -82,17 +83,29 @@ def test_kernels_belong_to_the_span_that_launched_them(tmp_path):
     assert tr.kernels_by_span("portbench.classify", "conv3x3") == []
 
 
-@pytest.mark.parametrize("complete", [True, False])
-def test_roofline_from_each_calls_crops(tmp_path, complete):
-    """The least time of both calls from their crops alone over the device
-    time of their launches, whatever the launches a call; no reading where
-    a call left no record."""
+@pytest.mark.parametrize("complete,k2_blocks", [(True, 5), (False, 5), (True, 4)])
+def test_roofline_from_each_calls_crops(tmp_path, monkeypatch, complete, k2_blocks):
+    """The least time of both calls, each from its crops at every block the
+    CNN family runs on K2, over the device time of their launches, whatever
+    the launches a call; no reading where a call left no record, or where
+    the port's count of K2 blocks on an embed span is not the family's."""
     from types import SimpleNamespace
 
+    from playaid_core_torch import profiling
     from portbench import readers, roofline
+    from portbench.catalog import Catalog
 
+    rec = profiling.Recording()
+    monkeypatch.setattr(profiling, "_session", rec)
+    with profiling.Span(rec, "playaid.analyze", profiling.new_analysis(), {}):
+        for blocks in (5, k2_blocks):
+            with profiling.Span(rec, "playaid.embed", None, {"k2_blocks": blocks}):
+                pass
     ctx = SimpleNamespace(trace=_embed_trace(tmp_path, complete),
-                          traced=[SimpleNamespace(embeds=[48, 24])])
-    least = roofline.least_s(*roofline.k2_counts(48)) + roofline.least_s(*roofline.k2_counts(24))
-    expected = 100.0 * least / 90e-6 if complete else None
-    assert readers.k2_roofline(ctx) == (pytest.approx(expected) if complete else None)
+                          traced=[SimpleNamespace(embeds=[48, 24])],
+                          config={"crop_size": 128}, family=Catalog().family("cnn"))
+    shapes = [(64, 32, 32), (64, 32, 32), (128, 16, 16), (256, 8, 8), (512, 4, 4)]
+    least = sum(roofline.least_s(*roofline.k2_counts(n, c, (h, w)))
+                for n in (48, 24) for c, h, w in shapes)
+    sound = complete and k2_blocks == 5
+    assert readers.k2_roofline(ctx) == (pytest.approx(100.0 * least / 90e-6) if sound else None)
