@@ -384,8 +384,10 @@ class BatchedActionPipeline:
 
     def _head_apply(self, windows):
         """Windows ``[B, T, D]`` -> log-probs ``[B, A]``; the per-step heads
-        give their centre step's prediction, as the JAX package does."""
-        out = self.head(windows)
+        give their centre step's prediction, as the JAX package does.  The
+        head's call is the span ``playaid.head``, counting ``windows``."""
+        with profiling.span("playaid.head", windows=windows.shape[0]):
+            out = self.head(windows)
         if self.family != "cnn":
             out = out[:, self.sequence_length // 2, :]
         return out
@@ -437,7 +439,8 @@ class BatchedActionPipeline:
                         decode="argmax", switch_cost=4.0):
         """Embedding buffer ``[F_pad * 2, D]`` -> (labels ``[true_len, 2]``,
         confidence ``[true_len, 2]``, in percent), in the span
-        ``playaid.classify`` counting ``rows``."""
+        ``playaid.classify`` counting ``rows``; the head's call is its child
+        ``playaid.head``, counting the ``windows`` of the padded buffer."""
         with profiling.span("playaid.classify", rows=true_len):
             per_fighter = buf.reshape(buf.shape[0] // 2, 2, -1).float()
             labels, conf = self._two_fighter_tail(per_fighter, true_len, min_frame,

@@ -24,8 +24,8 @@ from playaid_core_torch.video.native_encoder import NativeVideoWriter
 torch.set_num_threads(2)
 
 NUM_FRAMES, HEIGHT, WIDTH, CROP, CHUNK, STRIDE = 96, 112, 192, 64, 48, 2
-CALLER = {"playaid.analyze", "playaid.chunk_loop", "playaid.classify", "playaid.viterbi",
-          "playaid.labels_to_host"}
+CALLER = {"playaid.analyze", "playaid.chunk_loop", "playaid.classify", "playaid.head",
+          "playaid.viterbi", "playaid.labels_to_host"}
 DECODER = {"playaid.decode", "playaid.sink_wait"}
 DISPATCHER = {"playaid.dispatch_wait", "playaid.stage", "playaid.embed", "playaid.scatter"}
 
@@ -117,11 +117,12 @@ def test_analyze_spans_threads_and_counts(clip, pipe, monkeypatch, workers):
             assert s.parent in outer or s.parent == root.id
     rows = NUM_FRAMES // STRIDE
     chunks = NUM_FRAMES // CHUNK
+    windows = 2 * 64  # both fighters' rows of the buffer, padded to a power of two
     assert sum(s.name == "playaid.embed" for s in spans) == chunks
     assert len(staged) == chunks and sum(staged) == 2 * rows * CROP * CROP * 3 // 2
     assert rec.totals() == dict(rec.counters) == {
         "frames": NUM_FRAMES, "chunks": chunks, "crops": 2 * rows, "rows": rows,
-        "staged_bytes": sum(staged)}
+        "windows": windows, "staged_bytes": sum(staged)}
     assert root.counts == {"frames": NUM_FRAMES, "chunks": chunks}
     summary = rec.summary()
     assert summary["playaid.embed"]["count"] == chunks
