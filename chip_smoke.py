@@ -59,10 +59,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    device's busy share and the layout conversions in its trace, K3 one
    launch and K4 one a chunk, K3 against its plain version on the run's
    own log-probs, decode-only frames/s, and the first 96 frames on the
-   CPU;
+   CPU; embed_crops_yuv's CUDA graph at a 48-crop chunk (graph_replay_check):
+   each replay equal bit for bit to the eager call, and the launches and
+   k2_blocks each replay counts against the K2 and K4 kernels that the
+   profiler's trace shows under its cudaGraphLaunch (two kernels a K2
+   call);
 7. the ResFormer (ResNet-50 + 3 transformer layers) and RNN (ResNet-18 +
    3-layer LSTM) families at full width with seeded random weights through
-   the same analyzer, against the CPU on the first 96 frames;
+   the same analyzer, against the CPU on the first 96 frames; the same
+   graph check as phase 6 for each;
 8. the log path: a scripted ult_logger log of 480 frames (written here,
    with json) -> boxes_from_log through the native parser built in phase 1
    -> VodAnalyzer(host_resize=False), stride 1, chunk 48: 1080p frames from
@@ -1162,6 +1167,71 @@ def profile_slice(torch, run_slice, slice_s):
     return layout
 
 
+GRAPH_CALLS = 6  # replays of graph_replay_check's profiled run
+K2_KERNELS = 2   # kernels a K2 call launches: its two convolutions
+
+
+def graph_kernels(path):
+    """What an exported chrome trace says of CUDA graph launches: how many
+    cudaGraphLaunch calls, and the K2 and K4 kernels that carry the
+    correlation id of one of them or of any other call."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    graph = {e.get("args", {}).get("correlation") for e in events
+             if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaGraphLaunch"}
+    found = {"launches": len(graph), "k2": 0, "k4": 0, "k2_other": 0, "k4_other": 0}
+    for e in events:
+        name = e.get("name", "")
+        kind = ("k2" if "conv3x3_wgmma_kernel" in name else
+                "k4" if "yuv420_unpack_kernel" in name else None)
+        if e.get("cat") == "kernel" and kind:
+            under = e.get("args", {}).get("correlation") in graph
+            found[kind if under else kind + "_other"] += 1
+    return found
+
+
+def graph_replay_check(torch, check, phase, pipe, crops, blocks):
+    """embed_crops_yuv's CUDA graph at the shape of crops: GRAPH_CALLS
+    replays under the profiler, each equal bit for bit to the eager call,
+    and what they count (graph_replays, k2_blocks, the wrappers' launches:
+    the capture's tally, re-added at each replay) held against the K2 and
+    K4 kernels that the trace shows under the graph's launches: a K2 call
+    (one block, one count) is K2_KERNELS kernels."""
+    from playaid_core_torch import profiling
+    from playaid_core_torch.ops.conv_block import residual_block_packed
+    from playaid_core_torch.ops.yuv import yuv420_to_rgb
+
+    with torch.inference_mode():
+        want = pipe._embed_yuv(crops)
+    for _ in range(2):  # the shape twice in a row: held, or captured now
+        pipe.embed_crops_yuv(crops)
+    before = (yuv420_to_rgb.launches, residual_block_packed.launches)
+    trace = os.path.join(ROOT, "build", "smoke", f"graph_trace_{phase.replace(' ', '_')}.json")
+    with profiled(torch) as prof, profiling.recording() as rec:
+        outs = []
+        for _ in range(GRAPH_CALLS):
+            with profiling.span("playaid.embed"):
+                outs.append(pipe.embed_crops_yuv(crops))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    counted = {"graph_replays": rec.summary()["playaid.embed"].get("graph_replays", 0),
+               "k2_blocks": rec.summary()["playaid.embed"].get("k2_blocks", 0),
+               "k4_launches": yuv420_to_rgb.launches - before[0],
+               "k2_launches": residual_block_packed.launches - before[1]}
+    traced = graph_kernels(trace)
+    n = GRAPH_CALLS
+    same = all(torch.equal(out, want) for out in outs)
+    check(same, f"{phase}: {n} replays of embed_crops_yuv's graph at {tuple(crops.shape)} "
+          f"equal to the eager call bit for bit")
+    check(counted == {"graph_replays": n, "k2_blocks": blocks * n, "k4_launches": n,
+                      "k2_launches": blocks * n}
+          and traced == {"launches": n, "k2": K2_KERNELS * blocks * n, "k4": n, "k2_other": 0,
+                         "k4_other": 0},
+          f"{phase}: the replays counted {counted}; their trace shows {traced} (K2, K4 "
+          f"kernels under a cudaGraphLaunch's correlation id, and under any other call); "
+          f"{blocks} K2 calls of {K2_KERNELS} kernels and 1 K4 a replay")
+
+
 def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     """Phase 6: VodAnalyzer.analyze on the headline configuration.  Returns
     each wrapper's launches during the timed run."""
@@ -1206,6 +1276,11 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
     check(launches[2] == 1 and launches[3] == num_chunks,
           f"phase 6: K3 (viterbi) launched once for the one classify_buffer (both fighters), "
           f"K4 (yuv420_unpack) once a chunk: {launches[2]} and {launches[3]} of {num_chunks}")
+    _, chunk_yuv = stand_in.decode_crops(0, boxes_all[:CHUNK], CROP, PADDING, stride=STRIDE,
+                                         fmt="yuv420", dense=True)
+    graph_replay_check(torch, check, "phase 6", pipe,
+                       torch.from_numpy(chunk_yuv.reshape(CHUNK // STRIDE * 2, -1)).to(dev),
+                       K2_BLOCKS)
     for name, res in (("argmax", first), ("viterbi", timed)):
         check(res["labels"].shape == (NUM_FRAMES, 2) and res["frames"] == NUM_FRAMES
               and 0 <= res["labels"].min() and res["labels"].max() < 63
@@ -1343,6 +1418,9 @@ def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
               f"K2 launches {k2}")
         if family == "rnn":
             check(k2 > 0, "phase 7: rnn: K2 (residual_block) ran during VodAnalyzer.analyze")
+        graph_replay_check(torch, check, f"phase 7: {family}", pipe,
+                           flat[:CHUNK // STRIDE * 2].to(dev),
+                           K2_BLOCKS if family == "rnn" else 0)
         emb_card = pipe.embed_crops_yuv(flat.to(dev)).cpu()
         emb_cpu = cpu_pipe.embed_crops_yuv(flat)
         rel = float((emb_card - emb_cpu).abs().max() / emb_cpu.abs().max())

@@ -12,8 +12,10 @@ gathered over the embedding sequence and classified by the temporal head:
    ``embed_windows`` (windows cut out on the host, resized by the same
    crop kernel's window entry on the card): crops ->
    per-frame embeddings: ResNet-18 -> 1000 (CNN), ResNet-50 -> 2048 -> 247
-   (ResFormer), ResNet-18 -> 512 -> 300 (RNN).  ResNet-18's last identity
-   block is the CUDA kernel ``csrc/residual_block.cu`` on the card;
+   (ResFormer), ResNet-18 -> 512 -> 300 (RNN).  ResNet-18's identity
+   blocks are the CUDA kernel ``csrc/residual_block.cu`` on the card, and
+   ``embed_crops_yuv`` replays the unpack and the embed as one CUDA graph
+   for each chunk shape there (``infer/graph_cache.py``);
 3. ``make_embedding_buffer`` + ``scatter_embeddings``: embeddings
    accumulate, interleaved by fighter, in one ``[F_pad * 2, D]`` buffer;
 4. ``classify_buffer`` / ``classify_sequence``: windows -> temporal head
@@ -41,6 +43,7 @@ from torch import nn
 from playaid_core_torch import profiling
 from playaid_core_torch.convert import split_monolithic, to_state_dicts
 from playaid_core_torch.device import full_float32, resolve_device
+from playaid_core_torch.infer.graph_cache import GraphCache
 from playaid_core_torch.models.resnet import ResNet18, ResNet50, at_least_float32
 from playaid_core_torch.models.resnet_transformer import TransformerEncoderLayer, time_encoding
 from playaid_core_torch.models.rnn_action_detector import StackedLSTM
@@ -206,6 +209,7 @@ class BatchedActionPipeline:
             head = RNNTemporalHead(num_actions)
         self.embed = embed.to(self.device).eval()
         self.head = head.to(self.device).eval()
+        self._graphs = GraphCache()  # embed_crops_yuv's CUDA graphs
         # False until weights are loaded or drawn: the modules' own
         # initialisation is not seeded.
         self.initialized = False
@@ -307,7 +311,13 @@ class BatchedActionPipeline:
         """Packed planar YUV420 uint8 crops ``[N, S*S*3//2]`` (Y, then U,
         then V) -> BT.601 limited-range RGB / 255 (the CUDA kernel
         ``csrc/yuv420_unpack.cu`` on the card, channels first underneath)
-        -> embeddings.  Chroma is upsampled 2x by nearest neighbour."""
+        -> embeddings.  Chroma is upsampled 2x by nearest neighbour.  On
+        the card the unpack and the embed run as one CUDA graph for each
+        input shape from that shape's third call on
+        (``infer/graph_cache.py``); the same kernels, the same bits."""
+        return self._graphs(self.embed, self._embed_yuv, crops_yuv)
+
+    def _embed_yuv(self, crops_yuv):
         return self.embed(yuv420_to_rgb(crops_yuv, self.crop_size))
 
     @torch.inference_mode()

@@ -164,6 +164,14 @@ class BasicBlock(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
+def block_packs(module):
+    """``(block, pack)`` for each block of ``module`` that holds a kernel
+    pack now: what a CUDA graph captured from ``module`` reads besides its
+    parameters and buffers."""
+    return [(m, m._pack) for m in module.modules()
+            if isinstance(m, BasicBlock) and m._pack is not None]
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (carrying the stride) -> 1x1 with 4x expansion, and a
     residual; a 1x1 projection when the shape changes."""

@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from playaid_core_torch import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -101,8 +103,15 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock: wrappers launch from
-    the VOD pipeline's dispatcher threads, several at once."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``, under a lock: wrappers launch from
+    the VOD pipeline's dispatcher threads, several at once.  While a
+    ``profiling.tally`` is open on this thread, add them to it instead,
+    under ``wrapper``: a launch captured into a CUDA graph is counted at
+    each replay."""
+    held = profiling.tallying()
+    if held is not None:
+        held[wrapper] += n
+        return
     with _launch_lock:
-        wrapper.launches += 1
+        wrapper.launches += n

@@ -11,6 +11,9 @@ Counterpart of ``playaid_core_tpu/profiling.py``:
   session each span also enters ``record_function``, so it sits in the
   exported trace on the device events' clock and the kernels it launches
   join it by correlation id;
+* :func:`tally` — the counts of this thread held aside, recording or not:
+  what work captured into a CUDA graph counts, for each replay to count
+  again;
 * :func:`new_analysis` and :func:`bind` — an analysis id for the spans of
   one VOD analysis, passed to the threads that work for it;
 * :func:`trace` — a ``torch.profiler`` session of every thread of the
@@ -178,7 +181,12 @@ def span(name, analysis=None, **counts):
 
 
 def count(name, n):
-    """Add ``n`` to the counter ``name``, and to the enclosing span's counts."""
+    """Add ``n`` to the counter ``name``, and to the enclosing span's counts;
+    while a :func:`tally` is open on this thread, to the tally alone."""
+    held = getattr(_local, "tally", None)
+    if held is not None:
+        held[name] += n
+        return
     if _active is None and not _autograd_profiler._is_profiler_enabled:
         return
     stack = getattr(_local, "stack", None)
@@ -188,6 +196,26 @@ def count(name, n):
         top._rec._add(name, n)
     else:
         (_active or _session)._add(name, n)
+
+
+@contextlib.contextmanager
+def tally():
+    """Hold this thread's counts while the block runs, whether or not
+    recording is on, and add them nowhere else; yields the ``Counter``
+    they go to.  Kernel launches that ``ops/_build.count_launch`` counts
+    go to it too, under their wrapper.  What a CUDA graph's capture
+    counts: each replay counts it again (``infer/graph_cache.py``)."""
+    prev = getattr(_local, "tally", None)
+    _local.tally = held = collections.Counter()
+    try:
+        yield held
+    finally:
+        _local.tally = prev
+
+
+def tallying():
+    """This thread's open :func:`tally`, or None."""
+    return getattr(_local, "tally", None)
 
 
 def new_analysis():
