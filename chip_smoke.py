@@ -241,7 +241,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    classify_buffer;
 17. ground truth from a (VOD, log) pair on the card's machine, under
    build/smoke/gt/: phase 8's log served at 1280x720 (the log's projection
-   size) by a stand-in capture behind BoundedSegmentDecoder.open_capture;
+   size) by a stand-in capture behind video/reader.open_capture;
    (a) gen_gt_action_detection.process_pairing(fmt="npy") writes the
    action tree (960 crops), whose crops and labels digest, per fighter, to
    what the JAX module gives on the same frames (playaid_core_torch/
@@ -266,7 +266,7 @@ decode_crops returns the disc clip's packed YUV420 crops, made on the host
 with numpy; everything after decode is the port's own.  The CPU tests hold
 the port's decoder against the JAX package's, bit for bit.  It has no cv2
 either, so phases 8 and 9 read their frames from stand-ins put behind
-BoundedSegmentDecoder.open_capture (again in this script only): frames
+video/reader.open_capture (again in this script only): frames
 with discs (and, in phase 9, the HUD counters), rendered with numpy.
 
 The last line of standard output is
@@ -286,6 +286,9 @@ import time
 
 import numpy as np
 
+from portbench.constants import PEAK_HBM_BYTES, PEAK_TF32_FLOPS
+from portbench.standin import bgr_crop, yuv420_crop
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(ROOT, "playaid_core_tpu", "assets", "bench_cnn63.npz")
 
@@ -303,10 +306,9 @@ PROFILE_OPENERS = 8       # small kernels after the pause, before the work
 TRACE_OPENERS = 64        # the same in traced_device_ms: late in this process a
                           # profiling.trace session lost its first 33 launches
 
-# H100 SXM data-sheet peaks at 700 W.
-PEAK_BYTES_PER_S = 3.35e12
+# H100 SXM data-sheet peaks at 700 W, beside portbench/constants.py's TF32
+# and HBM peaks.
 PEAK_FP32_FLOPS = 67e12   # CUDA cores: K2's yardstick before the tensor cores
-PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 K1_TOL = 1e-5             # max abs, outputs in [0, 1]
@@ -385,39 +387,6 @@ def grid_sample_inputs(torch, frames, boxes):
     gx = (2 * sx + 1) / width - 1
     grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), dim=-1)
     return x, grid
-
-
-def bgr_crop(frame, box, size, padding):
-    """One letterboxed square BGR uint8 crop of a frame, sampled at the
-    nearest pixel, with the native extractor's window: side = 2 * (max(w,
-    h) // 2 + padding) around the integer centre.  Outside the frame is
-    black."""
-    h, w = frame.shape[:2]
-    half = int(max(int(box[2] * w), int(box[3] * h)) / 2)
-    side = 2 * (half + padding)
-    pos = ((np.arange(size) + 0.5) * side / size).astype(np.int64)
-    ys = int(box[1] * h) - half - padding + pos
-    xs = int(box[0] * w) - half - padding + pos
-    crop = frame[np.clip(ys, 0, h - 1)][:, np.clip(xs, 0, w - 1)]
-    inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
-    crop[~inside] = 0
-    return crop
-
-
-def yuv420_crop(frame, box, size, padding):
-    """:func:`bgr_crop` as packed planar YUV420 (Y, then U, then V; BT.601
-    limited range)."""
-    bgr = bgr_crop(frame, box, size, padding).astype(np.float32)
-    b, g, r = bgr[..., 0], bgr[..., 1], bgr[..., 2]
-    y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
-    u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
-    v = 128 + 0.439 * r - 0.368 * g - 0.071 * b
-
-    def pool(c):
-        return c.reshape(size // 2, 2, size // 2, 2).mean(axis=(1, 3))
-
-    planes = [y.ravel(), pool(u).ravel(), pool(v).ravel()]
-    return np.clip(np.rint(np.concatenate(planes)), 0, 255).astype(np.uint8)
 
 
 class DiscClipDecoder:
@@ -707,6 +676,19 @@ def lost_launches(path):
 
 
 @contextlib.contextmanager
+def capture_restored():
+    """Put video/reader.open_capture back as it was when the block ends: a
+    phase inside puts its own stand-in capture there."""
+    from playaid_core_torch.video import reader
+
+    real = reader.open_capture
+    try:
+        yield
+    finally:
+        reader.open_capture = real
+
+
+@contextlib.contextmanager
 def recorded_viterbi():
     """Record each call the pipeline makes to K3's wrapper (in this script
     only): a copy of its log-probs, its true length and cost, and a copy of
@@ -922,7 +904,7 @@ def write_match_log(path, num_frames):
 
 
 class LogClipCapture:
-    """Stand-in frame source behind BoundedSegmentDecoder.open_capture:
+    """Stand-in frame source behind video/reader.open_capture:
     1080p BGR frames of noise with two discs at the log's boxes, rendered
     into one buffer per capture (seek / read / release, as cv2's)."""
 
@@ -1007,7 +989,7 @@ def k2_yardsticks(torch, block, x, k2_args, pack):
     m, c = x_nhwc.shape[0] * x_nhwc.shape[1] * x_nhwc.shape[2], x_nhwc.shape[3]
     flops = 2 * 2 * m * c * 9 * c
     nbytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
-    bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "gflop": flops / 1e9}
 
@@ -1107,7 +1089,7 @@ def k2_route_shapes(torch, dev):
         fastest = min(sweep, key=sweep.get)
         flops = 2 * 2 * m * c * 9 * c
         nbytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
-        bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         rows.append({"shape": list(shape), "launch": list(launch), "rel_err": err,
                      "channels_first_equal": same, "device_ms": dev_ms,
                      "channels_first_device_ms": nchw_ms, "bound_ms": bound_ms,
@@ -1329,7 +1311,7 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
 
     # Where the Viterbi run's wall goes: a run with the card synchronised
     # where classify_buffer starts and ends (in this script only), and one
-    # with a single decode worker (the chunk loop inline on this thread).
+    # with a single decode worker.
     marks = {}
     classify = pipe.classify_buffer
 
@@ -1351,10 +1333,10 @@ def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
         f"classify_buffer {(marks['classify_end'] - marks['classify_start']) * 1e3:.1f} ms, "
         f"the rest {(t1 - marks['classify_end']) * 1e3:.1f} ms")
     with recorded_viterbi() as k3_calls:
-        inline = VodAnalyzer(pipe, decode="viterbi", decode_workers=1, **kw).analyze(clip,
-                                                                                   boxes_all)
-    log(f"phase 6: the same Viterbi run with one decode worker (inline chunk loop): "
-        f"{inline['seconds'] * 1e3:.1f} ms = {inline['fps']:.1f} frames/s")
+        one = VodAnalyzer(pipe, decode="viterbi", decode_workers=1, **kw).analyze(clip,
+                                                                                boxes_all)
+    log(f"phase 6: the same Viterbi run with one decode worker: "
+        f"{one['seconds'] * 1e3:.1f} ms = {one['fps']:.1f} frames/s")
     same, shapes = k3_against_plain(torch, k3_calls)
     check(len(k3_calls) == 1 and same,
           f"phase 6: K3 labels identical to viterbi_decode_ref on the card's own log-probs "
@@ -1444,12 +1426,10 @@ def run_log_phase(torch, dev, check, wrappers):
     from playaid_core_torch.convert import load_npz_tree
     from playaid_core_torch.infer import vod_pipeline
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
-    from playaid_core_torch.infer.vod_pipeline import (
-        BoundedSegmentDecoder,
-        VodAnalyzer,
-        boxes_from_log,
-    )
+    from playaid_core_torch.infer.vod_pipeline import VodAnalyzer, boxes_from_log
     from playaid_core_torch.ontology import CLASS_ID_TO_MOVE
+    from playaid_core_torch.parallel.staging import PinnedStager
+    from playaid_core_torch.video import reader
 
     work = os.path.join(ROOT, "build", "smoke")
     os.makedirs(work, exist_ok=True)
@@ -1465,7 +1445,7 @@ def run_log_phase(torch, dev, check, wrappers):
           f"(gap of {LOG_GAP_SIZE} frames repaired), equal to the Python parser's: {same}")
 
     # The card's machine has no cv2: frames come from the stand-in capture.
-    BoundedSegmentDecoder.open_capture = staticmethod(lambda path: LogClipCapture(boxes))
+    reader.open_capture = lambda path: LogClipCapture(boxes)
     clip = "log_clip.mp4"  # the stand-in serves it; no file is read
     win = WINDOW
     kw = dict(host_resize=False, window=win, stride=1, chunk=CHUNK, switch_cost=SWITCH_COST)
@@ -1500,7 +1480,7 @@ def run_log_phase(torch, dev, check, wrappers):
     trace = os.path.join(work, "window_trace.json")
     win_bytes = CHUNK * 2 * win * win * 3
     org_bytes = CHUNK * 2 * 3 * 4
-    to_device = vod_pipeline.PinnedStager.to_device
+    to_device = PinnedStager.to_device
     for attempt in (1, 2):
         staged = []
 
@@ -1508,14 +1488,14 @@ def run_log_phase(torch, dev, check, wrappers):
             staged.append(sum(a.nbytes for a in arrays))
             return to_device(stager, *arrays)
 
-        vod_pipeline.PinnedStager.to_device = counted
+        PinnedStager.to_device = counted
         try:
             with profiled(torch) as prof:
                 t0 = time.perf_counter()
                 argmax.analyze(clip, boxes)
                 wall_us = (time.perf_counter() - t0) * 1e6
         finally:
-            vod_pipeline.PinnedStager.to_device = to_device
+            PinnedStager.to_device = to_device
         prof.export_chrome_trace(trace)
         audit = trace_copy_audit(trace, "crop_resize")
         h2d = [b for b, _ in audit["h2d"]]
@@ -1682,7 +1662,7 @@ def paint_hud(frame, x0, y0, value):
 
 
 class PixelsClipCapture:
-    """Stand-in frame source behind BoundedSegmentDecoder.open_capture for
+    """Stand-in frame source behind video/reader.open_capture for
     phase 9 (seek / read / release and the stream's fps and size): each
     read renders a new frame, which the caller may keep."""
 
@@ -1750,16 +1730,16 @@ def run_pixels_phase(torch, dev, check, card, k2_wrapper):
     from playaid_core_torch.infer.ocr_conv import ConvDigitOCR, patch_from_component
     from playaid_core_torch.infer.pipeline import BatchedActionPipeline
     from playaid_core_torch.infer.runner import AIRunner
-    from playaid_core_torch.infer.vod_pipeline import BoundedSegmentDecoder
     from playaid_core_torch.geometry import YoloCrop
     from playaid_core_torch.ops.conv_block import residual_block_packed, residual_block_ref
     from playaid_core_torch.train.detector_train import DetectorTrainer
+    from playaid_core_torch.video import reader
 
     work = os.path.join(ROOT, "build", "smoke")
     constants.AI_CACHE = os.path.join(work, "ai_cache")
     shutil.rmtree(constants.AI_CACHE, ignore_errors=True)
     os.makedirs(work, exist_ok=True)
-    BoundedSegmentDecoder.open_capture = staticmethod(lambda path: PixelsClipCapture())
+    reader.open_capture = lambda path: PixelsClipCapture()
     clip, exp = os.path.join("pixels", "clip.mp4"), os.path.join("pixels", "clip")
     det_kw = dict(classes=(2, 3), max_det=PIX_MAX_DET, batch_size=PIX_BATCH)
     # Seeded weights: every heatmap logit sits near the -2.19 prior (a
@@ -2793,7 +2773,7 @@ def synth_main():
         + bank_touched_bytes(p0["ints"][:, t], p0["floats"][:, 3 * t:3 * t + 3],
                              np.zeros(b, bool), stage_bank.patch, stage_bank.patch, 3, s))
     bank_io = bank_bytes_read + b * t * s * s * 4 * 4 + b * s * s * 3 * 4 + b * (t + 1) * 16
-    bank_bound_ms = bank_io / PEAK_BYTES_PER_S * 1e3
+    bank_bound_ms = bank_io / PEAK_HBM_BYTES * 1e3
     fmt = "not measured" if bank_dev_ms is None else f"{bank_dev_ms:.4f} ms"
     log(f"phase 11: K1 bank_resize, a batch's two launches ({b * t} RGBA sprite rows and {b} "
         f"RGB stage rows -> {s}^2): call {bank_ms:.4f} ms, device {fmt} ({bank_per_call:g} "
@@ -4499,7 +4479,7 @@ def run_manuscript_phase(torch, dev, check, card, runner):
                                                       align_corners=False), 50)
     k1_bytes = (crop_touched_bytes(boxes[picks[0]], HEIGHT, WIDTH, CROP, PADDING)
                 + 2 * CROP * CROP * 3 * 4 + 2 * 4 * 4)
-    bound_ms = k1_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = k1_bytes / PEAK_HBM_BYTES * 1e3
     check(launches == len(picks) and err <= 1e-5 and dev_ms_k1 is not None,
           f"phase 16 (c): batched_crop_resize_shared_frame on {len(picks)} 1080p frames "
           f"(2 crops each) through K1: {launches} launches, max abs err {err:.3g} against "
@@ -4553,7 +4533,7 @@ CHAR_DRAWS = 8             # CharacterLoader(seed=0) draws digested
 
 
 class GtClipCapture:
-    """Stand-in frame source behind BoundedSegmentDecoder.open_capture for
+    """Stand-in frame source behind video/reader.open_capture for
     phase 17 (and, in tools/torch_port_gt_digests.py, behind the JAX
     package's VideoReader): 1280x720 BGR frames of seeded noise with a disc
     at each fighter's box of the log; each read renders a new frame, which
@@ -4678,7 +4658,7 @@ def port_gt_trees(work):
     """The port's side of phase 17's trees, under work (emptied first):
     the action tree and the character-detection tree of GT_PAIRING with
     fmt="npy", frames from GtClipCapture behind
-    BoundedSegmentDecoder.open_capture; the raw dump written by imgcodec
+    video/reader.open_capture; the raw dump written by imgcodec
     and cleaned; char_loader's strips.  Returns the digests in
     GT_DIGESTS's layout and what the phase reads of the run."""
     import shutil
@@ -4687,15 +4667,15 @@ def port_gt_trees(work):
     from playaid_core_torch.datagen import gen_gt_action_detection as gt_action
     from playaid_core_torch.datagen import gen_gt_char_detection as gt_char
     from playaid_core_torch.datagen import raw_anim_cleaner
-    from playaid_core_torch.infer.vod_pipeline import BoundedSegmentDecoder
+    from playaid_core_torch.video import reader
 
     shutil.rmtree(work, ignore_errors=True)
     vods = os.path.join(work, "vods")
     boxes, csv = write_gt_pairing(vods)
     run = {"action_root": os.path.join(work, "action", "train"),
            "char_dir": os.path.join(work, "char", "train")}
-    real_capture = BoundedSegmentDecoder.open_capture
-    BoundedSegmentDecoder.open_capture = staticmethod(lambda path: GtClipCapture(boxes))
+    real_capture = reader.open_capture
+    reader.open_capture = lambda path: GtClipCapture(boxes)
     try:
         t0 = time.perf_counter()
         run["written"] = gt_action.process_pairing(run["action_root"], GT_PAIRING,
@@ -4709,7 +4689,7 @@ def port_gt_trees(work):
             ground_truth_dir=vods, fmt="npy")
         run["char_s"] = time.perf_counter() - t0
     finally:
-        BoundedSegmentDecoder.open_capture = real_capture
+        reader.open_capture = real_capture
 
     crops, labels = {}, {}
     for dirpath, _, files in os.walk(run["action_root"]):
@@ -5272,7 +5252,7 @@ def main():
     k1_bytes = (crop_touched_bytes(boxes_all[sampled][:per_chunk].reshape(-1, 4), HEIGHT,
                                    WIDTH, CROP, PADDING)
                 + n_crops * CROP * CROP * 3 * 4 + n_crops * 4 * 4)
-    k1_bound_ms = k1_bytes / PEAK_BYTES_PER_S * 1e3
+    k1_bound_ms = k1_bytes / PEAK_HBM_BYTES * 1e3
 
     # K1's window entry at the route's shapes, and its yardstick: grid_sample
     # on the same windows (as floats, channels first) at the same points.
@@ -5308,7 +5288,7 @@ def main():
     org_np = org0.cpu().numpy()
     kw_bytes = (touched_bytes(org_np[:, 0], org_np[:, 1], org_np[:, 2], WINDOW, WINDOW, CROP)
                 + 2 * CHUNK * CROP * CROP * 3 * 4 + 2 * CHUNK * 3 * 4)
-    kw_bound_ms = kw_bytes / PEAK_BYTES_PER_S * 1e3
+    kw_bound_ms = kw_bytes / PEAK_HBM_BYTES * 1e3
 
     bn = (block.bn1, block.bn2)
     x_nchw = x.contiguous()
@@ -5371,9 +5351,9 @@ def main():
     # Each input read once, the output written once: x, out, both weights, s/b.
     k2_bytes = 2 * m * c * 4 + 2 * 9 * c * c * 4 + 4 * c * 4
     k2_bf16_bytes = 2 * m * c * 2 + 2 * 9 * c * c * 2 + 4 * c * 4
-    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
-    k2_bf16_bound_ms = max(k2_flops / PEAK_BF16_FLOPS, k2_bf16_bytes / PEAK_BYTES_PER_S) * 1e3
-    k2_core_bound_ms = max(k2_flops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES_PER_S) * 1e3
+    k2_bound_ms = max(3 * k2_flops / PEAK_TF32_FLOPS, k2_bytes / PEAK_HBM_BYTES) * 1e3
+    k2_bf16_bound_ms = max(k2_flops / PEAK_BF16_FLOPS, k2_bf16_bytes / PEAK_HBM_BYTES) * 1e3
+    k2_core_bound_ms = max(k2_flops / PEAK_FP32_FLOPS, k2_bytes / PEAK_HBM_BYTES) * 1e3
 
     # K3 on phase 4's launch and on the seeded match; K4 on a chunk beside
     # its plain version's call and device time, and the embed of its output
@@ -5414,12 +5394,12 @@ def main():
     k3_rows = int(min(max(k3_len, 1), k3_lp.shape[1]))
     # Rows the true length needs read once, every label written once.
     k3_bytes = k3_lp.shape[0] * k3_rows * k3_lp.shape[2] * 4 + k3_lp.shape[0] * k3_lp.shape[1] * 8
-    k3_bound_ms = k3_bytes / PEAK_BYTES_PER_S * 1e3
+    k3_bound_ms = k3_bytes / PEAK_HBM_BYTES * 1e3
     # The latency bound: the chain floor's time a step times the steps.
     k3_floor_ms = floor_us * (k3_rows - 1) / 1e3
     k3_match_floor_ms = floor_us * (MATCH_ROWS - 1) / 1e3
     k4_bytes = yuv.numel() + yuv.shape[0] * 3 * CROP * CROP * 4
-    k4_bound_ms = k4_bytes / PEAK_BYTES_PER_S * 1e3
+    k4_bound_ms = k4_bytes / PEAK_HBM_BYTES * 1e3
 
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
@@ -5484,12 +5464,14 @@ def main():
     run_family_phase(torch, dev, check, boxes_all, stand_in, residual_block_packed)
 
     # ---- phase 8: the log path, the window route and the command line ----
-    log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed,
-                                                     viterbi_decode, yuv420_to_rgb])
+    with capture_restored():
+        log_launches = run_log_phase(torch, dev, check, [window_resize, residual_block_packed,
+                                                         viterbi_decode, yuv420_to_rgb])
 
     # ---- phase 9: the pixels-only path, AIRunner ----
     viterbi_decode.launches = yuv420_to_rgb.launches = 0
-    pixels, pixels_runner = run_pixels_phase(torch, dev, check, card, residual_block_packed)
+    with capture_restored():
+        pixels, pixels_runner = run_pixels_phase(torch, dev, check, card, residual_block_packed)
     pixels_k3k4 = [viterbi_decode.launches, yuv420_to_rgb.launches]
     check(pixels_k3k4 == [0, 0],
           f"phase 9: K3 and K4 launches {pixels_k3k4}: none (the runner decodes by argmax, its "

@@ -33,7 +33,7 @@
 // Design (the one before it, commit 45b0240, staged each band's tap rows
 // through shared memory with cp.async after three barriers; at two crops
 // its 16 blocks ran 0.0104 ms, and at 48 crops reading the taps straight
-// from device memory was as fast: tools/torch_port_k1_cmp.py):
+// from device memory was as fast: PERF.md section 6, K1's rows):
 // - Three entries, one kernel body: crop_resize takes normalised yolo boxes
 //   and computes each crop's square window from them; window_resize takes
 //   each window's origin and side (y0, x0, side) as floats, one crop per
@@ -73,7 +73,7 @@
 // zero when src lies outside [-1, len], and taps outside the frame count
 // as zero (the zero rows and columns of Wy and Wx).  Each value is the
 // same sequence of float32 operations as in the design of commit 45b0240
-// (tools/torch_port_k1_cmp.py holds them bit for bit).
+// (held bit for bit when it was replaced: PERF.md section 6, K1's rows).
 
 #include <cstdint>
 #include <cuda_runtime.h>

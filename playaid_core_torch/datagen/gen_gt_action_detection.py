@@ -9,7 +9,7 @@ with 128px square crops and action-string labels.  Idempotent per video
 directory; a thread pool over pairings, sized to the host's cores.
 
 Frames come through ``video/reader.VideoReader`` (the capture seam:
-``BoundedSegmentDecoder.open_capture``), crops from
+``video/reader.open_capture``), crops from
 ``YoloCrop.square_crop`` on the host, as in the JAX module.  ``fmt="jpg"``
 writes the crops through cv2, as the JAX module does; ``fmt="npy"`` writes
 the exact arrays that the JAX module hands to ``cv2.imwrite``, needs no

@@ -4,21 +4,22 @@ Counterpart of ``playaid_core_tpu/infer/vod_pipeline.py``, with its
 command line (:func:`main`) and :func:`boxes_from_log`, which projects the
 fighters' boxes from an ult_logger log.  Its layers:
 
-* **host decode**: the native libavcodec crop extractor
+* **host decode**: a pool of decode workers (:class:`_DecodePool`, one
+  or more threads) takes the chunks in any order and hands each to the
+  dispatcher.  On the native route the libavcodec crop extractor
   (``video/native_decoder.py``) turns a chunk of frames into packed
   YUV420 (or BGR) uint8 crops of model size in one C call that releases
-  the interpreter lock.  With one decode worker the chunk loop runs inline
-  on the calling thread; with several, :class:`NativeChunkDecoder`
-  workers hand chunks to a sink.  The cv2 route (``decode_backend="cv2"``)
-  decodes with ``cv2.VideoCapture`` in :class:`BoundedSegmentDecoder`
-  workers and crops on the host with :func:`extract_crops`.  The window
-  route (``host_resize=False``) decodes the same way but cuts a fixed
+  the interpreter lock.  The cv2 route (``decode_backend="cv2"``) reads
+  frames through ``video/reader.open_capture`` (``cv2.VideoCapture`` by
+  default) and crops on the host with :func:`extract_crops`.  The window
+  route (``host_resize=False``) reads frames the same way but cuts a fixed
   window around each box with :func:`extract_windows` and leaves the
   resize to the device;
 * **staging**: one dispatcher thread per analysis copies each chunk into
-  a small ring of pinned host buffers and issues the host-to-device copy
-  on its own CUDA stream; the compute stream waits for the copy, and a
-  slot is refilled only after its last copy has finished;
+  a small ring of pinned host buffers (``parallel/staging.PinnedStager``)
+  and issues the host-to-device copy on its own CUDA stream; the compute
+  stream waits for the copy, and a slot is refilled only after its last
+  copy has finished;
 * **embed**: ``embed_crops_yuv`` / ``embed_crops_u8`` of the pipeline, or
   ``embed_windows`` on the window route (the crop kernel's window entry,
   then the same embed), on cuDNN and the residual-block kernel in
@@ -47,6 +48,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import os
 import queue
 import sys
@@ -58,7 +60,8 @@ import torch
 
 from playaid_core_torch import profiling
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline
-from playaid_core_torch.video import native_decoder
+from playaid_core_torch.parallel.staging import PinnedStager
+from playaid_core_torch.video import native_decoder, reader
 
 
 def extract_windows(frame, boxes, window, padding):
@@ -117,216 +120,6 @@ def extract_crops(frame, boxes, out_size, padding):
             canvas[vy0 - y0:vy1 - y0, vx0 - x0:vx1 - x0] = frame[vy0:vy1, vx0:vx1]
         out[j] = cv2.resize(canvas, (out_size, out_size), interpolation=cv2.INTER_AREA)
     return out
-
-
-class Cv2Capture:
-    """Frames of a video file through ``cv2.VideoCapture``: ``seek(index)``,
-    ``read() -> (ok, BGR frame)``, ``release()``, and the stream's ``fps``,
-    ``width``, ``height`` and ``frame_count`` (not positive when the file
-    does not open)."""
-
-    def __init__(self, path):
-        import cv2
-
-        self._cv2 = cv2
-        self._cap = cv2.VideoCapture(path)
-        self.fps = self._cap.get(cv2.CAP_PROP_FPS)
-        self.width = int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH))
-        self.height = int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
-        self.frame_count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
-
-    def seek(self, index):
-        self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, index)
-
-    def read(self):
-        return self._cap.read()
-
-    def release(self):
-        self._cap.release()
-
-
-class BoundedSegmentDecoder:
-    """Decode a video with N workers over chunks of frames, run a
-    per-frame host transform in the worker, and yield ``(start,
-    collate(start, items))`` in chunk order, with at most ``AHEAD`` chunks
-    decoded past the consumer.
-
-    Each worker opens its own capture with :meth:`open_capture`, the one
-    seam for another frame source (:class:`Cv2Capture` by default).  The
-    workers' spans belong to ``analysis`` (:func:`profiling.bind`).
-    """
-
-    AHEAD = 6
-    open_capture = staticmethod(Cv2Capture)
-
-    def __init__(self, path, num_frames, chunk, transform, collate, workers=None,
-                 analysis=None):
-        self.path = path
-        self.analysis = analysis
-        self.num_frames = num_frames
-        self.chunk = chunk
-        self.transform = transform
-        self.collate = collate
-        self.num_chunks = (num_frames + chunk - 1) // chunk
-        workers = workers or max(1, min((os.cpu_count() or 1), 6))
-        self.workers_n = min(workers, self.num_chunks)
-        self._results = {}
-        self._error = None
-        self._closed = False
-        self._cond = threading.Condition()
-        self._next_emit = 0
-        self._task_q = queue.Queue()
-        for t in range(self.num_chunks):
-            self._task_q.put(t)
-        self._threads = [threading.Thread(target=self._worker, daemon=True)
-                         for _ in range(self.workers_n)]
-        for t in self._threads:
-            t.start()
-
-    def close(self):
-        """Stop the workers: drop the pending chunks and wake every waiter.
-        Safe to call from the consumer's error path."""
-        with self._cond:
-            self._closed = True
-            try:
-                while True:
-                    self._task_q.get_nowait()
-            except queue.Empty:
-                pass
-            self._cond.notify_all()
-
-    def _worker(self):
-        profiling.bind(self.analysis)
-        try:
-            self._worker_loop()
-        except BaseException as e:  # handed to the consumer, which raises it
-            with self._cond:
-                self._error = e
-                self._cond.notify_all()
-
-    def _worker_loop(self):
-        cap = self.open_capture(self.path)
-        pos = -10**9
-        try:
-            while True:
-                try:
-                    chunk_idx = self._task_q.get_nowait()
-                except queue.Empty:
-                    return
-                with self._cond:
-                    while chunk_idx > self._next_emit + self.AHEAD and not self._closed:
-                        self._cond.wait()
-                    if self._closed:
-                        return
-                start = chunk_idx * self.chunk
-                stop = min(start + self.chunk, self.num_frames)
-                with profiling.span("playaid.decode"):
-                    if start != pos:
-                        cap.seek(start)
-                    out = []
-                    for i in range(start, stop):
-                        ok, frame = cap.read()
-                        if not ok:
-                            break
-                        out.append(self.transform(i, frame))
-                pos = stop
-                with self._cond:
-                    self._results[chunk_idx] = (start, self.collate(start, out))
-                    self._cond.notify_all()
-        finally:
-            cap.release()
-
-    def __iter__(self):
-        for idx in range(self.num_chunks):
-            with self._cond:
-                while idx not in self._results:
-                    if self._error is not None:
-                        raise self._error
-                    if self._closed:
-                        return
-                    self._cond.wait()
-                item = self._results.pop(idx)
-                self._next_emit = idx + 1
-                self._cond.notify_all()
-            yield item
-
-
-class NativeChunkDecoder:
-    """Chunk-level decoder over the native crop extractor, with N workers.
-
-    Each worker takes the next chunk, decodes it into dense crops
-    (``[chunk // stride, K, ...]``, sampled frame j in row j // stride) and
-    calls ``sink(start, n, crops)``.  :meth:`wait` blocks until
-    every chunk has gone through the sink and re-raises a worker's (or the
-    sink's) exception.  The workers' spans belong to ``analysis``.
-    """
-
-    def __init__(self, path, num_frames, chunk, boxes, crop_size, padding, sink,
-                 workers=None, lowres=0, stride=1, fmt="bgr", fast=False, analysis=None):
-        self.path = path
-        self.analysis = analysis
-        self.num_frames = num_frames
-        self.chunk = chunk
-        self.boxes = boxes
-        self.crop_size = crop_size
-        self.padding = padding
-        self.sink = sink
-        self.lowres = lowres
-        self.stride = stride
-        self.fmt = fmt
-        self.fast = fast
-        self.num_chunks = (num_frames + chunk - 1) // chunk
-        workers = workers or max(1, min((os.cpu_count() or 1), 6))
-        self._error = None
-        self._closed = False
-        self._cond = threading.Condition()
-        self._done = 0
-        self._task_q = queue.Queue()
-        for t in range(self.num_chunks):
-            self._task_q.put(t)
-        self._threads = [threading.Thread(target=self._worker, daemon=True)
-                         for _ in range(min(workers, self.num_chunks))]
-        for t in self._threads:
-            t.start()
-
-    close = BoundedSegmentDecoder.close
-    _worker = BoundedSegmentDecoder._worker
-
-    def wait(self):
-        """Block until every chunk has been through the sink, or a worker
-        failed or the decoder was closed; re-raise a worker's exception."""
-        with self._cond:
-            while self._done < self.num_chunks and self._error is None and not self._closed:
-                self._cond.wait()
-            if self._error is not None:
-                raise self._error
-
-    def _worker_loop(self):
-        # A pooled handle: the analyzer's probe (or an earlier run) has
-        # usually opened this file already.
-        dec = native_decoder.acquire(self.path, lowres=self.lowres, fast=self.fast)
-        k = self.boxes.shape[1]
-        try:
-            while not self._closed:
-                try:
-                    chunk_idx = self._task_q.get_nowait()
-                except queue.Empty:
-                    return
-                start = chunk_idx * self.chunk
-                stop = min(start + self.chunk, self.num_frames)
-                # Every chunk has the full shape; the tail is zero boxes.
-                chunk_boxes = np.zeros((self.chunk, k, 4), np.float32)
-                chunk_boxes[:stop - start] = self.boxes[start:stop]
-                with profiling.span("playaid.decode"):
-                    n, crops = dec.decode_crops(start, chunk_boxes, self.crop_size, self.padding,
-                                                stride=self.stride, fmt=self.fmt, dense=True)
-                self.sink(start, min(n, stop - start), crops)
-                with self._cond:
-                    self._done += 1
-                    if self._done >= self.num_chunks:
-                        self._cond.notify_all()
-        finally:
-            native_decoder.release(dec)
 
 
 def boxes_from_log(label_path, num_frames=None, log_offset=0, parser="auto"):
@@ -393,59 +186,80 @@ def resolve_padding(boxes, padding):
     return boxes, int(padding)
 
 
-class PinnedStager:
-    """Host-to-device copies of chunks through a ring of pinned host
-    buffers and a copy stream.
+class _DecodePool:
+    """The chunk producer of every decode route: ``workers`` daemon threads
+    take chunk indices from a shared queue, in no set order.
 
-    :meth:`to_device` copies a chunk's arrays (the crops; or the windows
-    and their origins) into the next slot's pinned buffers (after waiting
-    for that slot's previous copies to finish), starts the slot's copies
-    on the copy stream, makes the caller's current stream wait for them,
-    and marks each device tensor as used by that stream so the caching
-    allocator does not hand its memory out again before the stream is done
-    with it.  On the CPU it returns the arrays as tensors.  One analysis at
-    a time uses a stager.  Each call is a span ``playaid.stage`` counting
-    ``staged_bytes``, its wait for the slot a span ``playaid.stage_slot_wait``.
+    Each thread enters ``route()`` once, a context manager that opens its
+    source and gives the route's per-chunk function ``decode(start, stop)
+    -> (n, *arrays)``, and hands ``(start, n, *arrays)`` to ``sink``.  Order
+    does not matter: the sink writes each chunk at its own offset.
+    :meth:`wait` blocks until every chunk has been through the sink and
+    re-raises the first error of a worker or of the sink; :meth:`close`
+    drops the chunks not yet taken.  The workers' spans belong to
+    ``analysis``.
     """
 
-    SLOTS = 3
+    def __init__(self, num_frames, chunk, route, sink, workers, analysis=None):
+        self.num_frames = num_frames
+        self.chunk = chunk
+        self.route = route
+        self.sink = sink
+        self.analysis = analysis
+        self.num_chunks = (num_frames + chunk - 1) // chunk
+        self._error = None
+        self._closed = False
+        self._cond = threading.Condition()
+        self._done = 0
+        self._tasks = queue.Queue()
+        for t in range(self.num_chunks):
+            self._tasks.put(t)
+        self._threads = [threading.Thread(target=self._worker, daemon=True)
+                         for _ in range(min(workers, self.num_chunks))]
+        for t in self._threads:
+            t.start()
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self._host = [[] for _ in range(self.SLOTS)]
-        self._copied = [None] * self.SLOTS
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        self._next = 0
+    def wait(self):
+        """Block until every chunk has been through the sink, or a worker
+        failed or the pool was closed; re-raise the first error."""
+        with self._cond:
+            while self._done < self.num_chunks and self._error is None and not self._closed:
+                self._cond.wait()
+            if self._error is not None:
+                raise self._error
 
-    def to_device(self, *arrays):
-        """The arrays as tensors on the device, in order (a list)."""
-        with profiling.span("playaid.stage", staged_bytes=sum(a.nbytes for a in arrays)):
-            return self._stage(arrays)
+    def close(self):
+        """Drop the chunks not yet taken and wake the waiter.  Safe to call
+        from the caller's error path."""
+        with self._cond:
+            self._closed = True
+            try:
+                while True:
+                    self._tasks.get_nowait()
+            except queue.Empty:
+                pass
+            self._cond.notify_all()
 
-    def _stage(self, arrays):
-        if self._stream is None:
-            return [torch.from_numpy(a) for a in arrays]
-        k = self._next
-        self._next = (k + 1) % self.SLOTS
-        if self._copied[k] is not None:
-            with profiling.span("playaid.stage_slot_wait"):
-                self._copied[k].synchronize()
-        tensors = [torch.from_numpy(a) for a in arrays]
-        hosts = self._host[k]
-        if [(h.shape, h.dtype) for h in hosts] != [(t.shape, t.dtype) for t in tensors]:
-            hosts[:] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-        for host, array in zip(hosts, arrays):
-            host.numpy()[...] = array
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._stream):
-            outs = [host.to(self.device, non_blocking=True) for host in hosts]
-            copied = torch.cuda.Event()
-            copied.record(self._stream)
-        self._copied[k] = copied
-        compute.wait_stream(self._stream)
-        for out in outs:
-            out.record_stream(compute)
-        return outs
+    def _worker(self):
+        profiling.bind(self.analysis)
+        try:
+            with self.route() as decode:
+                while not self._closed:
+                    try:
+                        chunk_idx = self._tasks.get_nowait()
+                    except queue.Empty:
+                        return
+                    start = chunk_idx * self.chunk
+                    self.sink(start, *decode(start, min(start + self.chunk, self.num_frames)))
+                    with self._cond:
+                        self._done += 1
+                        if self._done >= self.num_chunks:
+                            self._cond.notify_all()
+        except BaseException as e:  # handed to the waiter, which raises it
+            with self._cond:
+                if self._error is None:
+                    self._error = e
+                self._cond.notify_all()
 
 
 class _ChunkDispatcher:
@@ -554,7 +368,7 @@ class VodAnalyzer:
     ``decode_backend``: "native" (the libavcodec crop extractor; a failed
     build raises), "cv2" (``cv2.VideoCapture`` and host-side crops), or
     "auto", which means "native".  ``host_resize=False`` takes the window
-    route instead: frames from :class:`BoundedSegmentDecoder`, a
+    route instead: frames from ``video/reader.open_capture``, a
     ``window``-pixel square window around each box cut out on the host,
     and the resize to the model's crops on the device (the crop kernel's
     window entry); it ships BGR windows, decodes every frame (``stride``
@@ -562,6 +376,8 @@ class VodAnalyzer:
     "yuv420" ships packed 4:2:0 crops (half the bytes; converted to RGB on
     the device), "bgr" ships BGR24, "auto" picks yuv420 on the native
     backend.
+    ``decode_workers``: the decode pool's threads (default the host's
+    cores, at most 6).
     ``stride``: classify every stride-th frame and repeat its label over
     the frames in between; ``chunk`` must divide by it.  ``lowres`` (0, 1,
     2 or "auto", see :func:`auto_lowres`) and ``fast_decode`` (True, False
@@ -601,7 +417,7 @@ class VodAnalyzer:
         self.padding = padding
         self.chunk = chunk
         self.host_resize = host_resize
-        self.decode_workers = decode_workers
+        self.decode_workers = decode_workers or max(1, min((os.cpu_count() or 1), 6))
         self.decode_backend = decode_backend
         self.lowres = lowres
         self.fast_decode = fast_decode
@@ -683,16 +499,21 @@ class VodAnalyzer:
         t0 = time.time()
         buf = self.pipeline.make_embedding_buffer(num_chunks * (chunk // stride))
         replicas = [(getattr(pipe, embed), stager) for pipe, stager in self._replicas]
+        if use_native:
+            route = functools.partial(self._native_route, video_path, boxes, padding, lowres, fmt)
+        elif self.host_resize:
+            route = functools.partial(self._crop_route, video_path, boxes, padding)
+        else:
+            route = functools.partial(self._window_route, video_path, boxes, padding)
         with profiling.span("playaid.chunk_loop"):
             dispatcher = _ChunkDispatcher(self.pipeline, replicas, buf, stride, analysis)
             try:
-                if use_native:
-                    self._decode_native(dispatcher, video_path, boxes, f_total, padding, lowres,
-                                        fmt)
-                elif self.host_resize:
-                    self._decode_cv2(dispatcher, video_path, boxes, f_total, padding)
-                else:
-                    self._decode_windows(dispatcher, video_path, boxes, f_total, padding)
+                pool = _DecodePool(f_total, chunk, route, dispatcher.sink, self.decode_workers,
+                                   analysis)
+                try:
+                    pool.wait()
+                finally:
+                    pool.close()
             finally:
                 # Producers blocked in sink() return once the dispatcher stops;
                 # it runs what it holds, then ends at the sentinel.
@@ -720,35 +541,60 @@ class VodAnalyzer:
             "backend": "native" if use_native else "cv2",
         }
 
-    def _decode_native(self, dispatcher, video_path, boxes, f_total, padding, lowres, fmt):
+    @contextlib.contextmanager
+    def _native_route(self, video_path, boxes, padding, lowres, fmt):
+        """The native route of one decode worker: dense crops of a chunk
+        from one ``decode_crops`` call."""
         chunk, crop_size = self.chunk, self.pipeline.crop_size
-        workers = self.decode_workers or max(1, min((os.cpu_count() or 1), 6))
-        if workers == 1:
-            # One worker: the chunk loop runs on this thread, and only the
-            # dispatcher is a thread.
-            dec = native_decoder.acquire(video_path, lowres=lowres, fast=self.fast_decode)
-            try:
-                for c0 in range(0, f_total, chunk):
-                    stop = min(c0 + chunk, f_total)
-                    cb = np.zeros((chunk, boxes.shape[1], 4), np.float32)
-                    cb[:stop - c0] = boxes[c0:stop]
-                    with profiling.span("playaid.decode"):
-                        n, crops = dec.decode_crops(c0, cb, crop_size, padding,
-                                                    stride=self.stride, fmt=fmt, dense=True)
-                    dispatcher.sink(c0, min(n, stop - c0), crops)
-            finally:
-                native_decoder.release(dec)
-            return
-        decoder = NativeChunkDecoder(
-            video_path, f_total, chunk, boxes, crop_size, padding, dispatcher.sink,
-            workers=workers, lowres=lowres, stride=self.stride, fmt=fmt, fast=self.fast_decode,
-            analysis=dispatcher.analysis)
-        try:
-            decoder.wait()
-        finally:
-            decoder.close()
+        # A pooled handle: the analyzer's probe (or an earlier run) has
+        # usually opened this file already.
+        dec = native_decoder.acquire(video_path, lowres=lowres, fast=self.fast_decode)
 
-    def _decode_cv2(self, dispatcher, video_path, boxes, f_total, padding):
+        def decode(start, stop):
+            # Every chunk has the full shape; the tail is zero boxes.
+            chunk_boxes = np.zeros((chunk, boxes.shape[1], 4), np.float32)
+            chunk_boxes[:stop - start] = boxes[start:stop]
+            with profiling.span("playaid.decode"):
+                n, crops = dec.decode_crops(start, chunk_boxes, crop_size, padding,
+                                            stride=self.stride, fmt=fmt, dense=True)
+            return min(n, stop - start), crops
+
+        try:
+            yield decode
+        finally:
+            native_decoder.release(dec)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _frame_route(video_path, transform, collate):
+        """A frame route of one decode worker: a chunk's frames from its
+        capture (``reader.open_capture``; no seek when the chunk follows
+        the worker's last), each through ``transform(i, frame)``, then
+        ``collate(items) -> (n, *arrays)``."""
+        cap = reader.open_capture(video_path)
+        pos = -1
+
+        def decode(start, stop):
+            nonlocal pos
+            with profiling.span("playaid.decode"):
+                if start != pos:
+                    cap.seek(start)
+                items = []
+                for i in range(start, stop):
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    items.append(transform(i, frame))
+            pos = stop
+            return collate(items)
+
+        try:
+            yield decode
+        finally:
+            cap.release()
+
+    def _crop_route(self, video_path, boxes, padding):
+        """The cv2 route: host crops of the sampled frames."""
         chunk, stride, crop_size = self.chunk, self.stride, self.pipeline.crop_size
 
         def transform(i, frame):
@@ -756,31 +602,25 @@ class VodAnalyzer:
                 return None
             return extract_crops(frame, boxes[i], crop_size, padding)
 
-        def collate(start, items):
+        def collate(items):
             # Dense, as the native decoder's dense=True: sampled frame j in
             # row j // stride.
             crops = np.zeros((chunk // stride, 2, crop_size, crop_size, 3), np.uint8)
             for j, c in enumerate(items):
                 if c is not None:
                     crops[j // stride] = c
-            return len(items), crops, None
+            return len(items), crops
 
-        decoder = BoundedSegmentDecoder(video_path, f_total, chunk, transform, collate,
-                                        workers=self.decode_workers,
-                                        analysis=dispatcher.analysis)
-        try:
-            for start, (n, crops, _) in decoder:
-                dispatcher.sink(start, n, crops)
-        finally:
-            decoder.close()
+        return self._frame_route(video_path, transform, collate)
 
-    def _decode_windows(self, dispatcher, video_path, boxes, f_total, padding):
+    def _window_route(self, video_path, boxes, padding):
+        """The window route: a window around each box of every frame."""
         window = self.window
 
         def transform(i, frame):
             return extract_windows(frame, boxes[i], window, padding)
 
-        def collate(start, items):
+        def collate(items):
             # The frames read, not the full chunk: the device embeds no
             # padding rows.
             n = len(items)
@@ -791,14 +631,7 @@ class VodAnalyzer:
                 origins[j] = o
             return n, wins, origins
 
-        decoder = BoundedSegmentDecoder(video_path, f_total, self.chunk, transform, collate,
-                                        workers=self.decode_workers,
-                                        analysis=dispatcher.analysis)
-        try:
-            for start, (n, wins, origins) in decoder:
-                dispatcher.sink(start, n, wins, origins)
-        finally:
-            decoder.close()
+        return self._frame_route(video_path, transform, collate)
 
 
 def analyze_many(jobs, pipeline=None, variables=None, workers=None, **analyzer_kwargs):

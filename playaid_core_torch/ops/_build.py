@@ -92,8 +92,8 @@ def load(name: str) -> ctypes.CDLL:
 def current_stream(device: torch.device) -> int:
     """The handle of PyTorch's current stream on a CUDA device, read at each
     launch: what ``torch.cuda.current_stream(device).cuda_stream`` gives,
-    without the ``Stream`` object it builds (3-6 us a call on the card,
-    ``tools/torch_port_k1_cmp.py``)."""
+    without the ``Stream`` object it builds (3-6 us a call on the card:
+    PERF.md section 6, K1's rows)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 

@@ -1,11 +1,12 @@
-"""Host-to-device staging for training.
+"""Host-to-device staging, for training and for the VOD path.
 
 Counterpart of ``playaid_core_tpu/parallel/staging.py``:
-:func:`device_prefetch` keeps ``size`` batches in flight to the device
-(through ``PinnedStager``: pinned host slots, a copy stream, and
-``record_stream`` onto the compute stream, so a copy overlaps the step
-before it), and :class:`BackgroundIterator` assembles batches on the host
-in a thread while the device computes.
+:class:`PinnedStager` copies arrays to the device through pinned host
+slots and a copy stream, with ``record_stream`` onto the compute stream,
+so a copy overlaps the work before it (the VOD path's dispatcher stages
+each chunk through one); :func:`device_prefetch` keeps ``size`` batches in
+flight to the device through one; and :class:`BackgroundIterator`
+assembles batches on the host in a thread while the device computes.
 """
 
 from __future__ import annotations
@@ -15,8 +16,65 @@ import queue
 import threading
 from typing import Iterable, Iterator, Optional
 
+import torch
+
+from playaid_core_torch import profiling
 from playaid_core_torch.device import resolve_device
-from playaid_core_torch.infer.vod_pipeline import PinnedStager
+
+
+class PinnedStager:
+    """Host-to-device copies of chunks through a ring of pinned host
+    buffers and a copy stream.
+
+    :meth:`to_device` copies a chunk's arrays (the crops; or the windows
+    and their origins) into the next slot's pinned buffers (after waiting
+    for that slot's previous copies to finish), starts the slot's copies
+    on the copy stream, makes the caller's current stream wait for them,
+    and marks each device tensor as used by that stream so the caching
+    allocator does not hand its memory out again before the stream is done
+    with it.  On the CPU it returns the arrays as tensors.  One analysis at
+    a time uses a stager.  Each call is a span ``playaid.stage`` counting
+    ``staged_bytes``, its wait for the slot a span ``playaid.stage_slot_wait``.
+    """
+
+    SLOTS = 3
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._host = [[] for _ in range(self.SLOTS)]
+        self._copied = [None] * self.SLOTS
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._next = 0
+
+    def to_device(self, *arrays):
+        """The arrays as tensors on the device, in order (a list)."""
+        with profiling.span("playaid.stage", staged_bytes=sum(a.nbytes for a in arrays)):
+            return self._stage(arrays)
+
+    def _stage(self, arrays):
+        if self._stream is None:
+            return [torch.from_numpy(a) for a in arrays]
+        k = self._next
+        self._next = (k + 1) % self.SLOTS
+        if self._copied[k] is not None:
+            with profiling.span("playaid.stage_slot_wait"):
+                self._copied[k].synchronize()
+        tensors = [torch.from_numpy(a) for a in arrays]
+        hosts = self._host[k]
+        if [(h.shape, h.dtype) for h in hosts] != [(t.shape, t.dtype) for t in tensors]:
+            hosts[:] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for host, array in zip(hosts, arrays):
+            host.numpy()[...] = array
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            outs = [host.to(self.device, non_blocking=True) for host in hosts]
+            copied = torch.cuda.Event()
+            copied.record(self._stream)
+        self._copied[k] = copied
+        compute.wait_stream(self._stream)
+        for out in outs:
+            out.record_stream(compute)
+        return outs
 
 
 def device_prefetch(iterable: Iterable, size: int = 2, device=None, sharding=None) -> Iterator:

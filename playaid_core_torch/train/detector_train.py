@@ -47,7 +47,6 @@ import torch
 from playaid_core_torch import constants, imgcodec, imgproc
 from playaid_core_torch.convert import from_jax_detector
 from playaid_core_torch.device import full_float32, resolve_device
-from playaid_core_torch.infer.vod_pipeline import PinnedStager
 from playaid_core_torch.models.detector import (
     HEATMAP_PRIOR,
     CenterNetDetector,
@@ -56,7 +55,7 @@ from playaid_core_torch.models.detector import (
     detector_loss,
 )
 from playaid_core_torch.models.resnet import init_flax_
-from playaid_core_torch.parallel.staging import BackgroundIterator, device_prefetch
+from playaid_core_torch.parallel.staging import BackgroundIterator, PinnedStager, device_prefetch
 from playaid_core_torch.train.train import bump_versions_after_step
 
 

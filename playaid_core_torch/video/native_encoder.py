@@ -107,7 +107,7 @@ class NativeVideoWriter:
 def transcode(src, dst, codec="libx264", preset="veryfast", crf=23, threads=0, max_frames=None):
     """Re-encode a video file with the native encoder (h264 bench fixtures
     from mp4v sources).  Frames are read through the port's ``VideoReader``
-    (its capture seam, ``BoundedSegmentDecoder.open_capture``)."""
+    (its capture seam, ``video/reader.open_capture``)."""
     from playaid_core_torch.video.reader import VideoReader
 
     reader = VideoReader(src)

@@ -1,18 +1,52 @@
-"""Sequential-first frame reading through the port's capture seam.
+"""The port's frame source, and sequential-first frame reading through it.
 
 Counterpart of ``VideoReader`` in ``playaid_core_tpu/video/reader.py``.
-Frames come from ``BoundedSegmentDecoder.open_capture(path)`` (cv2 where
-it is installed; a caller may put any source with ``seek``, ``read``,
-``release``, ``fps``, ``width``, ``height`` and ``frame_count`` behind
-it, whose ``read`` returns a frame the caller may keep), so the
-pixels-only path needs no cv2 of its own.  ``PrefetchingReader`` decodes on
-a background thread into a bounded queue, as the JAX package's does.
+:func:`open_capture` is the one seam for frames: it gives a
+:class:`Cv2Capture` (cv2 where it is installed), and a caller may replace
+it, as a module attribute, with any source that has ``seek``, ``read``,
+``release``, ``fps``, ``width``, ``height`` and ``frame_count`` and whose
+``read`` returns a frame the caller may keep.  Every reader of frames looks
+it up at call time: ``VideoReader`` here, and the VOD path's cv2 and window
+routes; so the pixels-only path needs no cv2 of its own.
+``PrefetchingReader`` decodes on a background thread into a bounded queue,
+as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+
+
+class Cv2Capture:
+    """Frames of a video file through ``cv2.VideoCapture``: ``seek(index)``,
+    ``read() -> (ok, BGR frame)``, ``release()``, and the stream's ``fps``,
+    ``width``, ``height`` and ``frame_count`` (not positive when the file
+    does not open)."""
+
+    def __init__(self, path):
+        import cv2
+
+        self._cv2 = cv2
+        self._cap = cv2.VideoCapture(path)
+        self.fps = self._cap.get(cv2.CAP_PROP_FPS)
+        self.width = int(self._cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+        self.height = int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        self.frame_count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
+
+    def seek(self, index):
+        self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, index)
+
+    def read(self):
+        return self._cap.read()
+
+    def release(self):
+        self._cap.release()
+
+
+def open_capture(path):
+    """The frame source of ``path``: a :class:`Cv2Capture`."""
+    return Cv2Capture(path)
 
 
 class VideoReader:
@@ -24,10 +58,8 @@ class VideoReader:
     MAX_FORWARD_DECODE = 64
 
     def __init__(self, path):
-        from playaid_core_torch.infer.vod_pipeline import BoundedSegmentDecoder
-
         self.path = path
-        self.cap = BoundedSegmentDecoder.open_capture(path)
+        self.cap = open_capture(path)
         self.fps = self.cap.fps
         self.width = int(self.cap.width)
         self.height = int(self.cap.height)

@@ -118,7 +118,7 @@ def test_embed_windows_on_channels_first_crops(family_pipe, monkeypatch):
 
 
 class _MemoryCapture:
-    """Frames from memory behind BoundedSegmentDecoder's capture seam."""
+    """Frames from memory behind the capture seam (video/reader.open_capture)."""
 
     def __init__(self, frames):
         self.frames, self.pos = frames, 0
@@ -141,14 +141,14 @@ def test_window_route_on_channels_first_crops(monkeypatch):
     on frames served from memory: the labels and confidences of its run on
     contiguous crops (test_torch_port_window holds that run to JAX's)."""
     from playaid_core_torch.infer import vod_pipeline
+    from playaid_core_torch.video import reader
 
     rng = np.random.default_rng(5)
     n = 40
     frames = [rng.integers(0, 256, (90, 160, 3), dtype=np.uint8) for _ in range(n)]
     boxes = np.tile(np.array([[0.3, 0.5, 0.2, 0.3], [0.7, 0.45, 0.25, 0.3]], np.float32),
                     (n, 1, 1))
-    monkeypatch.setattr(vod_pipeline.BoundedSegmentDecoder, "open_capture",
-                        staticmethod(lambda p: _MemoryCapture(frames)))
+    monkeypatch.setattr(reader, "open_capture", lambda p: _MemoryCapture(frames))
     port = BatchedActionPipeline(device="cpu", crop_size=32).init(seed=4)
     analyzer = vod_pipeline.VodAnalyzer(port, chunk=16, host_resize=False, window=64,
                                         padding=4, decode_workers=1)

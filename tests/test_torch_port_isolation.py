@@ -486,6 +486,32 @@ def test_no_source_names_a_banned_module():
         assert not _imported_roots(path) & set(BANNED), path
 
 
+def _imported_modules(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def test_video_and_parallel_import_nothing_of_infer():
+    """Imports point one way, video/ <- parallel/ <- infer/: no module under
+    video/ or parallel/ imports playaid_core_torch.infer, lazily or not.
+    The one exception is parallel/dryrun.py, which runs the whole system,
+    as its JAX counterpart does."""
+    package = ROOT / "playaid_core_torch"
+    allowed = package / "parallel" / "dryrun.py"
+    files = sorted((package / "video").rglob("*.py")) + sorted(allowed.parent.rglob("*.py"))
+    assert allowed in files
+    for path in files:
+        upward = {n for n in _imported_modules(path)
+                  if n == "playaid_core_torch.infer" or n.startswith("playaid_core_torch.infer.")}
+        assert path == allowed or not upward, (path, upward)
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a CUDA device (as here) the smoke exits non-zero and prints
     no result line."""

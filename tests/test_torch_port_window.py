@@ -23,13 +23,10 @@ from playaid_core_tpu.infer.vod_pipeline import extract_windows as jax_extract_w
 from playaid_core_tpu.ops.preprocess import batched_window_resize as jax_window_resize  # noqa: E402
 from playaid_core_torch.convert import load_npz_tree  # noqa: E402
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline  # noqa: E402
-from playaid_core_torch.infer.vod_pipeline import (  # noqa: E402
-    BoundedSegmentDecoder,
-    VodAnalyzer,
-    extract_windows,
-)
+from playaid_core_torch.infer.vod_pipeline import VodAnalyzer, extract_windows  # noqa: E402
 from playaid_core_torch.ops.crop_kernel import window_resize  # noqa: E402
 from playaid_core_torch.ops.preprocess import batched_window_resize  # noqa: E402
+from playaid_core_torch.video import reader  # noqa: E402
 from tests.test_torch_port_vod import BOX_PX, HEIGHT, NUM_FRAMES, WIDTH, _disc_frames  # noqa: E402
 
 torch.set_num_threads(2)
@@ -146,7 +143,7 @@ def test_window_route_matches_jax(clip, tree, port, decode):
 
 
 class _MemoryCapture:
-    """Frames from memory behind BoundedSegmentDecoder's capture seam."""
+    """Frames from memory behind the capture seam (video/reader.open_capture)."""
 
     def __init__(self, frames):
         self.frames = frames
@@ -174,8 +171,7 @@ def test_capture_seam_serves_the_window_route(clip, port, monkeypatch):
     cap.release()
     analyzer = VodAnalyzer(port, chunk=CHUNK, host_resize=False, decode_workers=3)
     from_file = analyzer.analyze(path, boxes)
-    monkeypatch.setattr(BoundedSegmentDecoder, "open_capture",
-                        staticmethod(lambda p: _MemoryCapture(frames)))
+    monkeypatch.setattr(reader, "open_capture", lambda p: _MemoryCapture(frames))
     from_memory = analyzer.analyze("not-a-file.mp4", boxes)
     assert from_memory["labels"].tolist() == from_file["labels"].tolist()
     np.testing.assert_array_equal(from_memory["confidences"], from_file["confidences"])

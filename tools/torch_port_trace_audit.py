@@ -65,7 +65,9 @@ from playaid_core_torch.convert import load_npz_tree  # noqa: E402
 from playaid_core_torch.infer import vod_pipeline  # noqa: E402
 from playaid_core_torch.infer.pipeline import BatchedActionPipeline  # noqa: E402
 from playaid_core_torch.ops import _build  # noqa: E402
+from playaid_core_torch.parallel.staging import PinnedStager  # noqa: E402
 from playaid_core_torch.train.detector_train import DetectorTrainer  # noqa: E402
+from playaid_core_torch.video import reader  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "smoke")
 
@@ -76,8 +78,7 @@ def window(runs):
     log_path = os.path.join(WORK, "match_log.txt")
     chip_smoke.write_match_log(log_path, chip_smoke.NUM_FRAMES)
     boxes = vod_pipeline.boxes_from_log(log_path, parser="python")
-    vod_pipeline.BoundedSegmentDecoder.open_capture = staticmethod(
-        lambda path: chip_smoke.LogClipCapture(boxes))
+    reader.open_capture = lambda path: chip_smoke.LogClipCapture(boxes)
     chunk, win = chip_smoke.CHUNK, chip_smoke.WINDOW
     analyzer = vod_pipeline.VodAnalyzer(
         BatchedActionPipeline(device="cuda"), variables=load_npz_tree(chip_smoke.ASSET),
@@ -85,7 +86,7 @@ def window(runs):
     analyzer.analyze("log_clip.mp4", boxes)
     num_chunks = (chip_smoke.NUM_FRAMES + chunk - 1) // chunk
     win_bytes, org_bytes = chunk * 2 * win * win * 3, chunk * 2 * 3 * 4
-    to_device = vod_pipeline.PinnedStager.to_device
+    to_device = PinnedStager.to_device
     trace = os.path.join(WORK, "trace_audit.json")
     short = []
     for run in range(runs):
@@ -95,14 +96,14 @@ def window(runs):
             staged.append(sum(a.nbytes for a in arrays))
             return to_device(stager, *arrays)
 
-        vod_pipeline.PinnedStager.to_device = counted
+        PinnedStager.to_device = counted
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 analyzer.analyze("log_clip.mp4", boxes)
                 wall_ms = (time.perf_counter() - t0) * 1e3
         finally:
-            vod_pipeline.PinnedStager.to_device = to_device
+            PinnedStager.to_device = to_device
         prof.export_chrome_trace(trace)
         audit = chip_smoke.trace_copy_audit(trace, "crop_resize")
         wins = sum(1 for b, _ in audit["h2d"] if b == win_bytes)
