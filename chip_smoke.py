@@ -11,7 +11,8 @@ trajectories.
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a:
-   K1 crop_resize, K2 residual_block, K3 viterbi, K4 yuv420_unpack and
+   K1 crop_resize, K2 residual_block, K3 viterbi, K4 yuv420_unpack, K5
+   conv1x1_gemm and
    K3's chain floor, one nvcc each, all at once) and, at the same time,
    the native log parser (native/log_parser.cpp) with g++, which links no
    FFmpeg library;
@@ -26,7 +27,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    inputs: its launch (launch_shape), held against its plain version, its
    channels-first output equal to its NHWC one, its device ms (both
    outputs) beside the cuDNN chain's and its bound, and every launch's
-   call ms (k2_launch_sweep) beside the rule's;
+   call ms (k2_launch_sweep) beside the rule's; (c) K5, the 1x1 kernel
+   (csrc/conv1x1_gemm.cu), at every 1x1 shape of ResNet-50 at 128 px and
+   batches 48, 24 and 7, random batch norm: held against its plain version
+   and cuDNN's unfolded chain (max abs err over max|ref|, K5_TOL), its
+   device ms beside the cuDNN chain's (TF32 off) and its bound, every
+   launch's call ms beside the rule's; the ResNet-50 trunk at a 48-crop
+   chunk with K5 and on cuDNN (call ms, device ms by kind of kernel); the
+   embed's k5_convs (36 a ResNet-50
+   call, 0 a ResNet-18 one), a replay against the eager call, and the
+   replayed embed against the cuDNN chain's (python3 chip_smoke.py --k5
+   runs phase 1's build and this alone);
 4. the device slice from pinned frames, with PyTorch's default TF32 flags
    (the entry points set their own float32 numerics): per chunk upload ->
    preprocess_frames (K1) -> embed_crops (ResNet-18, its five identity blocks through K2)
@@ -67,7 +78,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. the ResFormer (ResNet-50 + 3 transformer layers) and RNN (ResNet-18 +
    3-layer LSTM) families at full width with seeded random weights through
    the same analyzer, against the CPU on the first 96 frames; the same
-   graph check as phase 6 for each;
+   graph check as phase 6 for each (with K5's 36 kernels a ResFormer
+   replay);
 8. the log path: a scripted ult_logger log of 480 frames (written here,
    with json) -> boxes_from_log through the native parser built in phase 1
    -> VodAnalyzer(host_resize=False), stride 1, chunk 48: 1080p frames from
@@ -1104,6 +1116,344 @@ def k2_route_shapes(torch, dev):
     return rows
 
 
+# ---- K5: ResNet-50's 1x1 convolutions (csrc/conv1x1_gemm.cu) ----
+
+K5_BATCHES = (48, 24, 7)  # a VOD chunk, a mesh replica's half of one, a dashboard sample
+K5_TOL = 1e-4             # of max|ref|: K2's float32 rule for 3xTF32 products
+K5_CONVS = 36             # 1x1 convolutions a ResNet-50 call runs on K5
+K5_KERNEL = "conv1x1_gemm_kernel"
+
+
+def k5_shapes():
+    """Each 1x1 convolution the port runs on K5 in ResNet-50 (the ResFormer
+    family) at CROP px once: (c_in, c_out, stride, side in, epilogue), the
+    epilogue "relu" (conv1), "residual" (conv3: the block's residual, then
+    the ReLU) or "none" (the projection), from portbench/k5.py."""
+    from portbench import k5
+    from portbench.catalog import Catalog
+
+    shapes = []
+    for conv in k5.k5_convs(Catalog().family("resformer"), CROP):
+        if conv not in shapes:
+            shapes.append(conv)
+    return shapes
+
+
+def k5_inputs(torch, dev, shape, batch, seed=0):
+    """A 1x1 conv of ``shape`` (k5_shapes) with random weights and a random
+    eval batch norm (scales, biases, running means and variances), drawn on
+    ``dev`` from ``seed``; its input as a ReLU's output and, for
+    "residual", a residual.  Returns (conv, bn, pack, x, residual)."""
+    from playaid_core_torch.models.resnet import BatchNorm2d, fold_batch_norm
+    from playaid_core_torch.ops.conv1x1 import pack_conv1x1
+
+    c_in, c_out, stride, side, epilogue = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    conv = torch.nn.Conv2d(c_in, c_out, 1, stride, bias=False).to(dev)
+    bn = BatchNorm2d(c_out).to(dev).eval()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device=dev)
+                          * (2 / c_in) ** 0.5)
+        bn.weight.copy_(torch.rand(c_out, generator=g, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn(c_out, generator=g, device=dev) * 0.1)
+        bn.running_mean.copy_(torch.randn(c_out, generator=g, device=dev) * 0.2)
+        bn.running_var.copy_(torch.rand(c_out, generator=g, device=dev) + 0.5)
+    x = torch.relu(torch.randn((batch, c_in, side, side), generator=g, device=dev))
+    s_out = (side - 1) // stride + 1
+    res = None
+    if epilogue == "residual":
+        res = torch.relu(torch.randn((batch, c_out, s_out, s_out), generator=g, device=dev))
+    return conv, bn, pack_conv1x1(conv.weight, *fold_batch_norm(bn)), x, res
+
+
+def k5_cudnn_chain(torch, conv, bn, x, res, relu):
+    """The convolution as the model ran it on cuDNN: conv -> bn -> (add) ->
+    (relu)."""
+    import torch.nn.functional as F
+
+    y = F.batch_norm(conv(x), bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
+                     bn.eps)
+    if res is not None:
+        y = y + res
+    return torch.relu(y) if relu else y
+
+
+def k5_launch_sweep(torch, x, pack, stride, res, relu):
+    """Every launch K5 takes (tile rows, tile channels, depth split) on x
+    and its pack: mean ms a call by CUDA events over back-to-back calls,
+    keyed "rowsxchannelsxsplit"."""
+    from playaid_core_torch.ops import _build
+    from playaid_core_torch.ops.conv1x1 import SLICE_CHANNELS, SPLITS, TILES, _library
+
+    b, c_in, h, w = x.shape
+    c_out = pack.w.shape[1]
+    out = torch.empty((b, c_out, (h - 1) // stride + 1, (w - 1) // stride + 1), device=x.device)
+    ptrs = [t.data_ptr() for t in (x, pack.w, pack.scale, pack.bias)]
+    rp = None if res is None else res.data_ptr()
+    fn, stream = _library(), _build.current_stream(x.device)
+    times = {}
+    for bm, bn in TILES:
+        for split in SPLITS:
+            if c_out % bn or (split > 1 and c_in // SLICE_CHANNELS < 2 * split):
+                continue
+
+            def call(_):
+                _build.check(fn(*ptrs, rp, out.data_ptr(), b, h, w, c_in, c_out, stride, bm, bn,
+                                split, int(relu), stream), "conv1x1")
+
+            times[f"{bm}x{bn}x{split}"] = time_cuda(torch, call, 20)
+    return times
+
+
+def k5_route_shapes(torch, dev):
+    """K5 at every 1x1 shape of ResNet-50 (k5_shapes) at each batch of
+    K5_BATCHES, random batch norm: its launch (launch_shape), held against
+    its plain version (conv1x1_ref on the original weights and the folded
+    batch norm) and against cuDNN's unfolded chain; device ms beside the
+    cuDNN chain's (TF32 off) and the least time the card could take (3xTF32
+    operations at the TF32 peak, or the bytes, the larger); call ms; every
+    launch's call ms."""
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.conv1x1 import conv1x1_packed, conv1x1_ref, launch_shape
+    from portbench.k5 import conv1x1_counts
+
+    rows = []
+    for shape in k5_shapes():
+        c_in, c_out, stride, side, epilogue = shape
+        relu = epilogue != "none"
+        for batch in K5_BATCHES:
+            with torch.inference_mode():
+                conv, bn, pack, x, res = k5_inputs(torch, dev, shape, batch)
+                out = conv1x1_packed(x, pack, stride, res, relu)
+                with full_float32():
+                    ref = conv1x1_ref(x, conv.weight, pack.scale, pack.bias, stride, res, relu)
+                    chain = k5_cudnn_chain(torch, conv, bn, x, res, relu)
+                scale = float(ref.abs().max())
+                err = float((out - ref).abs().max()) / scale
+                err_chain = float((out - chain).abs().max()) / scale
+                dev_ms, _ = device_ms(torch, lambda _: conv1x1_packed(x, pack, stride, res, relu),
+                                      20, K5_KERNEL, 1)
+                ms = time_cuda(torch, lambda _: conv1x1_packed(x, pack, stride, res, relu), 20)
+                with full_float32():
+                    plain_ms = time_cuda(torch, lambda _: conv1x1_ref(
+                        x, conv.weight, pack.scale, pack.bias, stride, res, relu), 20)
+                sweep = k5_launch_sweep(torch, x, pack, stride, res, relu)
+                with full_float32():
+                    lib_ms, lib_kernels = span_device_ms(
+                        torch, lambda _: k5_cudnn_chain(torch, conv, bn, x, res, relu), 10)
+            s_out = (side - 1) // stride + 1
+            launch = launch_shape(batch * s_out * s_out, c_out, c_in)
+            fastest = min(sweep, key=sweep.get)
+            flops, nbytes = conv1x1_counts(batch, c_in, c_out, stride, side, epilogue)
+            bound_ms = max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+            rows.append({"shape": [batch, c_in, c_out, stride, side], "epilogue": epilogue,
+                         "launch": list(launch), "rel_err": err,
+                         "cudnn_chain_rel_err": err_chain, "device_ms": dev_ms, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": lib_ms,
+                         "library_kernels": lib_kernels, "launches": sweep})
+            fmt = (lambda v: "not measured" if v is None else f"{v:.4f}")
+            log(f"K5 at B={batch} {c_in}->{c_out} stride {stride} side {side} ({epilogue}): "
+                f"launch {launch}, max abs err / max|ref| {err:.3e} (against cuDNN's unfolded "
+                f"chain {err_chain:.3e}); device {fmt(dev_ms)} ms, call {ms:.4f} ms, plain "
+                f"version {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms, cuDNN chain {fmt(lib_ms)} ms ({lib_kernels} kernels); every "
+                f"launch's call ms {json.dumps({k: round(v, 4) for k, v in sweep.items()})}, "
+                f"fastest {fastest} "
+                f"({sweep['x'.join(map(str, launch))] / sweep[fastest] - 1:+.1%} for the rule's)")
+    return rows
+
+
+@contextlib.contextmanager
+def cudnn_bottlenecks():
+    """Every Bottleneck runs as before K5: its 1x1 convolutions, batch norms,
+    ReLUs and residual add on cuDNN and PyTorch's kernels (the yardstick)."""
+    from playaid_core_torch.models.resnet import Bottleneck
+
+    fused = Bottleneck.forward
+
+    def unfused(self, x):
+        import torch
+
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(residual + y)
+
+    Bottleneck.forward = unfused
+    try:
+        yield
+    finally:
+        Bottleneck.forward = fused
+
+
+def kernel_buckets(path):
+    """Device ms of an exported chrome trace's kernels by kind: K5, cuDNN's
+    and PyTorch's batch norm, elementwise (ReLU, add), the convolutions and
+    everything else."""
+    buckets = {"k5": 0.0, "batch_norm": 0.0, "elementwise": 0.0, "conv": 0.0, "other": 0.0}
+    for name, cat, _, dur, _ in trace_device_events(path):
+        if cat != "kernel":
+            continue
+        low = name.lower()
+        kind = ("k5" if K5_KERNEL in name else
+                "batch_norm" if "bn_fw" in low or "batch_norm" in low else
+                "elementwise" if "elementwise" in low else
+                "conv" if any(k in low for k in ("conv", "gemm", "fft", "xmma", "sgemm"))
+                else "other")
+        buckets[kind] += dur / 1e3
+    return buckets
+
+
+def k5_trunk(torch, dev, check):
+    """ResNet-50 at a 48-crop chunk of 128 px (seeded weights, random batch
+    norm), eager: K5 against the cuDNN chain (cudnn_bottlenecks); call ms
+    by CUDA events, device ms by kind in one profiled call, and the outputs
+    against each other."""
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.models.resnet import BatchNorm2d, init_flax_, make_resnet
+
+    torch.manual_seed(FAMILY_SEED)
+    net = init_flax_(make_resnet("resnet50", num_classes=0))
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.2)
+                m.running_var.uniform_(0.5, 1.5)
+    net = net.to(dev).eval()
+    x = torch.rand((CHUNK, 3, CROP, CROP), generator=torch.Generator(device=dev).manual_seed(1),
+                   device=dev)
+    out, res = {}, {}
+    trace = os.path.join(ROOT, "build", "smoke", "k5_trunk_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    for route in ("k5", "cudnn"):
+        with (cudnn_bottlenecks() if route == "cudnn" else contextlib.nullcontext()):
+            with torch.inference_mode(), full_float32():
+                out[route] = net(x)
+                ms = time_cuda(torch, lambda _: net(x), 10)
+                with profiled(torch) as prof:
+                    net(x)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(trace)
+                res[route] = {"ms": ms, "device_ms": kernel_buckets(trace)}
+        kinds = {k: round(v, 4) for k, v in res[route]["device_ms"].items()}
+        log(f"K5 trunk: ResNet-50 at {tuple(x.shape)} {route}: call {ms:.3f} ms; device ms by "
+            f"kind {json.dumps(kinds)}")
+    scale = float(out["cudnn"].abs().max())
+    err = float((out["k5"] - out["cudnn"]).abs().max()) / scale
+    check(err <= EMBED_REL_TOL,
+          f"phase 3 (c): ResNet-50 features at a 48-crop chunk, K5 against cuDNN: max abs err "
+          f"/ max|ref| {err:.3e} (tol {EMBED_REL_TOL})")
+    res["rel_err"] = err
+    return res
+
+
+def k5_embed_check(torch, dev, check):
+    """The VOD path's embed of a 48-crop chunk (embed_crops_yuv) on the
+    ResFormer (ResNet-50) and the CNN (ResNet-18) families: k5_convs on each
+    playaid.embed span (K5_CONVS, and 0), a replay against the eager call,
+    and the replayed embed's device ms a chunk beside the cuDNN chain's."""
+    from playaid_core_torch import profiling
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from playaid_core_torch.ops.conv1x1 import conv1x1_packed
+
+    gen = torch.Generator().manual_seed(3)
+    crops = torch.randint(0, 256, (CHUNK, CROP * CROP * 3 // 2), dtype=torch.uint8,
+                          generator=gen).to(dev)
+    res = {}
+    for family, convs in (("resformer", K5_CONVS), ("cnn", 0)):
+        pipe = BatchedActionPipeline(family=family, device=dev).init(FAMILY_SEED)
+        with torch.inference_mode():
+            want = pipe._embed_yuv(crops)
+        before = conv1x1_packed.launches
+        with profiling.recording() as rec:
+            outs = []
+            for _ in range(4):
+                with profiling.span("playaid.embed"):
+                    outs.append(pipe.embed_crops_yuv(crops))
+        counts = [s.counts.get("k5_convs", 0) for s in rec.spans if s.name == "playaid.embed"]
+        replays = rec.summary()["playaid.embed"].get("graph_replays", 0)
+        launched = conv1x1_packed.launches - before
+        same = all(torch.equal(o, want) for o in outs)
+        check(counts == [convs] * 4 and launched == 4 * convs and replays == 2 and same,
+              f"phase 3 (c): {family}: k5_convs on 4 playaid.embed spans {counts} (want "
+              f"{convs} each), K5 launches counted {launched}, graph replays {replays} (want "
+              f"2), every call equal to the eager call bit for bit: {same}")
+        if family == "resformer":
+            ms = time_cuda(torch, lambda _: pipe.embed_crops_yuv(crops), 20)
+            with cudnn_bottlenecks():
+                plain = BatchedActionPipeline(family=family, device=dev).init(FAMILY_SEED)
+                for _ in range(3):
+                    plain.embed_crops_yuv(crops)
+                cudnn_ms = time_cuda(torch, lambda _: plain.embed_crops_yuv(crops), 20)
+                with torch.inference_mode():
+                    plain_out = plain._embed_yuv(crops)
+            rel = float((want - plain_out).abs().max() / plain_out.abs().max())
+            check(rel <= EMBED_REL_TOL,
+                  f"phase 3 (c): resformer: the embed with K5 against the cuDNN chain's, max "
+                  f"abs err / max|ref| {rel:.3e} (tol {EMBED_REL_TOL}); a replayed 48-crop "
+                  f"chunk {ms:.3f} ms ({ms / CHUNK * 1e3:.1f} us a crop) against "
+                  f"{cudnn_ms:.3f} ms ({cudnn_ms / CHUNK * 1e3:.1f} us a crop) on cuDNN")
+            res = {"embed_ms": ms, "cudnn_embed_ms": cudnn_ms, "embed_rel_err": rel}
+    return res
+
+
+def run_k5_phase(torch, dev, check):
+    """Phase 3 (c): K5 at every ResNet-50 1x1 shape, the trunk, the embed's
+    count and replay.  Returns K5's summary, which it also writes to
+    build/smoke/k5_smoke.json."""
+    rows = k5_route_shapes(torch, dev)
+    for row in rows:
+        check(max(row["rel_err"], row["cudnn_chain_rel_err"]) <= K5_TOL,
+              f"phase 3 (c): K5 at {row['shape']} ({row['epilogue']}), launch "
+              f"{tuple(row['launch'])}: max abs err / max|ref| {row['rel_err']:.3e}, against "
+              f"cuDNN's unfolded chain {row['cudnn_chain_rel_err']:.3e} (tol {K5_TOL})")
+    trunk = k5_trunk(torch, dev, check)
+    embed = k5_embed_check(torch, dev, check)
+    k5 = {"name": "K5 conv1x1_gemm", "source": "playaid_core_torch/csrc/conv1x1_gemm.cu",
+          "replaces": None, "route_shapes": rows, "trunk": trunk, **embed}
+    path = os.path.join(ROOT, "build", "smoke", "k5_smoke.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(k5, f)
+    return k5
+
+
+def k5_main():
+    """``python3 chip_smoke.py --k5``: phase 1's kernel build and phase 3
+    (c) alone; prints the card's line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from playaid_core_torch.ops import _build
+
+    failures = []
+
+    def check(ok, what):
+        log(f"{'ok  ' if ok else 'FAIL'} {what}")
+        if not ok:
+            failures.append(what)
+
+    card = nvidia_smi_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("built in", "entry function", "registers", "spill")):
+                log(f"  {name}: {line.strip()}")
+    run_k5_phase(torch, torch.device("cuda", 0), check)
+    print(card, flush=True)
+    if failures:
+        print(f"chip_smoke --k5: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "k5_checks": "passed"}))
+    return 0
+
+
 def bf16_ulps(out, ref):
     """Largest |out - ref| in bf16 ulps of max(|ref|, max|ref| / 64)."""
     mag = np.maximum(np.abs(ref), np.abs(ref).max() / 64)
@@ -1155,31 +1505,35 @@ K2_KERNELS = 2   # kernels a K2 call launches: its two convolutions
 
 def graph_kernels(path):
     """What an exported chrome trace says of CUDA graph launches: how many
-    cudaGraphLaunch calls, and the K2 and K4 kernels that carry the
+    cudaGraphLaunch calls, and the K2, K4 and K5 kernels that carry the
     correlation id of one of them or of any other call."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     graph = {e.get("args", {}).get("correlation") for e in events
              if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaGraphLaunch"}
-    found = {"launches": len(graph), "k2": 0, "k4": 0, "k2_other": 0, "k4_other": 0}
+    found = {"launches": len(graph), "k2": 0, "k4": 0, "k5": 0, "k2_other": 0, "k4_other": 0,
+             "k5_other": 0}
     for e in events:
         name = e.get("name", "")
         kind = ("k2" if "conv3x3_wgmma_kernel" in name else
-                "k4" if "yuv420_unpack_kernel" in name else None)
+                "k4" if "yuv420_unpack_kernel" in name else
+                "k5" if K5_KERNEL in name else None)
         if e.get("cat") == "kernel" and kind:
             under = e.get("args", {}).get("correlation") in graph
             found[kind if under else kind + "_other"] += 1
     return found
 
 
-def graph_replay_check(torch, check, phase, pipe, crops, blocks):
+def graph_replay_check(torch, check, phase, pipe, crops, blocks, convs=0):
     """embed_crops_yuv's CUDA graph at the shape of crops: GRAPH_CALLS
     replays under the profiler, each equal bit for bit to the eager call,
-    and what they count (graph_replays, k2_blocks, the wrappers' launches:
-    the capture's tally, re-added at each replay) held against the K2 and
-    K4 kernels that the trace shows under the graph's launches: a K2 call
-    (one block, one count) is K2_KERNELS kernels."""
+    and what they count (graph_replays, k2_blocks, k5_convs, the wrappers'
+    launches: the capture's tally, re-added at each replay) held against
+    the K2, K4 and K5 kernels that the trace shows under the graph's
+    launches: a K2 call (one block, one count) is K2_KERNELS kernels, a K5
+    call (one 1x1 convolution) one."""
     from playaid_core_torch import profiling
+    from playaid_core_torch.ops.conv1x1 import conv1x1_packed
     from playaid_core_torch.ops.conv_block import residual_block_packed
     from playaid_core_torch.ops.yuv import yuv420_to_rgb
 
@@ -1187,7 +1541,7 @@ def graph_replay_check(torch, check, phase, pipe, crops, blocks):
         want = pipe._embed_yuv(crops)
     for _ in range(2):  # the shape twice in a row: held, or captured now
         pipe.embed_crops_yuv(crops)
-    before = (yuv420_to_rgb.launches, residual_block_packed.launches)
+    before = (yuv420_to_rgb.launches, residual_block_packed.launches, conv1x1_packed.launches)
     trace = os.path.join(ROOT, "build", "smoke", f"graph_trace_{phase.replace(' ', '_')}.json")
     with profiled(torch) as prof, profiling.recording() as rec:
         outs = []
@@ -1196,22 +1550,25 @@ def graph_replay_check(torch, check, phase, pipe, crops, blocks):
                 outs.append(pipe.embed_crops_yuv(crops))
         torch.cuda.synchronize()
     prof.export_chrome_trace(trace)
-    counted = {"graph_replays": rec.summary()["playaid.embed"].get("graph_replays", 0),
-               "k2_blocks": rec.summary()["playaid.embed"].get("k2_blocks", 0),
+    summary = rec.summary()["playaid.embed"]
+    counted = {"graph_replays": summary.get("graph_replays", 0),
+               "k2_blocks": summary.get("k2_blocks", 0),
+               "k5_convs": summary.get("k5_convs", 0),
                "k4_launches": yuv420_to_rgb.launches - before[0],
-               "k2_launches": residual_block_packed.launches - before[1]}
+               "k2_launches": residual_block_packed.launches - before[1],
+               "k5_launches": conv1x1_packed.launches - before[2]}
     traced = graph_kernels(trace)
     n = GRAPH_CALLS
     same = all(torch.equal(out, want) for out in outs)
     check(same, f"{phase}: {n} replays of embed_crops_yuv's graph at {tuple(crops.shape)} "
           f"equal to the eager call bit for bit")
-    check(counted == {"graph_replays": n, "k2_blocks": blocks * n, "k4_launches": n,
-                      "k2_launches": blocks * n}
-          and traced == {"launches": n, "k2": K2_KERNELS * blocks * n, "k4": n, "k2_other": 0,
-                         "k4_other": 0},
-          f"{phase}: the replays counted {counted}; their trace shows {traced} (K2, K4 "
+    check(counted == {"graph_replays": n, "k2_blocks": blocks * n, "k5_convs": convs * n,
+                      "k4_launches": n, "k2_launches": blocks * n, "k5_launches": convs * n}
+          and traced == {"launches": n, "k2": K2_KERNELS * blocks * n, "k4": n,
+                         "k5": convs * n, "k2_other": 0, "k4_other": 0, "k5_other": 0},
+          f"{phase}: the replays counted {counted}; their trace shows {traced} (K2, K4, K5 "
           f"kernels under a cudaGraphLaunch's correlation id, and under any other call); "
-          f"{blocks} K2 calls of {K2_KERNELS} kernels and 1 K4 a replay")
+          f"{blocks} K2 calls of {K2_KERNELS} kernels, {convs} K5 calls and 1 K4 a replay")
 
 
 def run_vod_phase(torch, dev, check, boxes_all, stand_in, wrappers):
@@ -1388,11 +1745,13 @@ def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
             res = analyzer.analyze(clip, boxes_all)
         k2 = k2_wrapper.launches
         embeds = rec.summary()["playaid.embed"]
+        convs = K5_CONVS if family == "resformer" else 0
         check(embeds.get("k2_blocks", 0) == (K2_BLOCKS if family == "rnn" else 0) * embeds["count"]
-              == k2,
-              f"phase 7: {family}: k2_blocks {embeds.get('k2_blocks', 0)} over "
-              f"{embeds['count']} playaid.embed spans (ResNet-18: {K2_BLOCKS} a span; ResNet-50: "
-              f"none), K2 launches {k2}")
+              == k2 and embeds.get("k5_convs", 0) == convs * embeds["count"],
+              f"phase 7: {family}: k2_blocks {embeds.get('k2_blocks', 0)} and k5_convs "
+              f"{embeds.get('k5_convs', 0)} over {embeds['count']} playaid.embed spans "
+              f"(ResNet-18: {K2_BLOCKS} K2 blocks a span; ResNet-50: {K5_CONVS} K5 "
+              f"convolutions), K2 launches {k2}")
         check(res["labels"].shape == (NUM_FRAMES, 2) and 0 <= res["labels"].min()
               and res["labels"].max() < 63 and np.isfinite(res["confidences"]).all(),
               f"phase 7: {family}: {NUM_FRAMES} frames in {res['seconds'] * 1e3:.1f} ms = "
@@ -1402,7 +1761,7 @@ def run_family_phase(torch, dev, check, boxes_all, stand_in, k2_wrapper):
             check(k2 > 0, "phase 7: rnn: K2 (residual_block) ran during VodAnalyzer.analyze")
         graph_replay_check(torch, check, f"phase 7: {family}", pipe,
                            flat[:CHUNK // STRIDE * 2].to(dev),
-                           K2_BLOCKS if family == "rnn" else 0)
+                           K2_BLOCKS if family == "rnn" else 0, convs)
         emb_card = pipe.embed_crops_yuv(flat.to(dev)).cpu()
         emb_cpu = cpu_pipe.embed_crops_yuv(flat)
         rel = float((emb_card - emb_cpu).abs().max() / emb_cpu.abs().max())
@@ -4881,6 +5240,8 @@ def main():
         return sprites_main()
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank_main(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--k5"]:
+        return k5_main()
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
@@ -5075,6 +5436,9 @@ def main():
               f"phase 3 (b): K2 at {tuple(row['shape'])}, launch {tuple(row['launch'])}: max "
               f"abs err / max|ref| {row['rel_err']:.3e} (tol {K2_F32_REL_TOL}); its "
               f"channels-first output equal and channels first {row['channels_first_equal']}")
+
+    # ---- phase 3 (c): K5 at every 1x1 shape of ResNet-50, its trunk, its count ----
+    k5 = run_k5_phase(torch, dev, check)
 
     # ---- phase 4: the slice ----
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
@@ -5627,6 +5991,7 @@ def main():
     # (ground-truth crops are square_crop on the host).
     kernels[0]["gt_launches"] = k1_gt_launches
     kernels[1].update({f"gt_{k[3:]}": v for k, v in gt.items() if k.startswith("k2_")})
+    kernels.append(k5)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -33,8 +33,8 @@ cache's lock: several analyzers' dispatch threads may share a pipeline.
 A device's graphs share its pool, so a replay on another stream than the
 device's last one waits first for that one's clone (one event a device).
 It adds the counts the capture made (``profiling.tally``: ``k2_blocks``,
-the wrappers' ``.launches``) and ``graph_replays`` 1 to the innermost open
-span; a capture itself counts nothing.
+``k5_convs``, the wrappers' ``.launches``) and ``graph_replays`` 1 to the
+innermost open span; a capture itself counts nothing.
 """
 
 from __future__ import annotations

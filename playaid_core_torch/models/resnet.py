@@ -21,8 +21,16 @@ once, passes it on from block to block, and its last block writes its
 output channels first, as cuDNN takes it.  Each block packs its
 weights and folded batch norm for the kernel once and keeps the pack until
 a tensor it was built from changes.  In training mode, or on the CPU,
-every block runs unfused.  ResNet-50 has no BasicBlock and runs on cuDNN
-throughout.
+every block runs unfused.
+
+ResNet-50 has no BasicBlock.  At inference on a CUDA float32 tensor each
+of its Bottleneck blocks runs its three 1x1 convolutions (``conv1``,
+``conv3`` and the ``downsample`` projection) on the 1x1 kernel of
+``ops/conv1x1.py``, with batch norm folded from its running statistics and
+the ReLU and the residual in the kernel's epilogue; its 3x3 ``conv2``, the
+stem and the pool stay on cuDNN, NCHW throughout.  A Bottleneck keeps its
+pack as a fused BasicBlock does.  In training mode, on the CPU and for
+other types it runs unfused.
 
 Training follows Flax: batch norm (:class:`BatchNorm2d`) normalises with
 the biased batch variance and moves its running statistics by momentum 0.9
@@ -35,12 +43,14 @@ runs in training mode.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from playaid_core_torch import profiling
+from playaid_core_torch.ops.conv1x1 import Conv1x1Pack, conv1x1_packed, pack_conv1x1
 from playaid_core_torch.ops.conv_block import pack_block, residual_block_packed
 from playaid_core_torch.parallel.mesh import data_batch_norm
 
@@ -95,7 +105,38 @@ def fold_batch_norm(bn: nn.BatchNorm2d):
     return scale, bn.bias - bn.running_mean * scale
 
 
-class BasicBlock(nn.Module):
+class PackedBlock(nn.Module):
+    """A block that keeps a kernel pack of its weights and folded batch norm.
+
+    :meth:`kept_pack` builds it at the first call and keeps it while every
+    tensor it reads (``_pack_sources``) is the same tensor at the same
+    version: ``load_state_dict``, an in-place edit, a move to another device
+    and the running statistics of a training step all change a version or a
+    pointer and force a rebuild, and ``train()`` drops it.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self._pack = None  # (key, pack) of the last fused call
+
+    def _pack_sources(self):
+        raise NotImplementedError
+
+    def kept_pack(self, build, *key):
+        """The pack ``build()`` made for ``key`` and the current sources,
+        built anew (without autograd) when either changed."""
+        key += tuple((t.data_ptr(), t.device, t._version) for t in self._pack_sources())
+        if self._pack is None or self._pack[0] != key:
+            with torch.no_grad():
+                self._pack = (key, build())
+        return self._pack[1]
+
+    def train(self, mode=True):
+        self._pack = None
+        return super().train(mode)
+
+
+class BasicBlock(PackedBlock):
     """Two 3x3 convs with a residual; a 1x1 projection when the shape
     changes.  ``fused=True`` routes inference on CUDA through the fused
     kernel (identity blocks only).  A fused block hands its output on
@@ -118,7 +159,6 @@ class BasicBlock(nn.Module):
             raise ValueError("the fused kernel computes identity blocks only")
         self.fused = fused
         self.channels_first_out = True
-        self._pack = None  # (key, BlockPack) of the last fused call
 
     def forward(self, x):
         if self.fused and x.is_cuda and not self.training:
@@ -134,28 +174,15 @@ class BasicBlock(nn.Module):
                 self.bn2.running_mean, self.bn2.running_var)
 
     def block_pack(self, dtype):
-        """The kernel's pack of this block for activations of ``dtype``.
+        """The kernel's pack of this block for activations of ``dtype``,
+        kept as :class:`PackedBlock` keeps it."""
 
-        Built at the first call and kept while every tensor it reads is the
-        same tensor at the same version: ``load_state_dict``, an in-place
-        edit, a move to another device and the running statistics of a
-        training step all change a version or a pointer and force a
-        rebuild, and so does ``train()``.
-        """
-        key = (dtype,) + tuple((t.data_ptr(), t.device, t._version)
-                               for t in self._pack_sources())
-        if self._pack is None or self._pack[0] != key:
-            with torch.no_grad():
-                s1, b1 = fold_batch_norm(self.bn1)
-                s2, b2 = fold_batch_norm(self.bn2)
-            pack = pack_block(self.conv1.weight.permute(2, 3, 1, 0), s1, b1,
-                              self.conv2.weight.permute(2, 3, 1, 0), s2, b2, dtype)
-            self._pack = (key, pack)
-        return self._pack[1]
+        def build():
+            return pack_block(self.conv1.weight.permute(2, 3, 1, 0), *fold_batch_norm(self.bn1),
+                              self.conv2.weight.permute(2, 3, 1, 0), *fold_batch_norm(self.bn2),
+                              dtype)
 
-    def train(self, mode=True):
-        self._pack = None
-        return super().train(mode)
+        return self.kept_pack(build, dtype)
 
     def _fused_forward(self, x):
         out = residual_block_packed(x.permute(0, 2, 3, 1), self.block_pack(x.dtype),
@@ -166,15 +193,28 @@ class BasicBlock(nn.Module):
 
 def block_packs(module):
     """``(block, pack)`` for each block of ``module`` that holds a kernel
-    pack now: what a CUDA graph captured from ``module`` reads besides its
-    parameters and buffers."""
+    pack now (a fused BasicBlock's or a Bottleneck's): what a CUDA graph
+    captured from ``module`` reads besides its parameters and buffers."""
     return [(m, m._pack) for m in module.modules()
-            if isinstance(m, BasicBlock) and m._pack is not None]
+            if isinstance(m, PackedBlock) and m._pack is not None]
 
 
-class Bottleneck(nn.Module):
+@dataclass(frozen=True)
+class BottleneckPack:
+    """A Bottleneck's 1x1 convolutions in the 1x1 kernel's layout, each with
+    its folded batch norm; ``downsample`` None for an identity block."""
+
+    conv1: Conv1x1Pack
+    conv3: Conv1x1Pack
+    downsample: Conv1x1Pack | None = None
+
+
+class Bottleneck(PackedBlock):
     """1x1 -> 3x3 (carrying the stride) -> 1x1 with 4x expansion, and a
-    residual; a 1x1 projection when the shape changes."""
+    residual; a 1x1 projection when the shape changes.  At inference on a
+    CUDA float32 tensor the three 1x1 convolutions run on the 1x1 kernel
+    (``ops/conv1x1.py``), batch norm folded, unless autograd would want a
+    gradient through the block: the kernel has none."""
 
     expansion = 4
 
@@ -195,11 +235,50 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x):
+        if self.runs_fused(x):
+            return self._fused_forward(x)
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(residual + y)
+
+    def runs_fused(self, x):
+        """Whether the block takes the 1x1 kernel for ``x``: a CUDA float32
+        tensor in eval mode, with no gradient wanted (grad mode off, or
+        neither ``x`` nor a parameter requires one)."""
+        return (x.is_cuda and not self.training and x.dtype == torch.float32
+                and not (torch.is_grad_enabled() and (
+                    x.requires_grad or any(p.requires_grad for p in self.parameters()))))
+
+    def _convs(self):
+        pairs = [(self.conv1, self.bn1), (self.conv3, self.bn3)]
+        return pairs + ([tuple(self.downsample)] if self.downsample is not None else [])
+
+    def _pack_sources(self):
+        return tuple(t for conv, bn in self._convs()
+                     for t in (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var))
+
+    def block_pack(self):
+        """The 1x1 kernel's pack of this block, kept as :class:`PackedBlock`
+        keeps it."""
+        return self.kept_pack(lambda: BottleneckPack(
+            *(pack_conv1x1(conv.weight, *fold_batch_norm(bn)) for conv, bn in self._convs())))
+
+    def _fused_forward(self, x):
+        """The block with its 1x1 convolutions on the kernel: the projection
+        (no ReLU), ``conv1`` with the ReLU, ``conv2`` -> ``bn2`` -> ReLU on
+        cuDNN, ``conv3`` with the residual and the last ReLU."""
+        pack = self.block_pack()
+        residual = x
+        if pack.downsample is not None:
+            residual = conv1x1_packed(x, pack.downsample, self.downsample[0].stride[0],
+                                      relu=False)
+        y = conv1x1_packed(x, pack.conv1)
+        y = torch.relu(self.bn2(self.conv2(y)))
+        out = conv1x1_packed(y, pack.conv3, residual=residual)
+        profiling.count("k5_convs", 2 if pack.downsample is None else 3)
+        return out
 
 
 class ResNet(nn.Module):
@@ -208,7 +287,9 @@ class ResNet(nn.Module):
     pooled features when ``num_classes=0``, or with ``return_feature_map``
     the stride-32 map ``[N, C, H/32, W/32]`` before the pool (the
     detector's trunk).  In a BasicBlock network every identity block (stride
-    1, ``in_planes == planes``) is a fused kernel's block."""
+    1, ``in_planes == planes``) is a fused kernel's block; in a Bottleneck
+    network every block runs its 1x1s on the 1x1 kernel at inference on a
+    CUDA float32 tensor."""
 
     def __init__(self, block, stage_sizes, num_classes=1000, return_feature_map=False):
         super().__init__()

@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("crop_resize", "residual_block", "viterbi", "yuv420_unpack")
+KERNELS = ("conv1x1_gemm", "crop_resize", "residual_block", "viterbi", "yuv420_unpack")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _launch_lock = threading.Lock()

@@ -13,7 +13,8 @@ The tests marked ``card`` run on a CUDA card (``PLAYAID_TEST_TPU=1 python
 -m pytest tests/test_torch_port_embed_graph.py -m card``: that variable
 keeps ``conftest.py`` from importing JAX, which the card's machine lacks)
 and skip elsewhere: a replay equals the eager call bit for bit for each
-family, follows new weights, keeps the launch counts, waits for another
+family, counts ``k2_blocks`` and ``k5_convs`` as the eager call does,
+follows new weights, keeps the launch counts, waits for another
 stream's replay, and two concurrent analyses through one pipeline label
 as two sequential ones.
 """
@@ -340,6 +341,8 @@ def test_card_replay_equals_the_eager_call(card, family):
     assert rec.summary()["playaid.embed"].get("graph_replays") == 2
     blocks = 5 if family != "resformer" else 0
     assert [s.counts.get("k2_blocks", 0) for s in rec.spans] == [blocks] * 4
+    convs = 36 if family == "resformer" else 0  # ResNet-50's 1x1s on K5
+    assert [s.counts.get("k5_convs", 0) for s in rec.spans] == [convs] * 4
     for out in outs:
         assert torch.equal(out, want)
 
