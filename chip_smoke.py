@@ -12,7 +12,7 @@ trajectories.
 Phases (any failure exits non-zero, and no result line is printed):
 1. build the CUDA kernels from playaid_core_torch/csrc with nvcc (sm_90a:
    K1 crop_resize, K2 residual_block, K3 viterbi, K4 yuv420_unpack, K5
-   conv1x1_gemm and
+   conv1x1_gemm, K6 ssd_scan and
    K3's chain floor, one nvcc each, all at once) and, at the same time,
    the native log parser (native/log_parser.cpp) with g++, which links no
    FFmpeg library;
@@ -37,7 +37,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    embed's k5_convs (36 a ResNet-50
    call, 0 a ResNet-18 one), a replay against the eager call, and the
    replayed embed against the cuDNN chain's (python3 chip_smoke.py --k5
-   runs phase 1's build and this alone);
+   runs phase 1's build and this alone); (d) K6, the Mamba-2 SSD scan
+   (csrc/ssd_scan.cu), at the granite-h-micro.match-seq cell's shapes
+   ([2, 5632] rows, 64 heads of 64, state 128, one group, views of one
+   row-major xBC as the mixer hands them over) against its twin, at 700
+   rows (padded) and on a [2, 1024] x 8-head slice against the
+   reference's recurrence in float64 (K6_TOL of max|ref|); its call and
+   device ms beside the eager chunked form's and its bound
+   (portbench/k6.py); a small Granite head through classify_buffer with
+   K6: ssd_layers on its playaid.head span, its Viterbi labels against the
+   reference's decode and its confidences against the reference's
+   (python3 chip_smoke.py --k6 runs phase 1's build and this alone);
 4. the device slice from pinned frames, with PyTorch's default TF32 flags
    (the entry points set their own float32 numerics): per chunk upload ->
    preprocess_frames (K1) -> embed_crops (ResNet-18, its five identity blocks through K2)
@@ -1451,6 +1461,225 @@ def k5_main():
         print(f"chip_smoke --k5: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "k5_checks": "passed"}))
+    return 0
+
+
+# ---- K6: the Mamba-2 SSD scan (csrc/ssd_scan.cu) ----
+
+K6_TOL = 1e-4            # of max|ref|: K6 against its twin and a float64 recurrence
+K6_ROWS = 5632           # a fighter's 5,400 rows of a 10,800-frame VOD at stride 2, in 22 chunks
+K6_KERNEL = "ssd_scan_"  # its four kernels
+K6_SLICE = (1024, 8)     # rows (four chunks) and heads of the float64 recurrence's slice
+K6_CONF_TOL = 3e-5       # points: the cell's conf_err limit (limits/granite-h-micro.match-seq.json)
+
+
+def granite_config():
+    with open(os.path.join(ROOT, "portbench", "configs", "granite-h-micro.json")) as f:
+        return json.load(f)
+
+
+def k6_inputs(torch, dev, rows=K6_ROWS, seed=0):
+    """The scan's inputs at the cell's widths (64 heads of 64, state 128,
+    one group), as the Granite mixer hands them to K6: x, B and C strided
+    views of one [2, rows, 4352] SiLU output; dt the softplus of a draw
+    plus Mamba-2's initial dt_bias; A uniform in [-16, -1]; D 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    heads, p, n = 64, 64, 128
+    xbc = torch.nn.functional.silu(torch.randn(2, rows, heads * p + 2 * n, generator=gen,
+                                               device=dev))
+    xs, bm, cm = xbc.split([heads * p, n, n], dim=-1)
+    u = torch.rand(2, heads, generator=gen, device=dev)
+    dt0 = torch.exp(u[1] * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = torch.nn.functional.softplus(
+        torch.randn(2, rows, heads, generator=gen, device=dev) * 0.5 + dt_bias)
+    return (xs.view(2, rows, heads, p), dt, -(1 + 15 * u[0]), bm.view(2, rows, 1, n),
+            cm.view(2, rows, 1, n), torch.ones(heads, device=dev))
+
+
+def _rel(out, ref):
+    return float((out.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def k6_checks(torch, dev, check):
+    """Phase 3 (d) (a)-(c): K6 against its twin at the cell's shapes, at a
+    length that is no whole chunk, and on a slice against the reference's
+    recurrence in float64."""
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.ssd_scan import ssd_scan, ssd_scan_ref
+    from portbench.catalog import Catalog
+
+    family = Catalog().family("granite_hybrid")
+    out = {}
+    with torch.no_grad(), full_float32():
+        args = k6_inputs(torch, dev)
+        k6 = ssd_scan(*args)
+        twin = ssd_scan_ref(*args)
+        out["twin_rel_err"] = _rel(k6, twin)
+        check(out["twin_rel_err"] <= K6_TOL,
+              f"phase 3 (d): K6 at [2, {K6_ROWS}] x 64 heads x 64, state 128: max abs err / "
+              f"max|twin| {out['twin_rel_err']:.3e} (tol {K6_TOL}); max|y| "
+              f"{float(twin.abs().max()):.3f}")
+        short = k6_inputs(torch, dev, rows=700, seed=1)
+        out["padded_rel_err"] = _rel(ssd_scan(*short), ssd_scan_ref(*short))
+        check(out["padded_rel_err"] <= K6_TOL,
+              f"phase 3 (d): K6 at 700 rows (padded to 768): max abs err / max|twin| "
+              f"{out['padded_rel_err']:.3e} (tol {K6_TOL})")
+        rows, heads = K6_SLICE
+        x, dt, a, b, c, d = args
+        sl = (x[:, :rows, :heads], dt[:, :rows, :heads], a[:heads], b[:, :rows], c[:, :rows],
+              d[:heads])
+        ref64 = family.ssd_recurrence(*(t.double() for t in sl))
+        out["slice_k6_rel_err"] = _rel(ssd_scan(*sl), ref64)
+        out["slice_twin_rel_err"] = _rel(ssd_scan_ref(*sl), ref64)
+        out["slice_ref32_rel_err"] = _rel(family.ssd_recurrence(*sl), ref64)
+        check(max(out["slice_k6_rel_err"], out["slice_twin_rel_err"]) <= K6_TOL,
+              f"phase 3 (d): the slice [2, {rows}] x {heads} heads against the reference's "
+              f"recurrence in float64: K6 {out['slice_k6_rel_err']:.3e}, twin "
+              f"{out['slice_twin_rel_err']:.3e}, the float32 recurrence "
+              f"{out['slice_ref32_rel_err']:.3e} of max|ref| (tol {K6_TOL})")
+    return out
+
+
+def k6_timing(torch, dev):
+    """Phase 3 (d) (d): K6 at the cell's shapes beside the eager chunked
+    form (its twin): call ms (CUDA events), device ms (the trace), and the
+    least time from shapes (portbench/k6.py)."""
+    from playaid_core_torch.device import full_float32
+    from playaid_core_torch.ops.ssd_scan import ssd_scan, ssd_scan_ref
+    from portbench import k6, roofline
+
+    args = k6_inputs(torch, dev)
+    flops, nbytes = k6.ssd_counts(2 * K6_ROWS, granite_config())
+    with torch.no_grad(), full_float32():
+        k6_call = time_cuda(torch, lambda _: ssd_scan(*args), 20)
+        k6_dev, per_call = device_ms(torch, lambda _: ssd_scan(*args), 10, K6_KERNEL, 4)
+        twin_call = time_cuda(torch, lambda _: ssd_scan_ref(*args), 5, warmup=1)
+        twin_dev, twin_kernels = span_device_ms(torch, lambda _: ssd_scan_ref(*args), 3, warmup=1)
+    least = roofline.least_s(flops, nbytes) * 1e3
+    res = {"k6_call_ms": k6_call, "k6_device_ms": k6_dev, "k6_kernels_per_call": per_call,
+           "twin_call_ms": twin_call, "twin_device_ms": twin_dev,
+           "twin_kernels_per_call": twin_kernels, "bound_ms": least,
+           "bound": "bytes" if nbytes / PEAK_HBM_BYTES > flops / PEAK_TF32_FLOPS else "operations",
+           "flops": flops, "bytes": nbytes,
+           "roofline_pct": 100 * least / k6_dev if k6_dev else None}
+    log(f"K6 at [2, {K6_ROWS}] x 64 x 64, state 128 (one layer): call {k6_call:.4f} ms, device "
+        f"{k6_dev} ms ({per_call} kernels a call); the eager chunked form: call "
+        f"{twin_call:.4f} ms, device {twin_dev} ms ({twin_kernels} kernels a call); bound "
+        f"{least:.4f} ms ({res['bound']}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return res
+
+
+@contextlib.contextmanager
+def granite_sizes(sizes):
+    """``models/granite_hybrid.PUBLISHED`` updated with ``sizes`` while the
+    block runs: the head that ``BatchedActionPipeline`` makes then."""
+    from playaid_core_torch.models import granite_hybrid
+
+    published = granite_hybrid.PUBLISHED
+    granite_hybrid.PUBLISHED = dict(published, **sizes)
+    try:
+        yield granite_hybrid.PUBLISHED
+    finally:
+        granite_hybrid.PUBLISHED = published
+
+
+def k6_head_check(torch, dev, check):
+    """Phase 3 (d) (e): a small Granite head whose Mamba-2 layers have the
+    published head and state sizes (so K6 runs them), through
+    ``classify_buffer`` on the card: ssd_layers on its playaid.head span,
+    its labels against the reference's Viterbi decode of the reference's
+    log-probs, and its confidences against 100 exp of those log-probs."""
+    from playaid_core_torch import profiling
+    from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+    from portbench.catalog import Catalog
+    from portbench.reference import ops as ref_ops
+
+    rows = 600
+    with granite_sizes({"hidden_size": 256, "layer_types": ["mamba", "attention", "mamba"],
+                        "shared_intermediate_size": 512, "num_attention_heads": 4,
+                        "num_key_value_heads": 2, "mamba_n_heads": 8}) as small:
+        pipe = BatchedActionPipeline(family="granite_hybrid", device=dev)
+    config = dict(granite_config(), **small)
+    family = Catalog().family("granite_hybrid")
+    sd = family.weights(config, 7, dev, ROOT)
+    pipe.load_state_dicts(sd)
+    seq = 3 * torch.randn(2, rows, 512, generator=torch.Generator(device=dev).manual_seed(8),
+                          device=dev)
+    buf = pipe.make_embedding_buffer(rows)
+    buf[:2 * rows] = seq.transpose(0, 1).reshape(-1, 512)
+    with torch.no_grad():
+        ref = family.sequence_head(seq, sd["head"], config).cpu().numpy()
+    out = {}
+    for cost in (0.05, 16.0):
+        with profiling.recording() as rec:
+            labels, conf = pipe.classify_buffer(buf, rows, decode="viterbi", switch_cost=cost)
+        head = [s.counts for s in rec.spans if s.name == "playaid.head"]
+        want = ref_ops.viterbi(ref, cost).T
+        labels = labels.cpu().numpy()
+        mismatch = int((labels != want).sum())
+        at = ref[np.arange(2)[None, :], np.arange(rows)[:, None], labels]
+        conf_err = float(np.abs(conf.cpu().numpy() - 100 * np.exp(at.astype(np.float64))).max())
+        check(head == [{"windows": 2 * 768, "positions": 2 * 768, "ssd_layers": 2}],
+              f"phase 3 (d): a small Granite head through classify_buffer on the card: its "
+              f"playaid.head counts {head} (want 768 positions a fighter and 2 Mamba-2 layers "
+              f"on K6)")
+        check(mismatch == 0 and conf_err <= K6_CONF_TOL,
+              f"phase 3 (d): its Viterbi labels at {cost} nats against the reference's decode "
+              f"of the reference's log-probs: {mismatch} of {labels.size} differ "
+              f"({int((np.diff(want, axis=0) != 0).sum())} label changes in the reference's); "
+              f"confidence max abs err {conf_err:.3e} points (tol {K6_CONF_TOL})")
+        out[f"head_counts_{cost:g}"] = head
+        out[f"head_label_mismatch_{cost:g}"] = mismatch
+        out[f"head_conf_err_{cost:g}"] = conf_err
+    return out
+
+
+def run_k6_phase(torch, dev, check):
+    """Phase 3 (d): K6 against its twin and the reference's recurrence, its
+    timing beside the eager chunked form, and a small head through it.
+    Returns K6's summary, which it also writes to build/smoke/k6_smoke.json."""
+    res = {"name": "K6 ssd_scan", "source": "playaid_core_torch/csrc/ssd_scan.cu",
+           **k6_checks(torch, dev, check), **k6_timing(torch, dev),
+           **k6_head_check(torch, dev, check)}
+    path = os.path.join(ROOT, "build", "smoke", "k6_smoke.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(res, f)
+    return res
+
+
+def k6_main():
+    """``python3 chip_smoke.py --k6``: phase 1's kernel build and phase 3
+    (d) alone; prints the card's line and K6's summary."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from playaid_core_torch.ops import _build
+
+    failures = []
+
+    def check(ok, what):
+        log(f"{'ok  ' if ok else 'FAIL'} {what}")
+        if not ok:
+            failures.append(what)
+
+    card = nvidia_smi_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("built in", "entry function", "registers", "spill")):
+                log(f"  {name}: {line.strip()}")
+    res = run_k6_phase(torch, torch.device("cuda", 0), check)
+    print(card, flush=True)
+    print(json.dumps(res), flush=True)
+    if failures:
+        print(f"chip_smoke --k6: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "k6_checks": "passed"}))
     return 0
 
 
@@ -5242,6 +5471,8 @@ def main():
         return mesh_rank_main(int(sys.argv[2]))
     if sys.argv[1:2] == ["--k5"]:
         return k5_main()
+    if sys.argv[1:2] == ["--k6"]:
+        return k6_main()
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
@@ -5439,6 +5670,9 @@ def main():
 
     # ---- phase 3 (c): K5 at every 1x1 shape of ResNet-50, its trunk, its count ----
     k5 = run_k5_phase(torch, dev, check)
+
+    # ---- phase 3 (d): K6, the Mamba-2 scan, against its twin and the recurrence ----
+    k6 = run_k6_phase(torch, dev, check)
 
     # ---- phase 4: the slice ----
     num_chunks = (NUM_FRAMES + CHUNK - 1) // CHUNK
@@ -5992,6 +6226,7 @@ def main():
     kernels[0]["gt_launches"] = k1_gt_launches
     kernels[1].update({f"gt_{k[3:]}": v for k, v in gt.items() if k.startswith("k2_")})
     kernels.append(k5)
+    kernels.append(k6)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     if failures:

@@ -129,11 +129,7 @@ class GraphCache:
     @staticmethod
     def _replay(held, x):
         out = held.graph.run(x)
-        for name, n in held.graph.counts.items():
-            if isinstance(name, str):
-                profiling.count(name, n)
-            else:
-                _build.count_launch(name, n)
+        _build.recount(held.graph.counts)
         profiling.count("graph_replays", 1)
         return out
 

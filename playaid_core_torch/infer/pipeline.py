@@ -1,5 +1,5 @@
 """Batched two-fighter action-recognition pipeline: the CNN, ResFormer and
-RNN families.
+RNN families, and the Granite 4.0-H hybrid family.
 
 Counterpart of ``playaid_core_tpu/infer/pipeline.py``.  Every crop goes
 through the family's frame encoder once; middle-out windows are then
@@ -12,8 +12,8 @@ gathered over the embedding sequence and classified by the temporal head:
    ``embed_windows`` (windows cut out on the host, resized by the same
    crop kernel's window entry on the card): crops ->
    per-frame embeddings: ResNet-18 -> 1000 (CNN), ResNet-50 -> 2048 -> 247
-   (ResFormer), ResNet-18 -> 512 -> 300 (RNN).  ResNet-18's identity
-   blocks are the CUDA kernel ``csrc/residual_block.cu`` on the card, and
+   (ResFormer), ResNet-18 -> 512 -> 300 (RNN), ResNet-18 -> 512 (Granite).
+   ResNet-18's identity blocks are the CUDA kernel ``csrc/residual_block.cu`` on the card, and
    ``embed_crops_yuv`` replays the unpack and the embed as one CUDA graph
    for each chunk shape there (``infer/graph_cache.py``);
 3. ``make_embedding_buffer`` + ``scatter_embeddings``: embeddings
@@ -22,7 +22,10 @@ gathered over the embedding sequence and classified by the temporal head:
    (dense head; transformer; LSTM) -> log-probs -> argmax or Viterbi
    (the CUDA kernel ``csrc/viterbi.cu`` on the card, both fighters in one
    launch) labels and confidences.  The transformer and LSTM heads give a
-   prediction per step; the window's centre step labels its frame.
+   prediction per step; the window's centre step labels its frame.  The
+   Granite head (``models/granite_hybrid.py``) reads no windows: it runs
+   once over each fighter's rows in frame order, causally, over the true
+   rows rounded up to its SSD chunk, and labels every row.
 
 Weights live in the pipeline's modules: load them with
 :meth:`BatchedActionPipeline.load_variables` (a JAX-layout numpy tree or
@@ -44,6 +47,7 @@ from playaid_core_torch import profiling
 from playaid_core_torch.convert import split_monolithic, to_state_dicts
 from playaid_core_torch.device import full_float32, resolve_device
 from playaid_core_torch.infer.graph_cache import GraphCache
+from playaid_core_torch.models.granite_hybrid import GraniteHybridHead, padded_length
 from playaid_core_torch.models.resnet import ResNet18, ResNet50, at_least_float32
 from playaid_core_torch.models.resnet_transformer import TransformerEncoderLayer, time_encoding
 from playaid_core_torch.models.rnn_action_detector import StackedLSTM
@@ -58,7 +62,8 @@ from playaid_core_torch.ops.viterbi import viterbi_decode
 from playaid_core_torch.ops.yuv import yuv420_to_rgb
 from playaid_core_torch.parallel.mesh import parallel_linear
 
-FAMILIES = ("cnn", "resformer", "rnn")
+FAMILIES = ("cnn", "resformer", "rnn")  # heads over middle-out windows
+SEQUENCE_FAMILIES = ("granite_hybrid",)  # heads over each fighter's whole sequence
 
 
 class CNNEmbed(ResNet18):
@@ -177,11 +182,26 @@ class RNNTemporalHead(nn.Module):
             return torch.log_softmax(at_least_float32(self.decoder_out(y)), dim=2)
 
 
+class SequenceEmbed(nn.Module):
+    """ResNet-18's pooled features: ``[N, S, S, 3]`` -> ``[N, 512]``, the
+    Granite head's input."""
+
+    def __init__(self):
+        super().__init__()
+        self.resnet = ResNet18(num_classes=0)
+
+    def forward(self, crops):
+        with full_float32():
+            return self.resnet(crops.permute(0, 3, 1, 2))
+
+
 class BatchedActionPipeline:
     """Fused preprocess -> embed-once -> window-gather -> classify.
 
     ``device=None`` means the CUDA device, and raises without one; pass
-    ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+    ``device="cpu"`` to run the plain PyTorch versions on the CPU.  The
+    ``granite_hybrid`` family's head (``models/granite_hybrid.PUBLISHED``)
+    is made on the pipeline's device.
     """
 
     # Embedding buffers round up to powers of two below this many frames
@@ -190,8 +210,9 @@ class BatchedActionPipeline:
 
     def __init__(self, family="cnn", num_actions=63, sequence_length=7, frame_delta=3,
                  crop_size=128, device=None):
-        if family not in FAMILIES:
-            raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+        if family not in FAMILIES + SEQUENCE_FAMILIES:
+            raise ValueError(f"family must be one of {FAMILIES + SEQUENCE_FAMILIES}, "
+                             f"got {family!r}")
         self.family = family
         self.num_actions = num_actions
         self.sequence_length = sequence_length
@@ -204,6 +225,10 @@ class BatchedActionPipeline:
         elif family == "resformer":
             embed = ResFormerEmbed()
             head = ResFormerTemporalHead(num_actions, sequence_length)
+        elif family == "granite_hybrid":
+            embed = SequenceEmbed()
+            with torch.device(self.device):  # 3 billion parameters: made in place
+                head = GraniteHybridHead(num_actions)
         else:
             embed = RNNEmbed()
             head = RNNTemporalHead(num_actions)
@@ -216,7 +241,7 @@ class BatchedActionPipeline:
 
     @property
     def embed_dim(self):
-        return {"cnn": 1000, "resformer": 247, "rnn": 300}[self.family]
+        return {"cnn": 1000, "resformer": 247, "rnn": 300, "granite_hybrid": 512}[self.family]
 
     def load_state_dicts(self, state):
         """Load ``{"embed": ..., "head": ...}`` state dicts (strictly)."""
@@ -435,13 +460,37 @@ class BatchedActionPipeline:
             raise ValueError(f"decode must be 'argmax' or 'viterbi', got {decode!r}")
         return labels, conf
 
+    def _sequence_log_probs(self, seqs, true_len, min_frame):
+        """Sequences ``[B, F, D]`` -> the sequence head's log-probs ``[B, L,
+        A]`` of their first L rows, L ``true_len`` rounded up to the head's
+        SSD chunk (zero rows appended where F is shorter).  The head is
+        causal, so rows at or past ``true_len`` change no earlier row.  Its
+        call is the span ``playaid.head``, counting ``positions`` (B x L, the
+        rows it ran) and ``windows`` (the same: each position is the causal
+        window of its prefix); the head adds ``ssd_layers``."""
+        if min_frame:
+            raise ValueError(f"the {self.family} head reads each sequence from its first row; "
+                             f"min_frame must be 0, got {min_frame}")
+        length = padded_length(int(true_len), self.head.chunk)
+        seqs = seqs[:, :length]
+        if seqs.shape[1] < length:
+            seqs = torch.nn.functional.pad(seqs, (0, 0, 0, length - seqs.shape[1]))
+        n = seqs.shape[0] * length
+        with profiling.span("playaid.head", windows=n, positions=n):
+            return self.head(seqs.contiguous())
+
     def _two_fighter_tail(self, per_fighter, true_len, min_frame, smooth_radius=0,
                           decode="argmax", switch_cost=4.0):
         """Interleaved ``[F, 2, D]`` embeddings -> (labels ``[F, 2]``,
-        confidence ``[F, 2]``); both fighters decode together."""
-        log_probs = self._window_log_probs(per_fighter, true_len, min_frame)  # [F, 2, A]
-        labels, conf = self._decode(log_probs.transpose(0, 1), true_len, smooth_radius, decode,
-                                    switch_cost)
+        confidence ``[F, 2]``); both fighters decode together.  A sequence
+        family labels ``[L, 2]``, L the rows its head ran."""
+        if self.family in SEQUENCE_FAMILIES:
+            log_probs = self._sequence_log_probs(per_fighter.transpose(0, 1), true_len,
+                                                 min_frame)  # [2, L, A]
+        else:
+            log_probs = self._window_log_probs(per_fighter, true_len,
+                                               min_frame).transpose(0, 1)  # [2, F, A]
+        labels, conf = self._decode(log_probs, true_len, smooth_radius, decode, switch_cost)
         return labels.t(), conf.t()
 
     @torch.inference_mode()
@@ -450,7 +499,8 @@ class BatchedActionPipeline:
         """Embedding buffer ``[F_pad * 2, D]`` -> (labels ``[true_len, 2]``,
         confidence ``[true_len, 2]``, in percent), in the span
         ``playaid.classify`` counting ``rows``; the head's call is its child
-        ``playaid.head``, counting the ``windows`` of the padded buffer."""
+        ``playaid.head``, counting the ``windows`` of the padded buffer (a
+        sequence family's: :meth:`_sequence_log_probs`)."""
         with profiling.span("playaid.classify", rows=true_len):
             per_fighter = buf.reshape(buf.shape[0] // 2, 2, -1).float()
             labels, conf = self._two_fighter_tail(per_fighter, true_len, min_frame,
@@ -483,7 +533,10 @@ class BatchedActionPipeline:
         eager PyTorch needs no padding.)
         """
         f = embeddings.shape[0]
-        log_probs = self._window_log_probs(embeddings.float(), f, min_frame)
+        if self.family in SEQUENCE_FAMILIES:
+            log_probs = self._sequence_log_probs(embeddings.float()[None], f, min_frame)[0, :f]
+        else:
+            log_probs = self._window_log_probs(embeddings.float(), f, min_frame)
         labels, conf = (a[0] for a in self._decode(log_probs[None], f, smooth_radius, decode,
                                                     switch_cost))
         if return_raw:

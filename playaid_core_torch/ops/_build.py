@@ -27,7 +27,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("conv1x1_gemm", "crop_resize", "residual_block", "viterbi", "yuv420_unpack")
+KERNELS = ("conv1x1_gemm", "crop_resize", "residual_block", "ssd_scan", "viterbi",
+           "yuv420_unpack")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _launch_lock = threading.Lock()
@@ -115,3 +116,14 @@ def count_launch(wrapper, n: int = 1) -> None:
         return
     with _launch_lock:
         wrapper.launches += n
+
+
+def recount(counts) -> None:
+    """Add the counts a ``profiling.tally`` held where they would have gone:
+    a name's to ``profiling.count``, a wrapper's launches to
+    :func:`count_launch`."""
+    for name, n in counts.items():
+        if isinstance(name, str):
+            profiling.count(name, n)
+        else:
+            count_launch(name, n)

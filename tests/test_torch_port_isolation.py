@@ -385,6 +385,7 @@ def test_port_imports_with_jax_blocked():
     imported = set(proc.stdout.split())
     for name in ("convert", "device", "infer.pipeline", "infer.vod_pipeline", "models.resnet",
                  "models.resnet_transformer", "models.rnn_action_detector", "ops._build",
+                 "models.granite_hybrid", "ops.ssd_scan",
                  "ops.conv_block", "ops.crop_kernel", "ops.preprocess", "video.native_decoder",
                  "video.native_encoder", "adict", "models.lightning_ckpt",
                  "models.torch_convert", *CARD_PATH, *PIXELS_PATH, *TRAIN_PATH,
@@ -454,6 +455,35 @@ def test_manuscript_path_runs_with_host_packages_blocked():
     proc = subprocess.run([sys.executable, "-c", _MANUSCRIPT_WITHOUT_HOST_PACKAGES], cwd=ROOT,
                           env=_env(), capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
+
+
+_GRANITE_WITHOUT_HOST_PACKAGES = f"""
+import sys
+for name in {BANNED + HOST_ONLY!r}:
+    sys.modules[name] = None
+import torch
+from playaid_core_torch.infer.pipeline import BatchedActionPipeline
+from playaid_core_torch.models import granite_hybrid
+from playaid_core_torch.ops.ssd_scan import ssd_scan
+granite_hybrid.PUBLISHED = dict(  # a tiny head in place of the published 12 GB
+    granite_hybrid.PUBLISHED, hidden_size=32, layer_types=["mamba", "attention"],
+    shared_intermediate_size=32, mamba_n_heads=2, mamba_d_head=32, mamba_d_state=8,
+    mamba_chunk_size=4, num_attention_heads=2, num_key_value_heads=1)
+pipe = BatchedActionPipeline(family="granite_hybrid", device="cpu").init(0)
+buf = pipe.make_embedding_buffer(6)
+labels, conf = pipe.classify_buffer(buf, 6, decode="viterbi", switch_cost=16.0)
+assert tuple(labels.shape) == (6, 2)
+print("ok")
+"""
+
+
+def test_granite_head_runs_with_host_packages_blocked():
+    """The Granite hybrid head and K6's wrapper (models/granite_hybrid.py,
+    ops/ssd_scan.py) on a machine without cv2, PIL, yaml, click or JAX (the
+    card's): they import, and a tiny head labels a buffer through its twin."""
+    proc = subprocess.run([sys.executable, "-c", _GRANITE_WITHOUT_HOST_PACKAGES], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 @pytest.mark.parametrize("module", ["infer.ocr_conv", "infer.runner"])
